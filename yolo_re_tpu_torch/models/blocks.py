@@ -1,0 +1,318 @@
+"""GELAN / YOLOv9 building blocks as `nn.Module`s (counterpart of
+yolo_re_tpu/models/blocks.py).
+
+Submodules carry the reference state-dict names that
+`yolo_re_tpu/convert/torch_export.py` emits (`conv`, `bn`, `conv1`,
+`bottlenecks.0`, `block1.0`, ...), so JAX weights load with `strict=True`
+through `yolo_re_tpu_torch.convert.state_dict_from_jax`.
+
+Forward passes are inference (eval) passes over running BN statistics;
+train mode waits for a later slice of the port. Each block with BN has a
+`fuse()` that folds it in place (BN into the conv, RepConv's 3x3 + 1x1
+into one 3x3). Two fused blocks run hand-written CUDA kernels on a CUDA
+tensor: the Cin=3 stem `Conv` (ops/kernels/stem.py) and `ADown`
+(ops/kernels/adown.py).
+
+Constructor arguments are the JAX package's block config fields, so the
+plan builder passes the same YAML parameters to both packages.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from yolo_re_tpu_torch.ops.conv import (
+    BN_EPS,
+    BN_MOMENTUM,
+    autopad,
+    avg_pool2d,
+    conv_bn_act,
+    fold_conv_bn,
+    get_activation,
+    max_pool2d,
+    upsample_nearest,
+)
+from yolo_re_tpu_torch.ops.kernels import adown as adown_kernel
+from yolo_re_tpu_torch.ops.kernels import stem as stem_kernel
+
+
+def _biased_conv(like: nn.Conv2d, w: torch.Tensor,
+                 b: torch.Tensor) -> nn.Conv2d:
+    """A biased Conv2d with `like`'s geometry holding (w, b)."""
+    conv = nn.Conv2d(like.in_channels, like.out_channels, like.kernel_size,
+                     like.stride, like.padding, like.dilation, like.groups,
+                     bias=True, device=w.device, dtype=like.weight.dtype)
+    with torch.no_grad():
+        conv.weight.copy_(w)
+        conv.bias.copy_(b)
+    return conv
+
+
+# ---------------------------------------------------------------------------
+# Conv
+# ---------------------------------------------------------------------------
+
+class Conv(nn.Module):
+    """Conv2d(bias=False) + BN(eps=1e-3, mom=0.03) + activation.
+
+    Reference: src/yolo/blocks/conv.py:55-93. After `fuse()` the conv
+    carries the folded bias and `bn` is None.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 1, stride: int = 1,
+                 padding: int | None = None, groups: int = 1,
+                 dilation: int = 1, activation: str = "silu"):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
+                              autopad(kernel_size, padding, dilation),
+                              dilation=dilation, groups=groups, bias=False)
+        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS,
+                                 momentum=BN_MOMENTUM)
+        self.activation = activation
+        # the stem geometry the CUDA stem kernel computes
+        self.is_stem = (in_channels == 3 and kernel_size == 3 and stride == 2
+                        and padding in (None, 1) and groups == 1
+                        and dilation == 1 and activation == "silu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bn is None and self.is_stem:
+            return stem_kernel.stem_conv(
+                x.contiguous(memory_format=torch.channels_last),
+                self.conv.weight, self.conv.bias)
+        return conv_bn_act(x, self.conv, self.bn, self.activation)
+
+    def fuse(self) -> None:
+        if self.bn is None:
+            return
+        w, b = fold_conv_bn(self.conv.weight, self.bn)
+        self.conv = _biased_conv(self.conv, w, b)
+        self.bn = None
+
+
+# ---------------------------------------------------------------------------
+# RepConv
+# ---------------------------------------------------------------------------
+
+class RepConv(nn.Module):
+    """Parallel 3x3 + 1x1 conv branches summed before the activation.
+
+    Reference: src/yolo/blocks/conv.py:109-145. `fuse()` collapses both
+    folded branches into the single 3x3 conv `fused`.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 groups: int = 1, activation: str = "silu"):
+        super().__init__()
+        if kernel_size != 3 or padding != 1:
+            raise ValueError("RepConv only supports 3x3 kernels")
+        self.conv1 = Conv(in_channels, out_channels, 3, stride, 1, groups,
+                          activation="none")
+        self.conv2 = Conv(in_channels, out_channels, 1, stride, 0, groups,
+                          activation="none")
+        self.fused: nn.Conv2d | None = None
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = get_activation(self.activation)
+        if self.fused is not None:
+            return act(self.fused(x))
+        return act(self.conv1(x) + self.conv2(x))
+
+    def fuse(self) -> None:
+        if self.fused is not None:
+            return
+        w1, b1 = fold_conv_bn(self.conv1.conv.weight, self.conv1.bn)
+        w2, b2 = fold_conv_bn(self.conv2.conv.weight, self.conv2.bn)
+        self.fused = _biased_conv(self.conv1.conv, w1 + F.pad(w2, (1, 1, 1, 1)),
+                                  b1 + b2)
+        self.conv1 = None
+        self.conv2 = None
+
+
+# ---------------------------------------------------------------------------
+# RepNBottleneck / RepNCSP / RepNCSPELAN4
+# ---------------------------------------------------------------------------
+
+class RepNBottleneck(nn.Module):
+    """RepConv -> Conv with optional residual (reference:
+    src/yolo/blocks/bottleneck.py:26-55)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 shortcut: bool = True, groups: int = 1,
+                 kernel_sizes: tuple[int, int] = (3, 3),
+                 expansion_ratio: float = 0.5):
+        super().__init__()
+        hidden = int(out_channels * expansion_ratio)
+        self.conv1 = RepConv(in_channels, hidden, kernel_sizes[0], 1)
+        self.conv2 = Conv(hidden, out_channels, kernel_sizes[1], 1,
+                          groups=groups)
+        self.residual = shortcut and in_channels == out_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv2(self.conv1(x))
+        return x + y if self.residual else y
+
+
+class RepNCSP(nn.Module):
+    """CSP bottleneck with RepNBottleneck inner blocks (reference:
+    src/yolo/blocks/csp.py:28-64)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 num_repeats: int = 1, shortcut: bool = True,
+                 groups: int = 1, expansion_ratio: float = 0.5):
+        super().__init__()
+        hidden = int(out_channels * expansion_ratio)
+        self.conv1 = Conv(in_channels, hidden, 1, 1)
+        self.conv2 = Conv(in_channels, hidden, 1, 1)
+        self.conv3 = Conv(2 * hidden, out_channels, 1)
+        self.bottlenecks = nn.ModuleList(
+            RepNBottleneck(hidden, hidden, shortcut, groups,
+                           expansion_ratio=1.0)
+            for _ in range(num_repeats))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y1 = self.conv1(x)
+        for b in self.bottlenecks:
+            y1 = b(y1)
+        return self.conv3(torch.cat([y1, self.conv2(x)], dim=1))
+
+
+class RepNCSPELAN4(nn.Module):
+    """The GELAN workhorse: split, two CSP+conv branches, 4-way concat.
+
+    Reference: src/yolo/blocks/gelan.py:27-66.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 hidden_channels: int, block_channels: int,
+                 num_repeats: int = 1):
+        super().__init__()
+        h, b = hidden_channels, block_channels
+        self.conv_in = Conv(in_channels, h, 1, 1)
+        self.block1 = nn.Sequential(RepNCSP(h // 2, b, num_repeats),
+                                    Conv(b, b, 3, 1))
+        self.block2 = nn.Sequential(RepNCSP(b, b, num_repeats),
+                                    Conv(b, b, 3, 1))
+        self.conv_out = Conv(h + 2 * b, out_channels, 1, 1)
+        self.half = h // 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv_in(x)
+        ya, yb = y[:, :self.half], y[:, self.half:]
+        y1 = self.block1(yb)
+        y2 = self.block2(y1)
+        return self.conv_out(torch.cat([ya, yb, y1, y2], dim=1))
+
+
+# ---------------------------------------------------------------------------
+# SPPELAN
+# ---------------------------------------------------------------------------
+
+class SPPELAN(nn.Module):
+    """Spatial pyramid pooling: 3 chained MaxPool(5,1,2) + 4-way concat.
+
+    Reference: src/yolo/blocks/sppelan.py:24-52.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 hidden_channels: int):
+        super().__init__()
+        self.conv_in = Conv(in_channels, hidden_channels, 1, 1)
+        self.conv_out = Conv(4 * hidden_channels, out_channels, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y0 = self.conv_in(x)
+        y1 = max_pool2d(y0, 5, 1, 2)
+        y2 = max_pool2d(y1, 5, 1, 2)
+        y3 = max_pool2d(y2, 5, 1, 2)
+        return self.conv_out(torch.cat([y0, y1, y2, y3], dim=1))
+
+
+# ---------------------------------------------------------------------------
+# ADown
+# ---------------------------------------------------------------------------
+
+class ADown(nn.Module):
+    """Stride-2 downsample: avgpool -> split -> (3x3 s2 conv | maxpool+1x1).
+
+    Reference: src/yolo/blocks/downsample.py:24-50. Once fused, the whole
+    block is one call of the ADown kernel (ops/kernels/adown.py).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv_stride = Conv(in_channels // 2, out_channels // 2, 3, 2, 1)
+        self.conv_pool = Conv(in_channels // 2, out_channels // 2, 1, 1, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv_stride.bn is None and self.conv_pool.bn is None:
+            cs, cp = self.conv_stride.conv, self.conv_pool.conv
+            return adown_kernel.adown(
+                x.contiguous(memory_format=torch.channels_last),
+                cs.weight, cs.bias, cp.weight, cp.bias)
+        x = avg_pool2d(x, 2, 1, 0)
+        x1, x2 = x.chunk(2, dim=1)
+        y1 = self.conv_stride(x1)
+        y2 = self.conv_pool(max_pool2d(x2, 3, 2, 1))
+        return torch.cat([y1, y2], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Concat / Upsample
+# ---------------------------------------------------------------------------
+
+class Concat(nn.Module):
+    """Channel concat (reference: src/yolo/blocks/common.py:20-37)."""
+
+    def __init__(self, dimension: int = 1):
+        super().__init__()
+        self.dimension = dimension
+
+    def forward(self, xs: list[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(xs, dim=self.dimension)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour integer upsample (reference uses nn.Upsample)."""
+
+    def __init__(self, scale_factor: int = 2, mode: str = "nearest"):
+        super().__init__()
+        if mode != "nearest":
+            raise ValueError(f"unsupported upsample mode {mode}")
+        self.scale_factor = int(scale_factor)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample_nearest(x, self.scale_factor)
+
+
+BLOCKS: dict[str, type[nn.Module]] = {
+    "Conv": Conv,
+    "RepConv": RepConv,
+    "RepNBottleneck": RepNBottleneck,
+    "RepNCSP": RepNCSP,
+    "RepNCSPELAN4": RepNCSPELAN4,
+    "SPPELAN": SPPELAN,
+    "ADown": ADown,
+    "Concat": Concat,
+    "Upsample": Upsample,
+}
+
+# Blocks of the JAX package that gelan-c does not use: a later slice.
+NOT_PORTED = ("CBLinear", "CBFuse", "Silence", "DualDetectDFL")
+
+
+def get_block_class(name: str) -> type[nn.Module]:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"block {name} is not ported to yolo_re_tpu_torch yet (the "
+            f"port's first slice covers gelan-c's blocks: {sorted(BLOCKS)})")
+    try:
+        return BLOCKS[name]
+    except KeyError:
+        raise ValueError(
+            f"Unknown block type: {name}. Available: {sorted(BLOCKS)}"
+        ) from None

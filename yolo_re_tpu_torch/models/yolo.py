@@ -1,0 +1,117 @@
+"""The YOLO model: `nn.Module` over a static plan (counterpart of
+yolo_re_tpu/models/yolo.py).
+
+Layers live in `self.layers` (an `nn.ModuleDict` keyed by the YAML layer
+names), so parameters carry the reference state-dict names
+(`layers.stem1.conv.weight`, ...). `forward` is the eval pass: train mode
+(BN batch statistics, the loss's raw outputs) waits for the train slice.
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+
+import torch
+from torch import nn
+
+from yolo_re_tpu_torch.models import blocks as B
+from yolo_re_tpu_torch.models.builder import INPUT, Plan, build_plan
+from yolo_re_tpu_torch.models.config import ModelConfig, parse_yaml
+from yolo_re_tpu_torch.models.fuse import fuse_model
+from yolo_re_tpu_torch.models.heads import DetectDFL
+
+
+class YOLO(nn.Module):
+    """YOLO detection model over a static plan.
+
+    Example:
+        model = YOLO.from_yaml("configs/models/gelan-c.yaml")
+        model.init_parameters(torch.Generator().manual_seed(0))
+        decoded, raw = model(images_nchw)      # eval only
+    """
+
+    def __init__(self, plan: Plan, config: ModelConfig | None = None):
+        super().__init__()
+        self.plan = plan
+        self.config = config
+        self.num_classes = plan.num_classes
+        self.strides = plan.strides
+        self.layers = nn.ModuleDict()
+        for step in plan.steps:
+            cls = DetectDFL if step.type == "DetectDFL" else \
+                B.get_block_class(step.type)
+            self.layers[step.name] = cls(**step.kwargs)
+        # layer outputs that later steps read; the rest are dropped
+        self._save_names = {n for step in plan.steps for n in step.inputs}
+        self.eval()
+
+    # -- construction -----------------------------------------------------
+
+    @classmethod
+    def from_config(cls, config: ModelConfig,
+                    input_channels: int = 3) -> "YOLO":
+        return cls(build_plan(config, input_channels), config)
+
+    @classmethod
+    def from_yaml(cls, path: str | Path, input_channels: int = 3,
+                  num_classes: int | None = None) -> "YOLO":
+        config = parse_yaml(path)
+        if num_classes is not None:
+            config.num_classes = num_classes
+        return cls.from_config(config, input_channels)
+
+    # -- parameters --------------------------------------------------------
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> "YOLO":
+        """The JAX package's init, drawn from `generator` (CPU):
+        conv weights (and the head's conv biases) U(-1/sqrt(fan_in), +),
+        BN scale 1, bias 0, running mean 0, var 1, then the head's bias
+        init. Same distributions as yolo_re_tpu, not the same numbers."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
+                bound = 1.0 / math.sqrt(fan_in)
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        u = torch.rand(p.shape, generator=generator)
+                        p.copy_(u * (2 * bound) - bound)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+        for m in self.modules():
+            if isinstance(m, DetectDFL):
+                m.init_bias()
+        return self
+
+    def fuse(self) -> "YOLO":
+        """Fold all BN (and RepConv branches) for inference, in place."""
+        fuse_model(self)
+        return self
+
+    # -- execution ----------------------------------------------------------
+
+    def forward(self, x: torch.Tensor):
+        """x: (B, 3, H, W) float; run in torch.channels_last memory.
+
+        Returns (decoded (B, A, 4+nc) f32, raw per-level maps)."""
+        if self.training:
+            raise RuntimeError(
+                "YOLO.forward is the eval pass; train mode is not ported yet "
+                "(call .eval())")
+        x = x.contiguous(memory_format=torch.channels_last)
+        outputs = {INPUT: x}
+        out = x
+        last = self.plan.steps[-1].name
+        for step in self.plan.steps:
+            if len(step.inputs) == 1:
+                inp = outputs[step.inputs[0]]
+            else:
+                inp = [outputs[n] for n in step.inputs]
+            if step.name == self.plan.detect_name and \
+                    not isinstance(inp, list):
+                inp = [inp]
+            out = self.layers[step.name](inp)
+            if step.name in self._save_names or step.name == last:
+                outputs[step.name] = out
+        return out

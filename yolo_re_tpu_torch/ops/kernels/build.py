@@ -1,0 +1,123 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+All sources under ``yolo_re_tpu_torch/csrc/*.cu`` compile with ``nvcc``
+into ONE shared library with a plain C interface, loaded with ``ctypes``
+(no PyTorch headers, so the build takes seconds). The build happens at
+first use, never at import, into ``yolo_re_tpu_torch/_build/<key>/``
+(listed in ``.gitignore``); the key hashes the sources, the flags and the
+compiler, so an edited kernel rebuilds and an unchanged one is reused.
+
+There is no fallback: a missing ``nvcc`` or a failing build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_NAME = "libyolo_kernels.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argtypes. Every entry returns cudaGetLastError().
+SIGNATURES = {
+    # x, w, b, y, B, H, W, C, dtype, stream
+    "yolo_stem_conv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, dtype, stream
+    "yolo_adown": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # boxes, scores, out_idx, B, K, max_det, iou_thres, stream
+    "yolo_nms_select": (_P, _P, _P, _I, _I, _I, _F, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+last_build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(found).exists():
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+            "yolo_re_tpu_torch are built from source at first use")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def build_key(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc.encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library if no build for the current sources exists;
+    return its path."""
+    global last_build_seconds
+    nvcc = _nvcc()
+    out_dir = BUILD_DIR / build_key(nvcc)
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    units = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    t0 = time.perf_counter()
+    # build under a temporary name, then rename: a concurrent or cut-off
+    # build never leaves a half-written library under the final name
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *units]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    last_build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.yolo_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.yolo_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = library().yolo_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
