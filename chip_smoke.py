@@ -14,7 +14,19 @@ non-zero (no phase is caught):
    served on cuda and on the CPU (plain versions) in f32: equal detections;
 5. gelan-c at full width: random weights from seed 0, fused, bf16, four
    requests of 32 frames of 720x1280 uint8 through Detector, with the
-   kernels' launch counters held to the path's layout.
+   kernels' launch counters held to the path's layout;
+6. the four train kernels (stem raw + weight grad, ADown raw + backward)
+   against their plain versions at gelan-c's 640 px, batch 32 train
+   shapes, in f32 and bf16: outputs and dx within `tolerance`, weight
+   gradients within a relative L2 of 1e-5 (f32) / 2e-2 (bf16), and times;
+7. TINY_YAML, f32: 12 Trainer steps on cuda (kernels) and on the CPU
+   (plain versions) from the same init; the loss curves must track within
+   the bounds of scripts/validate_loss_curve.py (2% relative for the first
+   half, 8% after);
+8. gelan-c training at full width, 640 px, batch 32, bf16: synthetic uint8
+   batches (data/synth.py, numpy seed 0), one warm-up Trainer step, then
+   five through Trainer.train_one_epoch with the train kernels' launch
+   counters held to one stem pair and five ADown pairs per step.
 
 The last three lines are the card's nvidia-smi line, a JSON line with one
 entry per kernel, and {"ok": true, "device": {...}}.
@@ -37,6 +49,8 @@ from yolo_re_tpu_torch.data.synth import TINY_YAML, make_eval_batch
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.kernels import adown, build, nms, stem
 from yolo_re_tpu_torch.serving import Detector
+from yolo_re_tpu_torch.train.config import TrainConfig
+from yolo_re_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
 BATCH, SIZE, FRAME_HW, REQUESTS = 32, 640, (720, 1280), 4
@@ -45,6 +59,10 @@ ADOWN_SHAPES = {"down1": (256, 160, 160, 256), "down2": (512, 80, 80, 512),
                 "down3": (512, 40, 40, 512), "pan_down1": (256, 80, 80, 256),
                 "pan_down2": (512, 40, 40, 512)}
 NMS_SHAPES = (512, 8400)   # serving candidates; all anchors at 640 px
+TRAIN_STEPS = 5            # counted gelan-c train steps (after one warm-up)
+# weight gradients, kernel vs plain: relative L2 (both sum f32 products in
+# another order; bf16 inputs are exact in f32)
+WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
@@ -155,6 +173,181 @@ def phase_kernels(dev) -> dict:
         print(f"  nms K={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         res["nms"][k] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms}
     return res
+
+
+def check_rel(name: str, y: torch.Tensor, ref: torch.Tensor,
+              dtype: torch.dtype) -> float:
+    rel = float((y.float() - ref.float()).norm() / ref.float().norm())
+    tol = WGRAD_REL[dtype]
+    print(f"  {name}: rel L2 {rel:.3e} (tolerance {tol:.0e}) "
+          f"{'ok' if rel <= tol else 'FAIL'}")
+    if rel > tol or not torch.isfinite(y).all():
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version ({rel} > {tol})")
+    return float((y.float() - ref.float()).abs().max())
+
+
+def phase_train_kernels(dev) -> dict:
+    """The four train kernels against their plain versions at gelan-c's
+    train shapes. Returns the bf16 numbers per kernel (ADown: summed over
+    the five shapes); these launches are outside phase 8's counted run."""
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*shape, scale=1.0, dtype=torch.float32, cl=False):
+        t = (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if cl else t
+
+    res = {k: {} for k in ("stem_raw", "stem_wgrad", "adown_raw",
+                           "adown_bwd")}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        x = rand(BATCH, 3, SIZE, SIZE, dtype=dtype, cl=True)
+        w = rand(64, 3, 3, 3, scale=0.3, dtype=dtype)
+        err = check_close(f"stem_raw {tag} {tuple(x.shape)}->64",
+                          stem.stem_conv_raw(x, w),
+                          stem.stem_conv_raw_plain(x, w), dtype)
+        ms = cuda_ms(lambda: stem.stem_conv_raw(x, w))
+        plain_ms = cuda_ms(lambda: stem.stem_conv_raw_plain(x, w))
+        print(f"  stem_raw {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        res["stem_raw"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+        gy = rand(BATCH, 64, SIZE // 2, SIZE // 2, dtype=dtype, cl=True)
+        err = check_rel(f"stem_wgrad {tag} g {tuple(gy.shape)}",
+                        stem.stem_wgrad(x, gy), stem.stem_wgrad_plain(x, gy),
+                        dtype)
+        ms = cuda_ms(lambda: stem.stem_wgrad(x, gy))
+        plain_ms = cuda_ms(lambda: stem.stem_wgrad_plain(x, gy))
+        print(f"  stem_wgrad {tag}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+        res["stem_wgrad"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+        del x, gy
+
+        tot = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+               for k in ("adown_raw", "adown_bwd")}
+        for name, (cin, h, wd, cout) in ADOWN_SHAPES.items():
+            x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
+            w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype)
+            w2 = rand(cout // 2, cin // 2, 1, 1, scale=0.06, dtype=dtype)
+            err = check_close(f"adown_raw {name} {tag} {tuple(x.shape)}",
+                              adown.adown_raw(x, w1, w2),
+                              adown.adown_raw_plain(x, w1, w2), dtype)
+            ms = cuda_ms(lambda: adown.adown_raw(x, w1, w2), 5)
+            plain_ms = cuda_ms(lambda: adown.adown_raw_plain(x, w1, w2), 5)
+            print(f"  adown_raw {name} {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms")
+            t = tot["adown_raw"]
+            t["err"], t["ms"], t["plain_ms"] = (
+                max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
+
+            gy = rand(BATCH, cout, h // 2, wd // 2, dtype=dtype, cl=True)
+            dx, dw1, dw2 = adown.adown_bwd(x, gy, w1, w2)
+            rdx, rdw1, rdw2 = adown.adown_bwd_plain(x, gy, w1, w2)
+            # max_abs_err is dx's; the weight gradients (sums over ~1e5
+            # pixels, values up to ~1e4) are held by relative L2
+            err = check_close(f"adown_bwd {name} {tag} dx", dx, rdx, dtype)
+            check_rel(f"adown_bwd {name} {tag} dW1", dw1, rdw1, dtype)
+            check_rel(f"adown_bwd {name} {tag} dW2", dw2, rdw2, dtype)
+            del dx, dw1, dw2, rdx, rdw1, rdw2
+            ms = cuda_ms(lambda: adown.adown_bwd(x, gy, w1, w2), 5)
+            plain_ms = cuda_ms(lambda: adown.adown_bwd_plain(x, gy, w1, w2),
+                               5)
+            print(f"  adown_bwd {name} {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms")
+            t = tot["adown_bwd"]
+            t["err"], t["ms"], t["plain_ms"] = (
+                max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
+            del x, gy
+        for k, v in tot.items():
+            res[k][tag] = v
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_tiny_train(dev, tmp: Path) -> None:
+    """12 f32 TINY_YAML Trainer steps on cuda and on the CPU, same init
+    (seed 0) and batches; bounds of scripts/validate_loss_curve.py."""
+    path = tmp / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    batches = [make_eval_batch(2, 96, 11 + i) for i in range(3)]
+    loader = [batches[i % 3] for i in range(12)]
+    curves = []
+    for d in (dev, torch.device("cpu")):
+        cfg = TrainConfig(epochs=1, data_parallel=False,
+                          output_dir=str(tmp / d.type))
+        tr = Trainer(YOLO.from_yaml(path), config=cfg, train_loader=loader,
+                     device=d)
+        curves.append([float(tr.train_step(b["images"], b["targets"])[0])
+                       for b in loader])
+    ok = True
+    for s, (a, b) in enumerate(zip(*curves)):
+        rel = abs(a - b) / max(abs(b), 1e-9)
+        bound = 0.02 if s < 6 else 0.08
+        ok &= rel < bound
+        print(f"  step {s:2d}: cuda {a:.5f} cpu {b:.5f} rel {rel:.2e} "
+              f"(bound {bound})")
+    if not ok:
+        raise AssertionError("tiny train: cuda and cpu loss curves diverge")
+
+
+def phase_gelan_c_train(dev, tmp: Path) -> dict:
+    model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
+    batches = [make_eval_batch(BATCH, SIZE, seed)
+               for seed in range(TRAIN_STEPS + 1)]
+    cfg = TrainConfig(epochs=1, compute_dtype="bfloat16", data_parallel=False,
+                      output_dir=str(tmp / "gelan-c"), log_interval=1)
+    trainer = Trainer(model, config=cfg, train_loader=batches[1:],
+                      device=dev)
+    before = {"params": {k: v.clone() for k, v in trainer.params.items()},
+              "stats": {k: v.clone() for k, v in trainer.stats.items()},
+              "ema": {k: v.clone() for k, v in trainer.ema["params"].items()}}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _, _ = trainer.train_step(batches[0]["images"],
+                                    batches[0]["targets"])     # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    print(f"  warm-up step {warm * 1e3:.1f} ms, loss {float(loss):.4f}")
+
+    stem.raw_launches = stem.wgrad_launches = 0
+    adown.raw_launches = adown.bwd_launches = 0
+    t0 = time.perf_counter()
+    items = trainer.train_one_epoch(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"stem_raw": stem.raw_launches,
+              "stem_wgrad": stem.wgrad_launches,
+              "adown_raw": adown.raw_launches, "adown_bwd": adown.bwd_launches}
+    print(f"  launches {counts} over {TRAIN_STEPS} steps")
+    want = {"stem_raw": TRAIN_STEPS, "stem_wgrad": TRAIN_STEPS,
+            "adown_raw": 5 * TRAIN_STEPS, "adown_bwd": 5 * TRAIN_STEPS}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    if not np.isfinite(items).all():
+        raise AssertionError(f"gelan-c train: loss items {items}")
+    changed = {
+        "params": sum(not torch.equal(v, trainer.params[k])
+                      for k, v in before["params"].items()),
+        "stats": sum(not torch.equal(v, trainer.stats[k])
+                     for k, v in before["stats"].items()),
+        "ema": sum(not torch.equal(v, trainer.ema["params"][k])
+                   for k, v in before["ema"].items())}
+    total = {k: len(v) for k, v in before.items()}
+    same = [k for k, v in before["params"].items()
+            if torch.equal(v, trainer.params[k])]
+    print(f"  tensors changed {changed} of {total}; mean items box/cls/dfl "
+          f"{[round(float(v), 4) for v in items]}")
+    if same:
+        # an update below the f32 resolution of the value leaves it as is
+        print(f"  unchanged parameters: {same}")
+    # every BN buffer moves with its batch statistics; a parameter can keep
+    # its value when its six updates stay below its f32 resolution
+    if changed["stats"] != total["stats"] or any(
+            changed[k] < 0.95 * total[k] for k in ("params", "ema")):
+        raise AssertionError("gelan-c train: state did not change")
+    ms = dt / TRAIN_STEPS * 1e3
+    print(f"  {ms:.1f} ms/step, {BATCH * TRAIN_STEPS / dt:.1f} images/s "
+          f"(bf16, batch {BATCH}, {SIZE} px, {TRAIN_STEPS} steps); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts
 
 
 def phase_tiny_fixture(dev, tmp: Path) -> None:
@@ -278,6 +471,15 @@ def main() -> int:
     print("phase 5: gelan-c serving")
     counts = phase_gelan_c(dev)
 
+    print("phase 6: train kernels against their plain versions")
+    tres = phase_train_kernels(dev)
+
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 7: TINY_YAML training, cuda against cpu")
+        phase_tiny_train(dev, Path(td))
+        print("phase 8: gelan-c training")
+        tcounts = phase_gelan_c_train(dev, Path(td))
+
     kernels = [
         {"name": "stem_conv", "route": "cuda",
          "source": "yolo_re_tpu_torch/csrc/stem.cu",
@@ -301,8 +503,26 @@ def main() -> int:
          "ms": res["nms"][512]["ms"],
          "plain_ms": res["nms"][512]["plain_ms"]},
     ]
-    print("(kernel ms/plain_ms: bf16 at the serving shapes; adown is the sum "
-          "of gelan-c's five ADown shapes, nms is K=512)")
+    train_kernels = (
+        ("stem_conv_raw", "stem_raw", "stem.cu",
+         "stem_kernel.py:265"),
+        ("stem_wgrad", "stem_wgrad", "stem_wgrad.cu", "stem_kernel.py:331"),
+        ("adown_raw", "adown_raw", "adown.cu", "adown_kernel.py:233"),
+        ("adown_bwd", "adown_bwd", "adown_bwd.cu",
+         "adown_train_kernel.py:366"))
+    for name, key, src, tpu in train_kernels:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"yolo_re_tpu_torch/csrc/{src}",
+            "replaces": f"yolo_re_tpu/ops/pallas/{tpu}",
+            "launches": tcounts[key],
+            "max_abs_err": tres[key]["bf16"]["err"],
+            "ms": tres[key]["bf16"]["ms"],
+            "plain_ms": tres[key]["bf16"]["plain_ms"]})
+    print("(kernel ms/plain_ms: bf16 at the serving and train shapes; adown "
+          "kernels are the sum of gelan-c's five ADown shapes, nms is K=512; "
+          "adown_bwd's max_abs_err is dx's, stem_wgrad's dW's; train "
+          "launches are from phase 8's counted steps)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ from yolo_re_tpu_torch.data.synth import TINY_YAML, make_eval_batch
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.kernels import adown, nms, stem
 from yolo_re_tpu_torch.serving import Detector
+from yolo_re_tpu_torch.train.config import TrainConfig
+from yolo_re_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +117,102 @@ def test_detector_cuda_matches_cpu(cuda, tmp_path):
     np.testing.assert_allclose(a["boxes"], b["boxes"], atol=1e-2)
     np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-4)
     assert a["valid"].sum(1).min() >= 1
+
+
+# ---------------------------------------------------------------------------
+# train kernels (stem raw + weight grad, ADown raw + backward)
+# ---------------------------------------------------------------------------
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+# weight gradients, relative L2 (chip_smoke.py's bounds): f32 sums in
+# another order; bf16 rounds the avg and the max to bf16 before the
+# tensor-core product, against the plain version's f32 values
+WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,c", [((2, 3, 32, 48), 64),
+                                     ((1, 3, 25, 31), 16)])
+def test_stem_train_kernels_match_plain(cuda, dtype, shape, c):
+    g0 = torch.Generator().manual_seed(3)
+    x = _rand(g0, *shape, dtype=dtype, cl=True).to(cuda)
+    w = _rand(g0, c, 3, 3, 3, scale=0.3, dtype=dtype).to(cuda)
+    before = (stem.raw_launches, stem.wgrad_launches)
+    y = stem.stem_conv_raw(x, w)
+    g = _rand(g0, *y.shape, dtype=dtype, cl=True).to(cuda)
+    dw = stem.stem_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert (stem.raw_launches, stem.wgrad_launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(y.float(),
+                               stem.stem_conv_raw_plain(x, w).float(),
+                               atol=ATOL[dtype], rtol=0)
+    assert dw.dtype == torch.float32 and dw.shape == (c, 3, 3, 3)
+    assert _rel_l2(dw, stem.stem_wgrad_plain(x, g)) <= WGRAD_REL[dtype]
+    assert torch.equal(dw, stem.stem_wgrad(x, g))      # fixed-order sums
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [((2, 32, 16, 24), 32),
+                                        ((1, 48, 10, 10), 48),
+                                        ((2, 256, 16, 16), 256),
+                                        ((1, 64, 9, 7), 64),
+                                        ((1, 40, 8, 10), 24)])
+def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout):
+    """Channel counts 32 and 48 are TINY_YAML's (48 takes the CUDA-core
+    forward in bf16), 256 gelan-c's; odd H, W hit the avg-domain edges; the
+    last shape's branch channels (20 in, 12 out) are not multiples of 8,
+    so bf16 takes the CUDA-core backward too. Inputs are quantized to
+    halves so that maxpool ties are common."""
+    g0 = torch.Generator().manual_seed(4)
+    cin = shape[1]
+    x = (torch.round(torch.randn(*shape, generator=g0) * 2) / 2).to(dtype) \
+        .contiguous(memory_format=torch.channels_last).to(cuda)
+    w1 = _rand(g0, cout // 2, cin // 2, 3, 3, scale=0.05, dtype=dtype).to(cuda)
+    w2 = _rand(g0, cout // 2, cin // 2, 1, 1, scale=0.1, dtype=dtype).to(cuda)
+    before = (adown.raw_launches, adown.bwd_launches)
+    y = adown.adown_raw(x, w1, w2)
+    g = _rand(g0, *y.shape, dtype=dtype, cl=True).to(cuda)
+    dx, dw1, dw2 = adown.adown_bwd(x, g, w1, w2)
+    torch.cuda.synchronize()
+    assert (adown.raw_launches, adown.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(y.float(),
+                               adown.adown_raw_plain(x, w1, w2).float(),
+                               atol=ATOL[dtype], rtol=0)
+    rdx, rdw1, rdw2 = adown.adown_bwd_plain(x, g, w1, w2)
+    assert dx.dtype == dtype and dx.is_contiguous(
+        memory_format=torch.channels_last)
+    torch.testing.assert_close(dx.float(), rdx.float(), atol=ATOL[dtype],
+                               rtol=0)
+    assert _rel_l2(dw1, rdw1) <= WGRAD_REL[dtype]
+    assert _rel_l2(dw2, rdw2) <= WGRAD_REL[dtype]
+    again = adown.adown_bwd(x, g, w1, w2)                # fixed-order sums
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dw1, dw2)))
+
+
+def test_tiny_train_step_cuda_matches_cpu(cuda, tmp_path):
+    """One f32 TINY_YAML train step from the same init: cuda (kernels)
+    against the CPU (plain versions)."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    batch = make_eval_batch(4, 96, 5)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg = TrainConfig(data_parallel=False, output_dir=str(tmp_path))
+        tr = Trainer(YOLO.from_yaml(path), config=cfg, train_loader=[batch],
+                     device=dev)
+        before = (stem.raw_launches, adown.bwd_launches)
+        loss, items, _ = tr.train_step(batch["images"], batch["targets"])
+        if dev.type == "cuda":
+            assert stem.raw_launches == before[0] + 1
+            assert adown.bwd_launches == before[1] + 4
+        out.append((float(loss), {k: v.detach().cpu()
+                                  for k, v in tr.params.items()}))
+    (loss_c, p_c), (loss_h, p_h) = out
+    assert abs(loss_c - loss_h) <= 1e-4 * abs(loss_h)
+    for k in p_h:
+        torch.testing.assert_close(p_c[k], p_h[k], atol=1e-5, rtol=1e-4)

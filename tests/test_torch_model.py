@@ -320,6 +320,8 @@ def test_init_parameters_matches_jax_distributions():
 
 
 def test_forward_refuses_train_mode(tiny_yaml):
-    model = YOLO.from_yaml(tiny_yaml).train()
+    """Train mode runs the unfused model (tests/test_torch_train.py); a
+    fused model has no BN left to train and refuses it."""
+    model = YOLO.from_yaml(tiny_yaml).fuse().train()
     with pytest.raises(RuntimeError, match="eval"):
         model(torch.zeros(1, 3, 32, 32))

@@ -1,4 +1,5 @@
-"""The weight bridge: JAX-package weights -> this package's state dict.
+"""The weight bridge between JAX-package weights and this package's state
+dict, both ways.
 
 - `state_dict_from_jax(plan, params, stats)` maps the JAX (params, stats)
   pytrees, as numpy arrays, onto the port's reference-schema state dict:
@@ -6,6 +7,9 @@
   running_mean/running_var (the key schema of
   yolo_re_tpu/convert/torch_export.py). `YOLO.load_state_dict(...,
   strict=True)` takes the result.
+- `jax_from_state_dict(plan, state_dict)` is its inverse: the port's state
+  dict -> the JAX package's (params, stats) numpy pytrees, so both
+  packages read each other's checkpoints (train/checkpoint.py).
 - `load_weights(path)` reads the JAX package's `.npz` weight files without
   jax: bare weights (`params/...`, `stats/...`) or the EMA weights of a
   full training checkpoint (`ema_params/...`, `ema_stats/...`); the
@@ -181,3 +185,119 @@ def state_dict_from_jax(plan: Plan, params: dict, stats: dict) -> SD:
         emit(out, f"layers.{step.name}.", params[step.name],
              stats[step.name])
     return out
+
+
+# ---------------------------------------------------------------------------
+# state dict -> (params, stats): the inverse of the emitters above
+# ---------------------------------------------------------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy()
+
+
+def _hwio(t: torch.Tensor) -> np.ndarray:
+    """Conv kernel OIHW -> HWIO."""
+    return np.ascontiguousarray(np.transpose(_np(t), (2, 3, 1, 0)))
+
+
+def _conv_inv(sd: SD, p: str) -> tuple[dict, dict]:
+    return ({"w": _hwio(sd[p + "conv.weight"]),
+             "scale": _np(sd[p + "bn.weight"]),
+             "bias": _np(sd[p + "bn.bias"])},
+            {"mean": _np(sd[p + "bn.running_mean"]),
+             "var": _np(sd[p + "bn.running_var"])})
+
+
+def _named_inv(sd: SD, items) -> tuple[dict, dict]:
+    """items: (JAX name, state-dict prefix, inverse emitter) triples."""
+    params, stats = {}, {}
+    for name, prefix, inv in items:
+        params[name], stats[name] = inv(sd, prefix)
+    return params, stats
+
+
+def _count(sd: SD, prefix: str) -> int:
+    """Number of list entries `prefix<i>.` in the state dict."""
+    return len({k[len(prefix):].split(".")[0] for k in sd
+                if k.startswith(prefix)})
+
+
+def _repconv_inv(sd: SD, p: str) -> tuple[dict, dict]:
+    return _named_inv(sd, [("conv1", p + "conv1.", _conv_inv),
+                           ("conv2", p + "conv2.", _conv_inv)])
+
+
+def _repncsp_inv(sd: SD, p: str) -> tuple[dict, dict]:
+    params, stats = _named_inv(sd, [(n, f"{p}{n}.", _conv_inv)
+                                    for n in ("conv1", "conv2", "conv3")])
+    params["bottlenecks"], stats["bottlenecks"] = [], []
+    for i in range(_count(sd, p + "bottlenecks.")):
+        bp, bs = _named_inv(sd, [
+            ("conv1", f"{p}bottlenecks.{i}.conv1.", _repconv_inv),
+            ("conv2", f"{p}bottlenecks.{i}.conv2.", _conv_inv)])
+        params["bottlenecks"].append(bp)
+        stats["bottlenecks"].append(bs)
+    return params, stats
+
+
+def _elan_inv(sd: SD, p: str) -> tuple[dict, dict]:
+    return _named_inv(sd, [("conv_in", p + "conv_in.", _conv_inv),
+                           ("csp1", p + "block1.0.", _repncsp_inv),
+                           ("conv1", p + "block1.1.", _conv_inv),
+                           ("csp2", p + "block2.0.", _repncsp_inv),
+                           ("conv2", p + "block2.1.", _conv_inv),
+                           ("conv_out", p + "conv_out.", _conv_inv)])
+
+
+def _pair_inv(a: str, b: str):
+    def inv(sd: SD, p: str) -> tuple[dict, dict]:
+        return _named_inv(sd, [(a, f"{p}{a}.", _conv_inv),
+                               (b, f"{p}{b}.", _conv_inv)])
+    return inv
+
+
+def _detect_inv(sd: SD, p: str) -> tuple[dict, dict]:
+    towers, tstats = [], []
+    for i in range(_count(sd, p + "box_convs.")):
+        tp, ts = {}, {}
+        for kind in ("box", "cls"):
+            prefix = f"{p}{kind}_convs.{i}."
+            tp[kind], ts[kind] = [], []
+            for j in (0, 1):
+                cp, cs = _conv_inv(sd, f"{prefix}{j}.")
+                tp[kind].append(cp)
+                ts[kind].append(cs)
+            tp[kind].append({"w": _hwio(sd[f"{prefix}2.weight"]),
+                             "b": _np(sd[f"{prefix}2.bias"])})
+            ts[kind].append({})
+        towers.append(tp)
+        tstats.append(ts)
+    return {"towers": towers}, {"towers": tstats}
+
+
+_INVERSES = {
+    "Conv": _conv_inv,
+    "RepConv": _repconv_inv,
+    "RepNCSPELAN4": _elan_inv,
+    "SPPELAN": _pair_inv("conv_in", "conv_out"),
+    "ADown": _pair_inv("conv_stride", "conv_pool"),
+    "DetectDFL": _detect_inv,
+}
+
+
+def jax_from_state_dict(plan: Plan, state_dict: SD) -> tuple[dict, dict]:
+    """This package's state dict (reference schema) -> the JAX package's
+    (params, stats) pytrees of float32 numpy arrays, keyed by layer name
+    (parameter-free layers map to empty dicts, as JAX's init gives them)."""
+    params, stats = {}, {}
+    for step in plan.steps:
+        if step.type in _PARAMETER_FREE:
+            params[step.name], stats[step.name] = {}, {}
+            continue
+        inv = _INVERSES.get(step.type)
+        if inv is None:
+            raise NotImplementedError(
+                f"no weight mapping for block {step.type}")
+        params[step.name], stats[step.name] = inv(
+            state_dict, f"layers.{step.name}.")
+    return params, stats

@@ -54,6 +54,10 @@
 // - everything else (f32; bf16 with other channel counts): CUDA cores, an
 //   8x8-pixel tile and a 4-pixel x 4-channel f32 register tile per thread.
 // wgmma, TMA and a swizzled layout for the A loads are later work.
+//
+// The same kernels give the pre-BN train forward (yolo_adown_raw, replacing
+// adown_from_packed(raw=True) of the TPU kernel): raw = 1 skips the bias
+// and the SiLU. Its backward is csrc/adown_bwd.cu.
 #include <mma.h>
 
 #include "common.cuh"
@@ -78,7 +82,8 @@ __global__ void __launch_bounds__(kThreads)
 adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
              const T* __restrict__ b1, const T* __restrict__ w2,
              const T* __restrict__ b2, T* __restrict__ y, int H, int W,
-             int Cin, int Cout, int Ho, int Wo, int tiles_w, int co_tiles) {
+             int Cin, int Cout, int Ho, int Wo, int tiles_w, int co_tiles,
+             int raw) {
   extern __shared__ float smem[];
   float* avg_s = smem;                    // [kPatch][kPatch][kCK]
   float* w_s = avg_s + kAvgFloats;        // [tap][kCK][kCoT] (branch 2: tap 0)
@@ -194,7 +199,7 @@ adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     __syncthreads();
   }
 
-  // epilogue: bias + SiLU, into channels [branch*Co + co] of the output
+  // epilogue: bias + SiLU (raw: neither), into channels [branch*Co + co]
   const T* bias = branch == 0 ? b1 : b2;
   const int oy = oy0 + pr;
   if (oy >= Ho) return;
@@ -202,13 +207,13 @@ adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   for (int j = 0; j < 4; ++j) {
     const int co = co0 + 4 * cg + j;
     if (co >= Co) continue;
-    const float bj = to_f32(bias[co]);
+    const float bj = raw ? 0.0f : to_f32(bias[co]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ox = ox0 + pc0 + i;
       if (ox >= Wo) continue;
       y[(((size_t)b * Ho + oy) * Wo + ox) * Cout + branch * Co + co] =
-          from_f32<T>(silu(acc[i][j] + bj));
+          from_f32<T>(raw ? acc[i][j] : silu(acc[i][j] + bj));
     }
   }
 }
@@ -258,7 +263,7 @@ adown_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                   const bf16* __restrict__ b1, const bf16* __restrict__ w2,
                   const bf16* __restrict__ b2, bf16* __restrict__ y, int H,
                   int W, int Cin, int Cout, int Ho, int Wo, int tiles_w,
-                  int co_tiles) {
+                  int co_tiles, int raw) {
   __shared__ __align__(128) unsigned char tc_smem[kSmemBytes];
   bf16* avg_s = reinterpret_cast<bf16*>(tc_smem);    // [kPR][kPC][kCK]
   bf16* w_s = avg_s + kAvgElems;                      // [tap][kCK][kWLd]
@@ -390,13 +395,15 @@ adown_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     const int oy = oy0 + p / kTC, ox = ox0 + p % kTC, gco = co0 + co;
     if (oy < Ho && ox < Wo && gco < Co)
       y[(((size_t)b * Ho + oy) * Wo + ox) * Cout + branch * Co + gco] =
-          __float2bfloat16(silu(stage[e] + __bfloat162float(bias[gco])));
+          __float2bfloat16(raw ? stage[e]
+                               : silu(stage[e] + __bfloat162float(bias[gco])));
   }
 }
 
 cudaError_t launch_wmma(const void* x, const void* w1, const void* b1,
                         const void* w2, const void* b2, void* y, int B, int H,
-                        int W, int Cin, int Cout, cudaStream_t stream) {
+                        int W, int Cin, int Cout, int raw,
+                        cudaStream_t stream) {
   const int Ho = H / 2, Wo = W / 2;
   const int tiles_w = ceil_div(Wo, kTC), tiles_h = ceil_div(Ho, kTR);
   const int co_tiles = ceil_div(Cout / 2, kCoT);
@@ -405,7 +412,7 @@ cudaError_t launch_wmma(const void* x, const void* w1, const void* b1,
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
       static_cast<const bf16*>(b2), static_cast<bf16*>(y), H, W, Cin, Cout,
-      Ho, Wo, tiles_w, co_tiles);
+      Ho, Wo, tiles_w, co_tiles, raw);
   return cudaGetLastError();
 }
 
@@ -414,7 +421,7 @@ cudaError_t launch_wmma(const void* x, const void* w1, const void* b1,
 template <typename T>
 cudaError_t launch(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* y, int B, int H,
-                   int W, int Cin, int Cout, cudaStream_t stream) {
+                   int W, int Cin, int Cout, int raw, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -431,8 +438,20 @@ cudaError_t launch(const void* x, const void* w1, const void* b1,
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2),
       static_cast<const T*>(b2), static_cast<T*>(y), H, W, Cin, Cout, Ho,
-      Wo, tiles_w, co_tiles);
+      Wo, tiles_w, co_tiles, raw);
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* x, const void* w1, const void* b1,
+                     const void* w2, const void* b2, void* y, int B, int H,
+                     int W, int Cin, int Cout, int dtype, int raw,
+                     cudaStream_t s) {
+  if (dtype == kBFloat16 && Cin % 16 == 0 && Cout % 16 == 0)
+    return tc::launch_wmma(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, raw, s);
+  if (dtype == kBFloat16)
+    return launch<__nv_bfloat16>(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout,
+                                 raw, s);
+  return launch<float>(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, raw, s);
 }
 
 }  // namespace
@@ -446,11 +465,16 @@ extern "C" int yolo_adown(const void* x, const void* w1, const void* b1,
                           const void* w2, const void* b2, void* y, int B,
                           int H, int W, int Cin, int Cout, int dtype,
                           void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == yolo::kBFloat16 && Cin % 16 == 0 && Cout % 16 == 0)
-    return yolo::tc::launch_wmma(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, s);
-  if (dtype == yolo::kBFloat16)
-    return yolo::launch<__nv_bfloat16>(x, w1, b1, w2, b2, y, B, H, W, Cin,
-                                       Cout, s);
-  return yolo::launch<float>(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, s);
+  return yolo::dispatch(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, dtype, 0,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The pre-BN train forward (kernel 5): both branches without bias and
+// SiLU, in x's dtype rounded once from the f32 accumulator. Same layouts
+// and constraints as yolo_adown.
+extern "C" int yolo_adown_raw(const void* x, const void* w1, const void* w2,
+                              void* y, int B, int H, int W, int Cin, int Cout,
+                              int dtype, void* stream) {
+  return yolo::dispatch(x, w1, nullptr, w2, nullptr, y, B, H, W, Cin, Cout,
+                        dtype, 1, static_cast<cudaStream_t>(stream));
 }

@@ -53,7 +53,8 @@ __device__ __forceinline__ void store16<__nv_bfloat16>(__nv_bfloat16* p,
   reinterpret_cast<uint4*>(p)[1] = reinterpret_cast<const uint4*>(h)[1];
 }
 
-template <typename T>
+// Raw = true: the pre-BN train forward (no bias, no SiLU; bias unused).
+template <typename T, bool Raw>
 __global__ void __launch_bounds__(kThreads)
 stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
             const T* __restrict__ bias, T* __restrict__ y, int H, int W,
@@ -72,7 +73,8 @@ stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int ci = r / 9, ky = (r / 3) % 3, kx = r % 3;
     w_s[(9 * ky + 3 * kx + ci) * C + c] = to_f32(w[e]);
   }
-  for (int c = tid; c < C; c += kThreads) b_s[c] = to_f32(bias[c]);
+  if (!Raw)
+    for (int c = tid; c < C; c += kThreads) b_s[c] = to_f32(bias[c]);
 
   // input rows 2*oy0-1 .., cols 2*ox0-1 .., zero padded
   const T* xb = x + (size_t)b * H * W * 3;
@@ -117,17 +119,18 @@ stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
       }
     }
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) acc[j] = silu(acc[j] + b_s[c0 + j]);
+    for (int j = 0; j < kGroup; ++j)
+      if (!Raw) acc[j] = silu(acc[j] + b_s[c0 + j]);
     store16<T>(yp + c0, acc);
   }
 }
 
-template <typename T>
+template <typename T, bool Raw>
 cudaError_t launch(const void* x, const void* w, const void* b, void* y,
                    int B, int H, int W, int C, cudaStream_t stream) {
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
   dim3 grid(ceil_div(Wo, kTW), ceil_div(Ho, kRows), B);
-  stem_kernel<T><<<grid, kThreads, 0, stream>>>(
+  stem_kernel<T, Raw><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(b), static_cast<T*>(y), H, W, C, Ho, Wo);
   return cudaGetLastError();
@@ -142,8 +145,19 @@ extern "C" int yolo_stem_conv(const void* x, const void* w, const void* b,
                               void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == yolo::kBFloat16)
-    return yolo::launch<__nv_bfloat16>(x, w, b, y, B, H, W, C, s);
-  return yolo::launch<float>(x, w, b, y, B, H, W, C, s);
+    return yolo::launch<__nv_bfloat16, false>(x, w, b, y, B, H, W, C, s);
+  return yolo::launch<float, false>(x, w, b, y, B, H, W, C, s);
+}
+
+// The pre-BN train forward: y = conv3x3_s2_p1(x), no bias, no SiLU, in x's
+// dtype rounded once from the f32 accumulator. Same constraints on C.
+extern "C" int yolo_stem_conv_raw(const void* x, const void* w, void* y,
+                                  int B, int H, int W, int C, int dtype,
+                                  void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == yolo::kBFloat16)
+    return yolo::launch<__nv_bfloat16, true>(x, w, nullptr, y, B, H, W, C, s);
+  return yolo::launch<float, true>(x, w, nullptr, y, B, H, W, C, s);
 }
 
 extern "C" const char* yolo_cuda_error_string(int err) {

@@ -6,12 +6,15 @@ Submodules carry the reference state-dict names that
 `bottlenecks.0`, `block1.0`, ...), so JAX weights load with `strict=True`
 through `yolo_re_tpu_torch.convert.state_dict_from_jax`.
 
-Forward passes are inference (eval) passes over running BN statistics;
-train mode waits for a later slice of the port. Each block with BN has a
+`nn.Module.train()` / `.eval()` select the BN statistics: train mode
+normalizes with batch statistics and updates the running ones in place
+(ops/conv.py), eval mode uses the running ones. Each block with BN has a
 `fuse()` that folds it in place (BN into the conv, RepConv's 3x3 + 1x1
-into one 3x3). Two fused blocks run hand-written CUDA kernels on a CUDA
-tensor: the Cin=3 stem `Conv` (ops/kernels/stem.py) and `ADown`
-(ops/kernels/adown.py).
+into one 3x3) for inference. Two blocks run hand-written CUDA kernels on
+a CUDA tensor: the Cin=3 stem `Conv` (fused: ops/kernels/stem.py; train:
+ops/stem_train.py) and `ADown` (fused: ops/kernels/adown.py; train:
+ops/adown_train.py). The JAX package's width-packed train layouts are not
+ported: every block stays NCHW in channels_last memory.
 
 Constructor arguments are the JAX package's block config fields, so the
 plan builder passes the same YAML parameters to both packages.
@@ -23,11 +26,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolo_re_tpu_torch.ops.adown_train import adown_train
 from yolo_re_tpu_torch.ops.conv import (
     BN_EPS,
     BN_MOMENTUM,
     autopad,
     avg_pool2d,
+    batch_norm,
     conv_bn_act,
     fold_conv_bn,
     get_activation,
@@ -36,6 +41,7 @@ from yolo_re_tpu_torch.ops.conv import (
 )
 from yolo_re_tpu_torch.ops.kernels import adown as adown_kernel
 from yolo_re_tpu_torch.ops.kernels import stem as stem_kernel
+from yolo_re_tpu_torch.ops.stem_train import stem_conv_raw_train
 
 
 def _biased_conv(like: nn.Conv2d, w: torch.Tensor,
@@ -72,7 +78,7 @@ class Conv(nn.Module):
         self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS,
                                  momentum=BN_MOMENTUM)
         self.activation = activation
-        # the stem geometry the CUDA stem kernel computes
+        # the stem geometry the CUDA stem kernels compute
         self.is_stem = (in_channels == 3 and kernel_size == 3 and stride == 2
                         and padding in (None, 1) and groups == 1
                         and dilation == 1 and activation == "silu")
@@ -82,6 +88,11 @@ class Conv(nn.Module):
             return stem_kernel.stem_conv(
                 x.contiguous(memory_format=torch.channels_last),
                 self.conv.weight, self.conv.bias)
+        if self.training and self.is_stem:
+            # train stem (ops/stem_train.py): kernel forward + weight-grad
+            # kernel backward, then train BN and SiLU
+            y = stem_conv_raw_train(x, self.conv.weight)
+            return get_activation(self.activation)(batch_norm(y, self.bn))
         return conv_bn_act(x, self.conv, self.bn, self.activation)
 
     def fuse(self) -> None:
@@ -240,7 +251,8 @@ class ADown(nn.Module):
     """Stride-2 downsample: avgpool -> split -> (3x3 s2 conv | maxpool+1x1).
 
     Reference: src/yolo/blocks/downsample.py:24-50. Once fused, the whole
-    block is one call of the ADown kernel (ops/kernels/adown.py).
+    block is one call of the ADown kernel (ops/kernels/adown.py); in train
+    mode it is the kernel pair of ops/adown_train.py plus one train BN.
     """
 
     def __init__(self, in_channels: int, out_channels: int):
@@ -254,6 +266,8 @@ class ADown(nn.Module):
             return adown_kernel.adown(
                 x.contiguous(memory_format=torch.channels_last),
                 cs.weight, cs.bias, cp.weight, cp.bias)
+        if self.training:
+            return adown_train(x, self.conv_stride, self.conv_pool)
         x = avg_pool2d(x, 2, 1, 0)
         x1, x2 = x.chunk(2, dim=1)
         y1 = self.conv_stride(x1)

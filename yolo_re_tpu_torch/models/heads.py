@@ -7,6 +7,10 @@ built once per feature-map geometry. The eval output is
 input pixels, class scores sigmoided. `raw` is the reference's per-level
 (B, 4*reg_max + nc, H, W) maps.
 
+In train mode the output is the JAX package's train output
+(yolo_re_tpu/models/heads.py:197-233): a list of per-level (box, cls) pairs,
+(B, 4*reg_max, H, W) and (B, nc, H, W), f32 from `_final_conv`.
+
 The dual head (DualDetectDFL) waits for a later slice.
 """
 
@@ -106,6 +110,8 @@ class DetectDFL(nn.Module):
             yb = _final_conv(box[2], box[1](box[0](x)))
             yc = _final_conv(cls[2], cls[1](cls[0](x)))
             levels.append((yb, yc))
+        if self.training:
+            return levels
         raw = [torch.cat([yb, yc], dim=1) for yb, yc in levels]
         feat_shapes = [(yb.shape[2], yb.shape[3]) for yb, _ in levels]
         decoded = _decode(levels, self.num_classes, self.reg_max,

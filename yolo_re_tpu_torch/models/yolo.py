@@ -3,8 +3,10 @@ yolo_re_tpu/models/yolo.py).
 
 Layers live in `self.layers` (an `nn.ModuleDict` keyed by the YAML layer
 names), so parameters carry the reference state-dict names
-(`layers.stem1.conv.weight`, ...). `forward` is the eval pass: train mode
-(BN batch statistics, the loss's raw outputs) waits for the train slice.
+(`layers.stem1.conv.weight`, ...). In eval mode `forward` returns the
+decoded predictions; in train mode (`model.train()`: BN batch statistics
+and running-stat updates) the head's per-level (box, cls) pairs that the
+TAL loss takes. `param_labels` groups the parameters for the optimizer.
 """
 
 from __future__ import annotations
@@ -22,13 +24,30 @@ from yolo_re_tpu_torch.models.fuse import fuse_model
 from yolo_re_tpu_torch.models.heads import DetectDFL
 
 
+def param_labels(model: nn.Module) -> dict[str, str]:
+    """Label each parameter 'weight' (conv weights), 'bn' (BN scales) or
+    'bias' (BN shifts and conv biases)."""
+    labels = {}
+    for mod_name, mod in model.named_modules():
+        for p_name, _ in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{p_name}" if mod_name else p_name
+            if isinstance(mod, nn.BatchNorm2d):
+                labels[name] = "bn" if p_name == "weight" else "bias"
+            elif isinstance(mod, nn.Conv2d):
+                labels[name] = "weight" if p_name == "weight" else "bias"
+            else:
+                raise ValueError(f"no optimizer group for {name}")
+    return labels
+
+
 class YOLO(nn.Module):
     """YOLO detection model over a static plan.
 
     Example:
         model = YOLO.from_yaml("configs/models/gelan-c.yaml")
         model.init_parameters(torch.Generator().manual_seed(0))
-        decoded, raw = model(images_nchw)      # eval only
+        decoded, raw = model.eval()(images_nchw)
+        pairs = model.train()(images_nchw)     # [(box, cls)] per level
     """
 
     def __init__(self, plan: Plan, config: ModelConfig | None = None):
@@ -44,6 +63,7 @@ class YOLO(nn.Module):
             self.layers[step.name] = cls(**step.kwargs)
         # layer outputs that later steps read; the rest are dropped
         self._save_names = {n for step in plan.steps for n in step.inputs}
+        self.fused = False
         self.eval()
 
     # -- construction -----------------------------------------------------
@@ -87,18 +107,27 @@ class YOLO(nn.Module):
     def fuse(self) -> "YOLO":
         """Fold all BN (and RepConv branches) for inference, in place."""
         fuse_model(self)
+        self.fused = True
         return self
+
+    def param_labels(self) -> dict[str, str]:
+        """'weight' | 'bn' | 'bias' per parameter name, the optimizer
+        groups of the JAX package (yolo_re_tpu/models/yolo.py:25-40;
+        reference src/yolo/model/model.py:165-203): conv weights decay,
+        BN scales and all biases do not."""
+        return param_labels(self)
 
     # -- execution ----------------------------------------------------------
 
     def forward(self, x: torch.Tensor):
         """x: (B, 3, H, W) float; run in torch.channels_last memory.
 
-        Returns (decoded (B, A, 4+nc) f32, raw per-level maps)."""
-        if self.training:
+        Eval: (decoded (B, A, 4+nc) f32, raw per-level maps). Train: the
+        per-level (box, cls) f32 pairs."""
+        if self.training and self.fused:
             raise RuntimeError(
-                "YOLO.forward is the eval pass; train mode is not ported yet "
-                "(call .eval())")
+                "a fused model has no BN to train: call .eval(), or train "
+                "the unfused model")
         x = x.contiguous(memory_format=torch.channels_last)
         outputs = {INPUT: x}
         out = x

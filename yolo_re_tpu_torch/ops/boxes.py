@@ -1,8 +1,10 @@
-"""Box geometry: format conversion, anchors, DFL decode (counterpart of
-yolo_re_tpu/ops/boxes.py). Anchors are built host-side (numpy) from static
-feature shapes."""
+"""Box geometry: format conversion, anchors, DFL decode, the IoU family
+(counterpart of yolo_re_tpu/ops/boxes.py). Anchors are built host-side
+(numpy) from static feature shapes."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -24,6 +26,60 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor,
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)
     return torch.cat([x1y1, x2y2], dim=-1)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor,
+              reg_max: int) -> torch.Tensor:
+    """xyxy boxes -> ltrb distances, clamped to [0, reg_max - 0.01]
+    (reference: src/yolo/loss/bbox.py:34-46)."""
+    x1y1, x2y2 = bbox.chunk(2, dim=-1)
+    d = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
+    return d.clamp(0.0, reg_max - 0.01)
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, *, xywh: bool = False,
+             iou_type: str = "iou", eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise (broadcasting) IoU / GIoU / DIoU / CIoU on (..., 4)
+    boxes -> (..., 1). The JAX package's numerics
+    (yolo_re_tpu/ops/boxes.py:bbox_iou; reference src/yolo/loss/iou.py),
+    with its eps placement (h + eps in xyxy mode) and the CIoU alpha
+    detached."""
+    if xywh:
+        x1, y1, w1, h1 = box1.chunk(4, dim=-1)
+        x2, y2, w2, h2 = box2.chunk(4, dim=-1)
+        b1_x1, b1_x2 = x1 - w1 / 2, x1 + w1 / 2
+        b1_y1, b1_y2 = y1 - h1 / 2, y1 + h1 / 2
+        b2_x1, b2_x2 = x2 - w2 / 2, x2 + w2 / 2
+        b2_y1, b2_y2 = y2 - h2 / 2, y2 + h2 / 2
+    else:
+        b1_x1, b1_y1, b1_x2, b1_y2 = box1.chunk(4, dim=-1)
+        b2_x1, b2_y1, b2_x2, b2_y2 = box2.chunk(4, dim=-1)
+        w1, h1 = b1_x2 - b1_x1, b1_y2 - b1_y1 + eps
+        w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1 + eps
+
+    inter = (torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1)
+             ).clamp(min=0) * \
+        (torch.minimum(b1_y2, b2_y2) - torch.maximum(b1_y1, b2_y1)
+         ).clamp(min=0)
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+
+    if iou_type in ("ciou", "diou", "giou"):
+        cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
+        ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
+        if iou_type in ("ciou", "diou"):
+            c2 = cw ** 2 + ch ** 2 + eps
+            rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2
+                    + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+            if iou_type == "ciou":
+                v = (4 / math.pi ** 2) * torch.square(
+                    torch.atan(w2 / h2) - torch.atan(w1 / h1))
+                alpha = (v / (v - iou + (1 + eps))).detach()
+                return iou - (rho2 / c2 + v * alpha)
+            return iou - rho2 / c2
+        c_area = cw * ch + eps
+        return iou - (c_area - union) / c_area
+    return iou
 
 
 def make_anchors_np(

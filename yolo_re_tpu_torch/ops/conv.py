@@ -6,7 +6,17 @@ layout the CUDA kernels read); conv weights are OIHW. Plain convolutions go
 to `F.conv2d`, as the JAX package leaves them to XLA.
 
 BatchNorm numerics follow the reference (eps=1e-3, not torch's 1e-5). For
-inference the BN affine folds into the conv (`fold_conv_bn`).
+inference the BN affine folds into the conv (`fold_conv_bn`). Train-mode BN
+is written out (`batch_moments`, `update_running_stats`, `bn_affine`) with
+the JAX package's rounding points (yolo_re_tpu/ops/conv.py:conv_bn_act):
+bf16 activations take one-pass f32 moments of the bf16 conv output, f32
+activations two-pass moments; the running variance gets the unbiased batch
+variance.
+
+Compute dtype: parameters stay f32 (the master copy); activations carry
+the compute dtype (float32 or bfloat16), and every op casts its weights to
+the activation's dtype (`w.to(x.dtype)`, differentiable: the gradient
+lands on the f32 parameter). The convolutions accumulate in f32.
 """
 
 from __future__ import annotations
@@ -45,23 +55,70 @@ def get_activation(name: str):
         raise ValueError(f"Unknown activation: {name}") from None
 
 
+def batch_moments(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel batch (mean, biased var) of a pre-BN (B, C, H, W)
+    tensor, f32 and differentiable. bf16: one pass, E[y^2] - E[y]^2
+    clamped at 0, over the bf16 values; f32: two passes
+    (yolo_re_tpu/ops/conv.py:258-282)."""
+    yf = y.float()
+    mean = yf.mean(dim=(0, 2, 3))
+    if y.dtype == torch.bfloat16:
+        var = (yf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0)
+    else:
+        var = (yf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+    return mean, var
+
+
+@torch.no_grad()
+def update_running_stats(bn: torch.nn.BatchNorm2d, mean: torch.Tensor,
+                         var: torch.Tensor, n: int) -> None:
+    """running = (1 - momentum) * running + momentum * batch, with the
+    unbiased batch variance (n samples per channel), in place."""
+    unbiased = var * (n / max(n - 1, 1))
+    bn.running_mean.copy_((1.0 - BN_MOMENTUM) * bn.running_mean
+                          + BN_MOMENTUM * mean)
+    bn.running_var.copy_((1.0 - BN_MOMENTUM) * bn.running_var
+                         + BN_MOMENTUM * unbiased)
+    bn.num_batches_tracked.add_(1)
+
+
+def bn_affine(y: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+              weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """y * inv + (bias - mean * inv), inv = rsqrt(var + eps) * weight,
+    computed in f32 and applied in y's dtype, as the JAX package does."""
+    inv = torch.rsqrt(var + BN_EPS) * weight
+    shift = bias - mean * inv
+    return y * inv.to(y.dtype)[:, None, None] + \
+        shift.to(y.dtype)[:, None, None]
+
+
+def batch_norm(y: torch.Tensor, bn: torch.nn.BatchNorm2d) -> torch.Tensor:
+    """BN of a pre-BN tensor: batch statistics (and a running-stat update)
+    when `bn.training`, else the running statistics."""
+    if not bn.training:
+        return bn_affine(y, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias)
+    mean, var = batch_moments(y)
+    update_running_stats(bn, mean, var, y.numel() // y.shape[1])
+    return bn_affine(y, mean, var, bn.weight, bn.bias)
+
+
 def conv_bn_act(x: torch.Tensor, conv: torch.nn.Conv2d,
                 bn: torch.nn.BatchNorm2d | None, act: str = "silu"
                 ) -> torch.Tensor:
-    """Conv -> BatchNorm (eval, running stats) -> activation.
+    """Conv -> BatchNorm -> activation, in x's dtype.
 
     bn=None: the conv carries the folded bias (`fold_conv_bn`). The BN
     affine is written out as in yolo_re_tpu/ops/conv.py:conv_bn_act
     (y * inv + (bias - mean * inv), inv = rsqrt(var + eps) * scale) so the
-    two packages round alike.
+    two packages round alike; in train mode (`bn.training`) it uses batch
+    statistics and updates the running ones.
     """
-    y = F.conv2d(x, conv.weight, conv.bias, conv.stride, conv.padding,
-                 conv.dilation, conv.groups)
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
+                 conv.padding, conv.dilation, conv.groups)
     if bn is not None:
-        inv = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-        shift = bn.bias - bn.running_mean * inv
-        y = y * inv.to(y.dtype)[:, None, None] + \
-            shift.to(y.dtype)[:, None, None]
+        y = batch_norm(y, bn)
     return get_activation(act)(y)
 
 

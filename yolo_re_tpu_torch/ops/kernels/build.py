@@ -1,8 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
 All sources under ``yolo_re_tpu_torch/csrc/*.cu`` compile with ``nvcc``
-into ONE shared library with a plain C interface, loaded with ``ctypes``
-(no PyTorch headers, so the build takes seconds). The build happens at
+(one process per source, all started together, then one link) into ONE
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds). The build happens at
 first use, never at import, into ``yolo_re_tpu_torch/_build/<key>/``
 (listed in ``.gitignore``); the key hashes the sources, the flags and the
 compiler, so an edited kernel rebuilds and an unchanged one is reused.
@@ -28,7 +29,7 @@ BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libyolo_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,8 +38,17 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, w, b, y, B, H, W, C, dtype, stream
     "yolo_stem_conv": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, y, B, H, W, C, dtype, stream
+    "yolo_stem_conv_raw": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, g, part, dw, B, H, W, C, nblk, dtype, stream
+    "yolo_stem_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, dtype, stream
     "yolo_adown": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w1, w2, y, B, H, W, Cin, Cout, dtype, stream
+    "yolo_adown_raw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, g, w1t, w2t, dx, dw1, dw2, M, idx, dM, dA1, avg1, part,
+    # B, H, W, Cin, Cout, S, dtype, stream
+    "yolo_adown_bwd": (_P,) * 13 + (_I,) * 7 + (_P,),
     # boxes, scores, out_idx, B, K, max_det, iou_thres, stream
     "yolo_nms_select": (_P, _P, _P, _I, _I, _I, _F, _P),
 }
@@ -82,20 +92,36 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    units = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
     t0 = time.perf_counter()
-    # build under a temporary name, then rename: a concurrent or cut-off
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *units]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        # one nvcc per source, all at once, then one link
+        procs = []
+        objects = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = str(Path(tmp_dir) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", obj,
+                   str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objects.append(obj)
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        # link under a temporary name, then rename: a concurrent or cut-off
+        # build never leaves a half-written library under the final name
+        tmp = str(Path(tmp_dir) / LIB_NAME)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)
     last_build_seconds = time.perf_counter() - t0
     return lib
 
