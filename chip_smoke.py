@@ -7,14 +7,20 @@ non-zero (no phase is caught):
 
 1. environment: Python, torch, CUDA, the card (nvidia-smi name, power limit);
 2. build: nvcc compiles yolo_re_tpu_torch/csrc/*.cu (cached by source hash);
-3. every kernel of the serving path against its plain PyTorch version on the
-   card, at gelan-c's shapes at 640 px and batch 32, in bf16 and f32:
-   max abs difference (against the tolerance stated below) and time;
+3. every kernel of the serving and eval path against its plain PyTorch
+   version on the card, at gelan-c's shapes at 640 px and batch 32, in
+   bf16 and f32: max abs difference (against the tolerance stated below),
+   time, and the time of one PyTorch call computing the same function where
+   there is one (`library_ms`, bf16: F.conv2d with bias, no SiLU; for the
+   chain one conv's call times the 2n convs); the stage1 kernels at
+   m (32, 32, 160, 160) for n = 1 and 2 (gelan-c, gelan-c-d2) and
+   x (32, 64, 160, 160) and (32, 64, 80, 80);
 4. the trained tiny fixture (assets/dryrun_tiny.npz, TINY_YAML, 160 px)
    served on cuda and on the CPU (plain versions) in f32: equal detections;
 5. gelan-c at full width: random weights from seed 0, fused, bf16, four
    requests of 32 frames of 720x1280 uint8 through Detector, with the
-   kernels' launch counters held to the path's layout;
+   kernels' launch counters held to the path's layout; first the fused
+   model in f32 on cuda against the CPU (every serving kernel in f32);
 6. the four train kernels (stem raw + weight grad, ADown raw + backward)
    against their plain versions at gelan-c's 640 px, batch 32 train
    shapes, in f32 and bf16: outputs and dx within `tolerance`, weight
@@ -26,10 +32,22 @@ non-zero (no phase is caught):
 8. gelan-c training at full width, 640 px, batch 32, bf16: synthetic uint8
    batches (data/synth.py, numpy seed 0), one warm-up Trainer step, then
    five through Trainer.train_one_epoch with the train kernels' launch
-   counters held to one stem pair and five ADown pairs per step.
+   counters held to one stem pair and five ADown pairs per step;
+9. eval: (a) the trained tiny fixture at 160 px, f32, on its synthetic val
+   set through the Evaluator on cuda and on the CPU: mAP50 and mAP within
+   1e-3, mAP50 > 0.5; (b) gelan-c at full width (phase 5's weights),
+   fused, bf16, 64 synthetic images letterboxed to 640 px by the port's
+   val loader, batch 32: one warm-up pass, then a counted one with the
+   launch counts held to the fused model's kernel sites per batch (gelan-c:
+   stem 1, ADown 5, chain 2, conv3 6, NMS 1).
 
-The last three lines are the card's nvidia-smi line, a JSON line with one
-entry per kernel, and {"ok": true, "device": {...}}.
+`bound_ms` in the kernels line is the least time the card could take for
+the work: the larger of the bytes each function must move (inputs read
+once, outputs written once) over 3.35 TB/s, and its operations over 989
+TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32, NMS), the H100 SXM data
+sheet's rates, computed from this run's inputs. The last three lines are
+the card's nvidia-smi line, a JSON line with one entry per kernel, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,9 +63,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from yolo_re_tpu_torch.data.synth import TINY_YAML, make_eval_batch
+import torch.nn.functional as F
+
+from yolo_re_tpu_torch.convert import load_weights
+from yolo_re_tpu_torch.data.config import DataConfig
+from yolo_re_tpu_torch.data.dataset import create_dataloader
+from yolo_re_tpu_torch.data.synth import (
+    TINY_YAML,
+    make_eval_batch,
+    write_dataset,
+)
+from yolo_re_tpu_torch.eval.evaluator import Evaluator
+from yolo_re_tpu_torch.models import blocks
 from yolo_re_tpu_torch.models.yolo import YOLO
-from yolo_re_tpu_torch.ops.kernels import adown, build, nms, stem
+from yolo_re_tpu_torch.ops.kernels import (
+    adown,
+    build,
+    conv3,
+    csp_chain,
+    nms,
+    stem,
+)
 from yolo_re_tpu_torch.serving import Detector
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.trainer import Trainer
@@ -59,10 +95,43 @@ ADOWN_SHAPES = {"down1": (256, 160, 160, 256), "down2": (512, 80, 80, 512),
                 "down3": (512, 40, 40, 512), "pan_down1": (256, 80, 80, 256),
                 "pan_down2": (512, 40, 40, 512)}
 NMS_SHAPES = (512, 8400)   # serving candidates; all anchors at 640 px
+STAGE1_HW = (160, 160)     # stage1 at 640 px: the chain (32 ch), conv3 (64)
+CONV3_HW = (STAGE1_HW, (80, 80))   # conv3 also runs stage2's bottlenecks
+CHAIN_DEPTHS = (1, 2)      # gelan-c, gelan-c-d2
 TRAIN_STEPS = 5            # counted gelan-c train steps (after one warm-up)
+EVAL_IMAGES = 64           # phase 9 (b): two batches of 32
 # weight gradients, kernel vs plain: relative L2 (both sum f32 products in
 # another order; bf16 inputs are exact in f32)
 WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# H100 SXM data sheet: HBM3 bytes/s; dense bf16 tensor-core and f32
+# (CUDA-core) operations/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float, peak: str = "bf16") -> dict:
+    """The least time for the work: bytes at HBM rate or operations at the
+    peak rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[peak] * 1e3
+    return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
+            else {"bound_ms": t_ops, "bound_by": "operations"})
+
+
+def add_bounds(parts: list[dict]) -> dict:
+    """Several launches: the sum of their bounds, named by the largest."""
+    top = max(parts, key=lambda b: b["bound_ms"])
+    return {"bound_ms": sum(b["bound_ms"] for b in parts),
+            "bound_by": top["bound_by"]}
+
+
+def conv_flops(x: torch.Tensor, y: torch.Tensor, k: int) -> float:
+    """2 * k * k * Cin * (output elements): a dense conv's operations."""
+    return 2.0 * k * k * x.shape[1] * y.numel()
 
 
 def tolerance(dtype: torch.dtype, ref: torch.Tensor) -> float:
@@ -109,47 +178,98 @@ def check_close(name: str, y: torch.Tensor, ref: torch.Tensor,
 
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at the main path's shapes.
-    Returns the bf16 (serving dtype) numbers per kernel; these launches are
-    outside the counted run of phase 5."""
+    Returns the numbers per kernel and dtype; these launches are outside
+    the counted runs of phases 5 and 9."""
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rand(*shape, scale=1.0, dtype=torch.float32, cl=False):
         t = (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
         return t.contiguous(memory_format=torch.channels_last) if cl else t
 
-    res = {"stem": {}, "adown": {}, "nms": {}}
+    res = {k: {} for k in ("stem", "adown", "nms", "csp_chain", "conv3")}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         x = rand(BATCH, 3, SIZE, SIZE, dtype=dtype, cl=True)
         w, b = rand(64, 3, 3, 3, scale=0.3, dtype=dtype), rand(64, dtype=dtype)
-        err = check_close(f"stem {tag} {tuple(x.shape)}->64",
-                          stem.stem_conv(x, w, b),
+        y = stem.stem_conv(x, w, b)
+        err = check_close(f"stem {tag} {tuple(x.shape)}->64", y,
                           stem.stem_conv_plain(x, w, b), dtype)
         ms = cuda_ms(lambda: stem.stem_conv(x, w, b))
         plain_ms = cuda_ms(lambda: stem.stem_conv_plain(x, w, b))
-        print(f"  stem {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        res["stem"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms}
-        del x
+        lib_ms = cuda_ms(lambda: F.conv2d(x, w, b, stride=2, padding=1))
+        print(f"  stem {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.conv2d {lib_ms:.4f} ms")
+        res["stem"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib_ms, **bound(
+                                nbytes(x, w, b, y), conv_flops(x, y, 3), tag)}
+        del x, y
 
-        tot = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+        tot = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": []}
         for name, (cin, h, wd, cout) in ADOWN_SHAPES.items():
             x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
             args = (rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype),
                     rand(cout // 2, dtype=dtype),
                     rand(cout // 2, cin // 2, 1, 1, scale=0.06, dtype=dtype),
                     rand(cout // 2, dtype=dtype))
+            y = adown.adown(x, *args)
             err = check_close(f"adown {name} {tag} {tuple(x.shape)}->{cout}",
-                              adown.adown(x, *args),
-                              adown.adown_plain(x, *args), dtype)
+                              y, adown.adown_plain(x, *args), dtype)
             ms = cuda_ms(lambda: adown.adown(x, *args), 5)
             plain_ms = cuda_ms(lambda: adown.adown_plain(x, *args), 5)
             print(f"  adown {name} {tag}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms")
+            # two convs of Cin/2 -> Cout/2 (3x3 and 1x1) on the half-size
+            # output, each writing half of y's channels
+            ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
             tot["err"] = max(tot["err"], err)
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
-            del x
-        res["adown"][tag] = tot
+            tot["bounds"].append(bound(nbytes(x, *args, y), ops, tag))
+            del x, y
+        res["adown"][tag] = {**tot, **add_bounds(tot.pop("bounds")),
+                             "library_ms": None}
+
+        for n in CHAIN_DEPTHS:
+            m = rand(BATCH, 32, *STAGE1_HW, dtype=dtype, cl=True)
+            args = (rand(n, 32, 32, 3, 3, scale=0.06, dtype=dtype),
+                    rand(n, 32, dtype=dtype) * 0.5 + 0.5,
+                    rand(n, 32, 32, 3, 3, scale=0.06, dtype=dtype),
+                    rand(n, 32, dtype=dtype) * 0.5 + 0.5)
+            y = csp_chain.bottleneck_chain(m, *args)
+            err = check_close(f"csp_chain n={n} {tag} {tuple(m.shape)}", y,
+                              csp_chain.bottleneck_chain_plain(m, *args),
+                              dtype)
+            ms = cuda_ms(lambda: csp_chain.bottleneck_chain(m, *args))
+            plain_ms = cuda_ms(
+                lambda: csp_chain.bottleneck_chain_plain(m, *args))
+            w0, b0 = args[0][0], args[1][0]
+            lib_ms = 2 * n * cuda_ms(lambda: F.conv2d(m, w0, b0, padding=1))
+            print(f"  csp_chain n={n} {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, {2 * n} x F.conv2d {lib_ms:.4f} ms")
+            res["csp_chain"][(n, tag)] = {
+                "err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms,
+                **bound(nbytes(m, *args, y), 2 * n * conv_flops(m, y, 3),
+                        tag)}
+            del m, y
+
+        for hw in CONV3_HW:
+            x = rand(BATCH, 64, *hw, dtype=dtype, cl=True)
+            w = rand(64, 64, 3, 3, scale=0.05, dtype=dtype)
+            b = rand(64, dtype=dtype)
+            y = conv3.conv3_silu(x, w, b)
+            err = check_close(f"conv3 {tag} {tuple(x.shape)}", y,
+                              conv3.conv3_silu_plain(x, w, b), dtype)
+            ms = cuda_ms(lambda: conv3.conv3_silu(x, w, b))
+            plain_ms = cuda_ms(lambda: conv3.conv3_silu_plain(x, w, b))
+            lib_ms = cuda_ms(lambda: F.conv2d(x, w, b, padding=1))
+            print(f"  conv3 {hw} {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms")
+            res["conv3"][(hw, tag)] = {
+                "err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms,
+                **bound(nbytes(x, w, b, y), conv_flops(x, y, 3), tag)}
+            del x, y
 
     for k in NMS_SHAPES:
         xy = torch.rand(BATCH, k, 2, generator=g, device=dev) * 600
@@ -171,7 +291,15 @@ def phase_kernels(dev) -> dict:
         plain_ms = cuda_ms(
             lambda: nms.nms_select_plain(boxes, scores, 0.45, 300), 2)
         print(f"  nms K={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        res["nms"][k] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms}
+        # this run's greedy steps: one per kept box, plus the step that
+        # finds nothing live where fewer than max_det are kept; each step
+        # ~16 f32 operations per candidate (IoU, compare, argmax)
+        kept = (idx >= 0).sum(1)
+        steps = int(kept.sum() + (kept < 300).sum())
+        res["nms"][k] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": None, **bound(
+                             nbytes(boxes, scores, idx), 16.0 * steps * k,
+                             "f32")}
     return res
 
 
@@ -203,33 +331,44 @@ def phase_train_kernels(dev) -> dict:
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         x = rand(BATCH, 3, SIZE, SIZE, dtype=dtype, cl=True)
         w = rand(64, 3, 3, 3, scale=0.3, dtype=dtype)
-        err = check_close(f"stem_raw {tag} {tuple(x.shape)}->64",
-                          stem.stem_conv_raw(x, w),
+        y = stem.stem_conv_raw(x, w)
+        err = check_close(f"stem_raw {tag} {tuple(x.shape)}->64", y,
                           stem.stem_conv_raw_plain(x, w), dtype)
         ms = cuda_ms(lambda: stem.stem_conv_raw(x, w))
         plain_ms = cuda_ms(lambda: stem.stem_conv_raw_plain(x, w))
-        print(f"  stem_raw {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        res["stem_raw"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms}
+        lib_ms = cuda_ms(lambda: F.conv2d(x, w, None, stride=2, padding=1))
+        print(f"  stem_raw {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, F.conv2d {lib_ms:.4f} ms")
+        res["stem_raw"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                "library_ms": lib_ms, **bound(
+                                    nbytes(x, w, y), conv_flops(x, y, 3), tag)}
         gy = rand(BATCH, 64, SIZE // 2, SIZE // 2, dtype=dtype, cl=True)
-        err = check_rel(f"stem_wgrad {tag} g {tuple(gy.shape)}",
-                        stem.stem_wgrad(x, gy), stem.stem_wgrad_plain(x, gy),
-                        dtype)
+        dw = stem.stem_wgrad(x, gy)
+        err = check_rel(f"stem_wgrad {tag} g {tuple(gy.shape)}", dw,
+                        stem.stem_wgrad_plain(x, gy), dtype)
         ms = cuda_ms(lambda: stem.stem_wgrad(x, gy))
         plain_ms = cuda_ms(lambda: stem.stem_wgrad_plain(x, gy))
+        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+            x, w.shape, gy, stride=2, padding=1))
         print(f"  stem_wgrad {tag}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms")
-        res["stem_wgrad"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms}
-        del x, gy
+              f"{plain_ms:.4f} ms, conv2d_weight {lib_ms:.4f} ms")
+        res["stem_wgrad"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": lib_ms, **bound(
+                                      nbytes(x, gy, dw), conv_flops(x, gy, 3),
+                                      tag)}
+        del x, y, gy
 
-        tot = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+        tot = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": []}
                for k in ("adown_raw", "adown_bwd")}
         for name, (cin, h, wd, cout) in ADOWN_SHAPES.items():
             x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
             w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype)
             w2 = rand(cout // 2, cin // 2, 1, 1, scale=0.06, dtype=dtype)
-            err = check_close(f"adown_raw {name} {tag} {tuple(x.shape)}",
-                              adown.adown_raw(x, w1, w2),
+            y = adown.adown_raw(x, w1, w2)
+            err = check_close(f"adown_raw {name} {tag} {tuple(x.shape)}", y,
                               adown.adown_raw_plain(x, w1, w2), dtype)
+            # the two convs (3x3 and 1x1), each writing half of y
+            ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
             ms = cuda_ms(lambda: adown.adown_raw(x, w1, w2), 5)
             plain_ms = cuda_ms(lambda: adown.adown_raw_plain(x, w1, w2), 5)
             print(f"  adown_raw {name} {tag}: kernel {ms:.4f} ms, plain "
@@ -237,6 +376,8 @@ def phase_train_kernels(dev) -> dict:
             t = tot["adown_raw"]
             t["err"], t["ms"], t["plain_ms"] = (
                 max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
+            t["bounds"].append(bound(nbytes(x, w1, w2, y), ops, tag))
+            del y
 
             gy = rand(BATCH, cout, h // 2, wd // 2, dtype=dtype, cl=True)
             dx, dw1, dw2 = adown.adown_bwd(x, gy, w1, w2)
@@ -246,6 +387,10 @@ def phase_train_kernels(dev) -> dict:
             err = check_close(f"adown_bwd {name} {tag} dx", dx, rdx, dtype)
             check_rel(f"adown_bwd {name} {tag} dW1", dw1, rdw1, dtype)
             check_rel(f"adown_bwd {name} {tag} dW2", dw2, rdw2, dtype)
+            # the input and the weight gradients of both convs: twice the
+            # forward's products
+            bwd_bound = bound(nbytes(x, gy, w1, w2, dx, dw1, dw2), 2 * ops,
+                              tag)
             del dx, dw1, dw2, rdx, rdw1, rdw2
             ms = cuda_ms(lambda: adown.adown_bwd(x, gy, w1, w2), 5)
             plain_ms = cuda_ms(lambda: adown.adown_bwd_plain(x, gy, w1, w2),
@@ -255,9 +400,11 @@ def phase_train_kernels(dev) -> dict:
             t = tot["adown_bwd"]
             t["err"], t["ms"], t["plain_ms"] = (
                 max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
+            t["bounds"].append(bwd_bound)
             del x, gy
         for k, v in tot.items():
-            res[k][tag] = v
+            res[k][tag] = {**v, **add_bounds(v.pop("bounds")),
+                           "library_ms": None}
     torch.cuda.empty_cache()
     return res
 
@@ -374,7 +521,38 @@ def phase_tiny_fixture(dev, tmp: Path) -> None:
         raise AssertionError("tiny fixture: cuda and cpu detections differ")
 
 
-def phase_gelan_c(dev) -> dict:
+def counts_now() -> dict:
+    return {"stem": stem.launches, "adown": adown.launches,
+            "csp_chain": csp_chain.launches, "conv3": conv3.launches,
+            "nms": nms.launches}
+
+
+def reset_counts() -> None:
+    stem.launches = adown.launches = nms.launches = 0
+    csp_chain.launches = conv3.launches = 0
+
+
+def kernel_sites(fused: YOLO) -> dict:
+    """Launches of each inference kernel in one forward of a fused model,
+    from its blocks' kernel gates (gelan-c: the stem, five ADowns, stage1's
+    two bottleneck chains, six 64 -> 64 3x3 convs: stage1's two block
+    convs and the bottleneck convs of stage2's and fpn2's RepNCSPs)."""
+    mods = list(fused.modules())
+    sites = {
+        "stem": sum(isinstance(m, blocks.Conv) and m.is_stem for m in mods),
+        "adown": sum(isinstance(m, blocks.ADown) for m in mods),
+        "csp_chain": sum(isinstance(m, blocks.RepNCSP) and m.chain
+                         for m in mods),
+        "conv3": sum(isinstance(m, blocks.Conv) and m.is_conv3
+                     for m in mods)}
+    if min(sites.values()) < 1:
+        raise AssertionError(f"a kernel has no site in the model: {sites}")
+    return sites
+
+
+def phase_gelan_c(dev) -> tuple[dict, YOLO, dict]:
+    """Returns the launch counts of the four requests, the model (phase 9
+    evaluates its weights) and its kernel sites per forward."""
     model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
     model.init_parameters(torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -391,13 +569,20 @@ def phase_gelan_c(dev) -> dict:
     x = torch.rand(1, 3, 256, 256, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         ref, _ = f32(x)
+        reset_counts()
         out, _ = f32.to(dev)(x.to(dev))
+    f32_counts = counts_now()
     box_err = float((out[..., :4].cpu() - ref[..., :4]).abs().max())
     cls_err = float((out[..., 4:].cpu() - ref[..., 4:]).abs().max())
     print(f"  f32 decoded (1, 3, 256, 256): cuda vs cpu boxes {box_err:.3e} "
-          f"px (tol 1e-2), scores {cls_err:.3e} (tol 1e-4)")
+          f"px (tol 1e-2), scores {cls_err:.3e} (tol 1e-4); launches "
+          f"{f32_counts}")
     if not (box_err <= 1e-2 and cls_err <= 1e-4):
         raise AssertionError("gelan-c f32: cuda and cpu decoded differ")
+    sites = kernel_sites(f32)
+    print(f"  kernel launches per forward: {sites}")
+    if f32_counts != {**sites, "nms": 0}:
+        raise AssertionError(f"gelan-c f32: launch counts {f32_counts}")
     del f32
 
     det = Detector(model, model.state_dict(), device=dev, img_size=SIZE,
@@ -408,7 +593,7 @@ def phase_gelan_c(dev) -> dict:
     det(frames[0])                        # warm-up (cuDNN algorithm choice)
     torch.cuda.synchronize()
 
-    stem.launches = adown.launches = nms.launches = 0
+    reset_counts()
     lat = []
     t_all = time.perf_counter()
     for f in frames:
@@ -417,11 +602,10 @@ def phase_gelan_c(dev) -> dict:
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
     total = time.perf_counter() - t_all
-    counts = {"stem": stem.launches, "adown": adown.launches,
-              "nms": nms.launches}
+    counts = counts_now()
 
     print(f"  launches {counts} over {REQUESTS} requests")
-    want = {"stem": REQUESTS, "adown": 5 * REQUESTS, "nms": REQUESTS}
+    want = {k: v * REQUESTS for k, v in {**sites, "nms": 1}.items()}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     valid = out["valid"]
@@ -435,6 +619,58 @@ def phase_gelan_c(dev) -> dict:
           f"{BATCH * REQUESTS / total:.1f} images/s over {REQUESTS} "
           f"requests of {BATCH} frames {FRAME_HW[0]}x{FRAME_HW[1]}; "
           f"{int(valid.sum())} detections in the last request")
+    return counts, model, sites
+
+
+def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict) -> dict:
+    """(a) the trained tiny fixture, cuda against the CPU; (b) gelan-c
+    eval at 640 px. Returns (b)'s launch counts."""
+    path = tmp / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    val = write_dataset(str(tmp / "tiny"), "val", 16, seed=1)
+    data = DataConfig(val_path=val, num_classes=4, img_size=160,
+                      batch_size=8, workers=4)
+    weights = load_weights(str(ROOT / "assets" / "dryrun_tiny.npz"))
+    gpu, cpu = (Evaluator(YOLO.from_yaml(path),
+                          create_dataloader(val, data, "val"), device=d)
+                .evaluate(weights) for d in (dev, torch.device("cpu")))
+    gap = {k: abs(gpu[k] - cpu[k]) for k in ("map50", "map")}
+    print(f"  tiny fixture, 160 px f32, 16 images: cuda mAP50 "
+          f"{gpu['map50']:.4f} mAP {gpu['map']:.4f}; cpu mAP50 "
+          f"{cpu['map50']:.4f} mAP {cpu['map']:.4f}; gap {gap} (tol 1e-3)")
+    if max(gap.values()) > 1e-3 or gpu["map50"] <= 0.5:
+        raise AssertionError("tiny fixture eval: cuda and cpu disagree")
+
+    val = write_dataset(str(tmp / "gelan-c"), "val", EVAL_IMAGES, seed=2)
+    data = DataConfig(val_path=val, num_classes=gelan_c.num_classes,
+                      img_size=SIZE, batch_size=BATCH, workers=8)
+    t0 = time.perf_counter()
+    n = sum(len(batch["images"]) for batch in
+            create_dataloader(val, data, "val"))
+    print(f"  val loader alone (decode, letterbox, f32 batches): "
+          f"{n / (time.perf_counter() - t0):.1f} images/s")
+    ev = Evaluator(gelan_c, create_dataloader(val, data, "val"),
+                   compute_dtype="bfloat16", device=dev)
+    sd = gelan_c.state_dict()
+    ev.evaluate(sd)                       # warm-up (cuDNN algorithm choice)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ev.evaluate(sd)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = counts_now()
+    batches = EVAL_IMAGES // BATCH
+    want = {k: v * batches for k, v in {**sites, "nms": 1}.items()}
+    print(f"  gelan-c bf16 eval, {EVAL_IMAGES} images at {SIZE} px, batch "
+          f"{BATCH}: {EVAL_IMAGES / dt:.1f} images/s (host clock, loader "
+          f"included), Evaluator images_per_sec "
+          f"{out['images_per_sec']:.1f}; mAP50 {out['map50']:.4f} mAP "
+          f"{out['map']:.4f} (random weights); launches {counts}")
+    if counts != want:
+        raise AssertionError(f"eval launch counts {counts}, expected {want}")
+    if not all(np.isfinite(v) and v >= 0 for v in out.values()):
+        raise AssertionError(f"gelan-c eval: results {out}")
     return counts
 
 
@@ -469,7 +705,7 @@ def main() -> int:
         phase_tiny_fixture(dev, Path(td))
 
     print("phase 5: gelan-c serving")
-    counts = phase_gelan_c(dev)
+    counts, gelan_c, sites = phase_gelan_c(dev)
 
     print("phase 6: train kernels against their plain versions")
     tres = phase_train_kernels(dev)
@@ -480,49 +716,49 @@ def main() -> int:
         print("phase 8: gelan-c training")
         tcounts = phase_gelan_c_train(dev, Path(td))
 
-    kernels = [
-        {"name": "stem_conv", "route": "cuda",
-         "source": "yolo_re_tpu_torch/csrc/stem.cu",
-         "replaces": "yolo_re_tpu/ops/pallas/stem_kernel.py:265",
-         "launches": counts["stem"],
-         "max_abs_err": res["stem"]["bf16"]["err"],
-         "ms": res["stem"]["bf16"]["ms"],
-         "plain_ms": res["stem"]["bf16"]["plain_ms"]},
-        {"name": "adown", "route": "cuda",
-         "source": "yolo_re_tpu_torch/csrc/adown.cu",
-         "replaces": "yolo_re_tpu/ops/pallas/adown_kernel.py:233",
-         "launches": counts["adown"],
-         "max_abs_err": res["adown"]["bf16"]["err"],
-         "ms": res["adown"]["bf16"]["ms"],
-         "plain_ms": res["adown"]["bf16"]["plain_ms"]},
-        {"name": "nms_select", "route": "cuda",
-         "source": "yolo_re_tpu_torch/csrc/nms.cu",
-         "replaces": "yolo_re_tpu/ops/pallas/nms_kernel.py:98",
-         "launches": counts["nms"],
-         "max_abs_err": res["nms"][512]["err"],
-         "ms": res["nms"][512]["ms"],
-         "plain_ms": res["nms"][512]["plain_ms"]},
-    ]
-    train_kernels = (
-        ("stem_conv_raw", "stem_raw", "stem.cu",
-         "stem_kernel.py:265"),
-        ("stem_wgrad", "stem_wgrad", "stem_wgrad.cu", "stem_kernel.py:331"),
-        ("adown_raw", "adown_raw", "adown.cu", "adown_kernel.py:233"),
-        ("adown_bwd", "adown_bwd", "adown_bwd.cu",
-         "adown_train_kernel.py:366"))
-    for name, key, src, tpu in train_kernels:
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"yolo_re_tpu_torch/csrc/{src}",
-            "replaces": f"yolo_re_tpu/ops/pallas/{tpu}",
-            "launches": tcounts[key],
-            "max_abs_err": tres[key]["bf16"]["err"],
-            "ms": tres[key]["bf16"]["ms"],
-            "plain_ms": tres[key]["bf16"]["plain_ms"]})
-    print("(kernel ms/plain_ms: bf16 at the serving and train shapes; adown "
-          "kernels are the sum of gelan-c's five ADown shapes, nms is K=512; "
-          "adown_bwd's max_abs_err is dx's, stem_wgrad's dW's; train "
-          "launches are from phase 8's counted steps)")
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 9: eval")
+        ecounts = phase_eval(dev, Path(td), gelan_c, sites)
+
+    # (name, source, TPU kernel, launches, bf16 numbers)
+    rows = (
+        ("stem_conv", "stem.cu", "stem_kernel.py:265", counts["stem"],
+         res["stem"]["bf16"]),
+        ("adown", "adown.cu", "adown_kernel.py:233", counts["adown"],
+         res["adown"]["bf16"]),
+        ("nms_select", "nms.cu", "nms_kernel.py:98", counts["nms"],
+         res["nms"][512]),
+        ("stem_conv_raw", "stem.cu", "stem_kernel.py:265",
+         tcounts["stem_raw"], tres["stem_raw"]["bf16"]),
+        ("stem_wgrad", "stem_wgrad.cu", "stem_kernel.py:331",
+         tcounts["stem_wgrad"], tres["stem_wgrad"]["bf16"]),
+        ("adown_raw", "adown.cu", "adown_kernel.py:233",
+         tcounts["adown_raw"], tres["adown_raw"]["bf16"]),
+        ("adown_bwd", "adown_bwd.cu", "adown_train_kernel.py:366",
+         tcounts["adown_bwd"], tres["adown_bwd"]["bf16"]),
+        ("bottleneck_chain", "csp_chain.cu", "csp_chain_kernel.py:231",
+         counts["csp_chain"], res["csp_chain"][(1, "bf16")]),
+        ("conv3_silu", "conv3.cu", "conv3_kernel.py:170", counts["conv3"],
+         res["conv3"][(STAGE1_HW, "bf16")]),
+    )
+    kernels = [{
+        "name": name, "route": "cuda",
+        "source": f"yolo_re_tpu_torch/csrc/{src}",
+        "replaces": f"yolo_re_tpu/ops/pallas/{tpu}", "launches": launches,
+        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"]} for name, src, tpu, launches, r in rows]
+    print(f"(kernel ms/plain_ms/library_ms: bf16 at the serving, eval and "
+          f"train shapes; adown kernels are the sum of gelan-c's five ADown "
+          f"shapes, nms is K=512, bottleneck_chain n=1 with library_ms two "
+          f"F.conv2d calls (one per conv; no SiLU, no residual), conv3_silu "
+          f"at 160x160 with library_ms one F.conv2d with bias (no SiLU), "
+          f"stem_conv's "
+          f"likewise, stem_wgrad's torch.nn.grad.conv2d_weight; no PyTorch "
+          f"call computes ADown, its backward or greedy NMS: null; "
+          f"adown_bwd's max_abs_err is dx's, stem_wgrad's dW's; serving "
+          f"launches from phase 5's {REQUESTS} requests, train launches "
+          f"from phase 8's counted steps; phase 9 eval launches {ecounts})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

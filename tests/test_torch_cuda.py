@@ -15,9 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from yolo_re_tpu_torch.data.synth import TINY_YAML, make_eval_batch
+from yolo_re_tpu_torch.convert import load_weights
+from yolo_re_tpu_torch.data.config import DataConfig
+from yolo_re_tpu_torch.data.dataset import create_dataloader
+from yolo_re_tpu_torch.data.synth import TINY_YAML, make_eval_batch, \
+    write_dataset
+from yolo_re_tpu_torch.eval.evaluator import Evaluator
 from yolo_re_tpu_torch.models.yolo import YOLO
-from yolo_re_tpu_torch.ops.kernels import adown, nms, stem
+from yolo_re_tpu_torch.ops.kernels import adown, conv3, csp_chain, nms, stem
 from yolo_re_tpu_torch.serving import Detector
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.trainer import Trainer
@@ -117,6 +122,97 @@ def test_detector_cuda_matches_cpu(cuda, tmp_path):
     np.testing.assert_allclose(a["boxes"], b["boxes"], atol=1e-2)
     np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-4)
     assert a["valid"].sum(1).min() >= 1
+
+
+# ---------------------------------------------------------------------------
+# stage1 kernels (conv3, the bottleneck chain) and the Evaluator
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 5, 7), (1, 16, 64)])
+def test_conv3_kernel_matches_plain(cuda, dtype, shape):
+    """H, W that are not multiples of the tile, and one that is."""
+    g = torch.Generator().manual_seed(7)
+    x = _rand(g, shape[0], 64, *shape[1:], dtype=dtype, cl=True).to(cuda)
+    w = _rand(g, 64, 64, 3, 3, scale=0.05, dtype=dtype).to(cuda)
+    b = _rand(g, 64, dtype=dtype).to(cuda)
+    before = conv3.launches
+    y = conv3.conv3_silu(x, w, b)
+    torch.cuda.synchronize()
+    assert conv3.launches == before + 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y.float(),
+                               conv3.conv3_silu_plain(x, w, b).float(),
+                               atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 5, 7)])
+def test_chain_kernel_matches_plain(cuda, dtype, n, shape):
+    """Odd H, W put the image border inside tiles, where every
+    intermediate outside the image must be zero; biases of 0.5 make
+    SiLU(bias) there clearly non-zero."""
+    g = torch.Generator().manual_seed(8)
+    m = _rand(g, shape[0], 32, *shape[1:], dtype=dtype, cl=True).to(cuda)
+    args = [_rand(g, n, 32, 32, 3, 3, scale=0.06, dtype=dtype),
+            _rand(g, n, 32, dtype=dtype) * 0.5 + 0.5,
+            _rand(g, n, 32, 32, 3, 3, scale=0.06, dtype=dtype),
+            _rand(g, n, 32, dtype=dtype) * 0.5 + 0.5]
+    args = [a.to(cuda) for a in args]
+    before = csp_chain.launches
+    y = csp_chain.bottleneck_chain(m, *args)
+    torch.cuda.synchronize()
+    assert csp_chain.launches == before + 1
+    ref = csp_chain.bottleneck_chain_plain(m, *args)
+    # bf16: each of the 2n convs may round its output one ulp apart
+    atol = ATOL[dtype] * (n if dtype == torch.bfloat16 else 1)
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
+
+
+def test_stage1_wrappers_refuse_on_cuda(cuda):
+    cl = torch.channels_last
+    x = torch.zeros(1, 64, 8, 8, device=cuda).contiguous(memory_format=cl)
+    w = torch.zeros(64, 64, 3, 3, device=cuda)
+    b = torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        conv3.conv3_silu(x, w.bfloat16(), b)
+    with pytest.raises(ValueError, match="cuda"):
+        conv3.conv3_silu(x, w.cpu(), b)
+    with pytest.raises(ValueError, match="channels_last"):
+        conv3.conv3_silu(x.contiguous(), w, b)
+    m = torch.zeros(1, 32, 8, 8, device=cuda).contiguous(memory_format=cl)
+    ws = torch.zeros(1, 32, 32, 3, 3, device=cuda)
+    bs = torch.zeros(1, 32, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        csp_chain.bottleneck_chain(m.bfloat16(), ws, bs, ws, bs)
+    with pytest.raises(ValueError, match="1 to 4"):
+        csp_chain.bottleneck_chain(m, *(t.expand(5, *t.shape[1:])
+                                        .contiguous() for t in
+                                        (ws, bs, ws, bs)))
+
+
+def test_evaluator_cuda_matches_cpu(cuda, tmp_path):
+    """The trained tiny fixture, f32, fused, on its 16-image val set: the
+    same mAP on cuda (kernels) as on the CPU (plain versions)."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    val = write_dataset(str(tmp_path), "val", 16, seed=1)
+    data = DataConfig(val_path=val, num_classes=4, img_size=160,
+                      batch_size=8, workers=2)
+    weights = load_weights(str(FIXTURE))
+    res = []
+    for dev in (cuda, "cpu"):
+        ev = Evaluator(YOLO.from_yaml(path), create_dataloader(val, data,
+                                                               "val"),
+                       device=dev)
+        before = nms.launches
+        res.append(ev.evaluate(weights))
+        if dev is cuda:
+            assert nms.launches == before + 2
+    assert res[0]["map50"] > 0.5
+    for k in ("map50", "map"):
+        assert abs(res[0][k] - res[1][k]) <= 1e-3, (k, res)
 
 
 # ---------------------------------------------------------------------------

@@ -236,11 +236,6 @@ def test_nms_classes_filter_and_agnostic_match_jax():
             np.testing.assert_array_equal(out[k].numpy(), np.asarray(ref[k]))
 
 
-def test_nms_all_anchor_eval_path_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        non_max_suppression(torch.zeros(1, 10, 6), conf_thres=0.001)
-
-
 # ---------------------------------------------------------------------------
 # letterbox
 # ---------------------------------------------------------------------------

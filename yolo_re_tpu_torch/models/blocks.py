@@ -10,11 +10,15 @@ through `yolo_re_tpu_torch.convert.state_dict_from_jax`.
 normalizes with batch statistics and updates the running ones in place
 (ops/conv.py), eval mode uses the running ones. Each block with BN has a
 `fuse()` that folds it in place (BN into the conv, RepConv's 3x3 + 1x1
-into one 3x3) for inference. Two blocks run hand-written CUDA kernels on
+into one 3x3) for inference. Four blocks run hand-written CUDA kernels on
 a CUDA tensor: the Cin=3 stem `Conv` (fused: ops/kernels/stem.py; train:
-ops/stem_train.py) and `ADown` (fused: ops/kernels/adown.py; train:
-ops/adown_train.py). The JAX package's width-packed train layouts are not
-ported: every block stays NCHW in channels_last memory.
+ops/stem_train.py), the fused 64-channel stride-1 3x3 `Conv`
+(ops/kernels/conv3.py), the fused `RepNCSP`'s bottleneck loop at 32
+channels (ops/kernels/csp_chain.py) and `ADown` (fused:
+ops/kernels/adown.py; train: ops/adown_train.py). The gates are the
+kernels' geometry; on a CPU tensor each kernel wrapper takes its plain
+version. The JAX package's width-packed layouts are not ported: every
+block stays NCHW in channels_last memory.
 
 Constructor arguments are the JAX package's block config fields, so the
 plan builder passes the same YAML parameters to both packages.
@@ -40,6 +44,8 @@ from yolo_re_tpu_torch.ops.conv import (
     upsample_nearest,
 )
 from yolo_re_tpu_torch.ops.kernels import adown as adown_kernel
+from yolo_re_tpu_torch.ops.kernels import conv3 as conv3_kernel
+from yolo_re_tpu_torch.ops.kernels import csp_chain
 from yolo_re_tpu_torch.ops.kernels import stem as stem_kernel
 from yolo_re_tpu_torch.ops.stem_train import stem_conv_raw_train
 
@@ -82,10 +88,20 @@ class Conv(nn.Module):
         self.is_stem = (in_channels == 3 and kernel_size == 3 and stride == 2
                         and padding in (None, 1) and groups == 1
                         and dilation == 1 and activation == "silu")
+        # the geometry of the CUDA conv3 kernel (in gelan-c: stage1's two
+        # block convs and the bottleneck convs of stage2's and fpn2's CSPs)
+        self.is_conv3 = (in_channels == out_channels == conv3_kernel.C
+                         and kernel_size == 3 and stride == 1
+                         and padding in (None, 1) and groups == 1
+                         and dilation == 1 and activation == "silu")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bn is None and self.is_stem:
             return stem_kernel.stem_conv(
+                x.contiguous(memory_format=torch.channels_last),
+                self.conv.weight, self.conv.bias)
+        if self.bn is None and self.is_conv3:
+            return conv3_kernel.conv3_silu(
                 x.contiguous(memory_format=torch.channels_last),
                 self.conv.weight, self.conv.bias)
         if self.training and self.is_stem:
@@ -168,9 +184,27 @@ class RepNBottleneck(nn.Module):
         return x + y if self.residual else y
 
 
+def _is_chain_bottleneck(b: RepNBottleneck) -> bool:
+    """A fused, residual bottleneck of the chain kernel's geometry: two
+    32 -> 32 stride-1 3x3 convs with SiLU."""
+    if not b.residual or b.conv1.fused is None or b.conv2.bn is not None:
+        return False
+    return b.conv1.activation == b.conv2.activation == "silu" and all(
+        c.in_channels == c.out_channels == csp_chain.C
+        and c.kernel_size == (3, 3) and c.stride == (1, 1)
+        and c.padding == (1, 1) and c.dilation == (1, 1) and c.groups == 1
+        for c in (b.conv1.fused, b.conv2.conv))
+
+
 class RepNCSP(nn.Module):
     """CSP bottleneck with RepNBottleneck inner blocks (reference:
-    src/yolo/blocks/csp.py:28-64)."""
+    src/yolo/blocks/csp.py:28-64).
+
+    `fuse()` (after its bottlenecks are fused) stacks the bottlenecks'
+    weights for the chain kernel (ops/kernels/csp_chain.py) when every
+    bottleneck is residual, 32 channels wide and there are at most four;
+    the fused forward then runs the whole loop as one kernel call.
+    """
 
     def __init__(self, in_channels: int, out_channels: int,
                  num_repeats: int = 1, shortcut: bool = True,
@@ -184,12 +218,34 @@ class RepNCSP(nn.Module):
             RepNBottleneck(hidden, hidden, shortcut, groups,
                            expansion_ratio=1.0)
             for _ in range(num_repeats))
+        self.chain = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y1 = self.conv1(x)
-        for b in self.bottlenecks:
-            y1 = b(y1)
+        if self.chain:
+            y1 = csp_chain.bottleneck_chain(
+                y1.contiguous(memory_format=torch.channels_last),
+                self.chain_w1, self.chain_b1, self.chain_w2, self.chain_b2)
+        else:
+            for b in self.bottlenecks:
+                y1 = b(y1)
         return self.conv3(torch.cat([y1, self.conv2(x)], dim=1))
+
+    def fuse(self) -> None:
+        """Stack the fused bottlenecks' weights once, as non-persistent
+        buffers (they follow `.to()`; the state dict is unchanged)."""
+        bots = list(self.bottlenecks)
+        if self.chain or not 1 <= len(bots) <= csp_chain.MAX_N or \
+                not all(_is_chain_bottleneck(b) for b in bots):
+            return
+        for name, tensors in (
+                ("chain_w1", [b.conv1.fused.weight for b in bots]),
+                ("chain_b1", [b.conv1.fused.bias for b in bots]),
+                ("chain_w2", [b.conv2.conv.weight for b in bots]),
+                ("chain_b2", [b.conv2.conv.bias for b in bots])):
+            self.register_buffer(name, torch.stack(tensors).detach(),
+                                 persistent=False)
+        self.chain = True
 
 
 class RepNCSPELAN4(nn.Module):

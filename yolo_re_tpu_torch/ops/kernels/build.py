@@ -51,6 +51,10 @@ SIGNATURES = {
     "yolo_adown_bwd": (_P,) * 13 + (_I,) * 7 + (_P,),
     # boxes, scores, out_idx, B, K, max_det, iou_thres, stream
     "yolo_nms_select": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # m, wt, bias, out, B, H, W, n, dtype, stream
+    "yolo_csp_chain": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, b, y, B, H, W, dtype, stream
+    "yolo_conv3_silu": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

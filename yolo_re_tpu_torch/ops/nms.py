@@ -1,17 +1,20 @@
-"""Fixed-shape batched NMS, serving mode (counterpart of
-yolo_re_tpu/ops/nms.py).
+"""Fixed-shape batched NMS (counterpart of yolo_re_tpu/ops/nms.py).
 
 1. per anchor: best class score and its index;
-2. top-K preselection by confidence (`pre_topk`, 512 at serving
-   thresholds) with a STABLE descending sort, so equal scores keep the
-   lower anchor index first, as `lax.top_k` does;
+2. top-K preselection by confidence with a STABLE descending sort, so
+   equal scores keep the lower anchor index first, as `lax.top_k` does:
+   K = `pre_topk`, or by default every anchor at mAP-eval thresholds
+   (conf < 0.1) and 512 at serving ones;
 3. a constant class offset (MAX_WH) makes class-aware NMS one
    class-agnostic pass;
-4. greedy suppression in the NMS kernel (ops/kernels/nms.py).
+4. greedy suppression in the NMS kernel (ops/kernels/nms.py), which stops
+   once no live score is left.
 
-Outputs are padded (B, max_det, ...) plus a validity mask. The all-anchor
-eval path (pre_topk=None at conf < 0.1) and its adaptive K buckets wait for
-the eval slice.
+Outputs are padded (B, max_det, ...) plus a validity mask. The JAX
+package's adaptive K buckets for the all-anchor path (a `lax.switch` on the
+count of conf-passing anchors) are exact by construction, identical to the
+all-anchor program; here that program runs as it is, one kernel call over
+every anchor with no device-to-host sync.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ def non_max_suppression(
     """Batched NMS over (B, A, 4 + num_classes) decoded predictions (boxes
     xywh in pixels, class scores sigmoided; reference
     src/yolo/utils/nms.py:19-42). `classes` keeps only detections whose
-    argmax class is in the set.
+    argmax class is in the set. `pre_topk`: the candidates kept before the
+    greedy pass; None takes every anchor at conf_thres < 0.1 (mAP eval)
+    and 512 otherwise.
 
     Returns dict of fixed-shape tensors:
         boxes   (B, max_det, 4) xyxy float32
@@ -48,11 +53,7 @@ def non_max_suppression(
     """
     num_anchors = predictions.shape[1]
     if pre_topk is None:
-        if conf_thres < 0.1:
-            raise NotImplementedError(
-                "the all-anchor eval NMS (pre_topk=None at conf_thres < 0.1) "
-                "is not ported yet; pass pre_topk")
-        pre_topk = 512
+        pre_topk = num_anchors if conf_thres < 0.1 else 512
     k = min(pre_topk, num_anchors)
 
     boxes_xywh = predictions[..., :4].float()

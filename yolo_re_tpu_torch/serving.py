@@ -24,7 +24,24 @@ from yolo_re_tpu_torch.data.device_pipeline import batched_letterbox
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.nms import nms_to_list, non_max_suppression
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def inference_model(model: YOLO, state_dict_or_params: Any,
+                    device: torch.device, dtype: torch.dtype,
+                    fuse: bool = True) -> YOLO:
+    """A copy of `model` holding the weights (a state dict of `model`, or
+    the JAX package's (params, stats) pytrees), loaded with strict=True,
+    fused if asked, in eval mode on `device` in `dtype`. The caller's
+    model is left as it was."""
+    sd = state_dict_or_params
+    if isinstance(sd, tuple):
+        sd = state_dict_from_jax(model.plan, *sd)
+    model = copy.deepcopy(model)
+    model.load_state_dict(sd, strict=True)
+    if fuse:
+        model.fuse()
+    return model.eval().to(device=device, dtype=dtype)
 
 
 class Detector:
@@ -38,27 +55,22 @@ class Detector:
     state_dict_or_params: a state dict of `model` (for example
     `model.state_dict()`), or the JAX package's (params, stats) pytrees.
     The model is copied, loaded with strict=True and fused; the caller's
-    model is left as it was. `device` is required: "cuda" without a CUDA
-    device raises.
+    model is left as it was. `device` defaults to "cuda" and raises
+    without a CUDA device; pass "cpu" to run the kernels' plain versions.
     """
 
     def __init__(self, model: YOLO, state_dict_or_params: Any, *,
-                 device: str | torch.device, img_size: int = 640,
+                 device: str | torch.device = "cuda", img_size: int = 640,
                  conf_thres: float = 0.25, iou_thres: float = 0.45,
                  max_det: int = 300, compute_dtype: str = "bfloat16"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Detector(device='cuda'): no CUDA device")
-        if compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
-        self.dtype = _DTYPES[compute_dtype]
-        sd = state_dict_or_params
-        if isinstance(sd, tuple):
-            sd = state_dict_from_jax(model.plan, *sd)
-        model = copy.deepcopy(model)
-        model.load_state_dict(sd, strict=True)
-        self.model = model.fuse().eval().to(device=self.device,
-                                            dtype=self.dtype)
+        if compute_dtype not in DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}")
+        self.dtype = DTYPES[compute_dtype]
+        self.model = inference_model(model, state_dict_or_params,
+                                     self.device, self.dtype)
         self.img_size = img_size
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres

@@ -14,10 +14,12 @@ dtype; the parameters, gradients, optimizer buffers and EMA stay f32.
 
 Batches come from `train_loader`: any iterable (with `len`) of
 {"images": (B, H, W, 3) uint8 or float NHWC, "targets": (B, M, 5)} batches,
-numpy or torch, the JAX Trainer's batch format. What waits for later
-slices raises NotImplementedError naming the slice: loaders built from
-disk (`data=`), device augmentation, validation, injected optimizers,
-multi-card data parallelism, remat and orbax checkpoints.
+numpy or torch, the JAX Trainer's batch format; or `data=` (a DataConfig)
+builds the train and val loaders from disk (data/dataset.py). `validate()`
+runs the Evaluator (eval/evaluator.py) on the EMA weights, and `train()`
+keeps the best map50 in output_dir/best.npz. What waits for later slices
+raises NotImplementedError naming the slice: device augmentation, injected
+optimizers, multi-card data parallelism, remat and orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -32,8 +34,11 @@ import numpy as np
 import torch
 
 from yolo_re_tpu_torch.convert import jax_from_state_dict, state_dict_from_jax
+from yolo_re_tpu_torch.data.dataset import create_dataloader
+from yolo_re_tpu_torch.eval.evaluator import Evaluator
 from yolo_re_tpu_torch.loss.tal import LossConfig, TALoss
 from yolo_re_tpu_torch.models.yolo import YOLO
+from yolo_re_tpu_torch.serving import DTYPES
 from yolo_re_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.ema import ema_update, init_ema
@@ -46,7 +51,6 @@ from yolo_re_tpu_torch.train.schedule import WarmupCosineSchedule
 
 log = logging.getLogger(__name__)
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _STAT_SUFFIXES = (".running_mean", ".running_var")
 
 
@@ -75,14 +79,15 @@ class Trainer:
 
     `params`/`stats`: the JAX package's (params, stats) pytrees to start
     from; without them the model is initialized from `config.seed`, as the
-    JAX Trainer does. `device` defaults to "cuda" when a card is present.
+    JAX Trainer does. `device` defaults to "cuda" and raises without a
+    card; pass "cpu" to train on the kernels' plain versions.
     """
 
     def __init__(self, model: YOLO, data=None,
                  config: TrainConfig | None = None, loss_fn=None,
                  loss_config: LossConfig | None = None, train_loader=None,
                  val_loader=None, params=None, stats=None, optimizer=None,
-                 schedule=None, device: str | torch.device | None = None,
+                 schedule=None, device: str | torch.device = "cuda",
                  **overrides: Any):
         self.model = model
         self.config = config or TrainConfig()
@@ -91,14 +96,8 @@ class Trainer:
                 raise TypeError(f"Unknown TrainConfig field {k!r}")
             setattr(self.config, k, v)
         cfg = self.config
-        if data is not None:
-            raise _not_ported("Trainer(data=...) (loaders built from disk: "
-                              "the data/dataset.py, transforms.py, augment.py "
-                              "and utils/native.py copies)", "data pipeline")
         if cfg.device_augment:
             raise _not_ported("device_augment", "device augmentation")
-        if val_loader is not None:
-            raise _not_ported("validation (val_loader, the Evaluator)", "eval")
         if optimizer is not None:
             raise _not_ported("an injected optimizer", "train tooling")
         if cfg.remat:
@@ -106,27 +105,34 @@ class Trainer:
         if cfg.checkpoint_format != "npz":
             raise _not_ported(f"checkpoint_format={cfg.checkpoint_format!r} "
                               f"(orbax)", "train tooling")
-        if cfg.compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
-        if train_loader is None:
-            raise ValueError("train_loader is required (an iterable of "
-                             "{'images', 'targets'} batches)")
+        if cfg.compute_dtype not in DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}")
         if model.fused:
             raise ValueError("a fused model has no BN to train")
-
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer(device='cuda'): no CUDA device")
+        if train_loader is None:
+            if data is None or not data.train_path:
+                raise ValueError(
+                    "train_loader (an iterable of {'images', 'targets'} "
+                    "batches) or data with a train_path is required")
+            train_loader = create_dataloader(data.train_path, data, "train")
+        if val_loader is None and data is not None and data.val_path:
+            val_loader = create_dataloader(data.val_path, data, "val")
         if cfg.data_parallel and self.device.type == "cuda" and \
                 torch.cuda.device_count() > 1:
             raise _not_ported(
                 f"data_parallel over {torch.cuda.device_count()} cards "
                 f"(set data_parallel=False for one card)", "scale")
-        self.dtype = _DTYPES[cfg.compute_dtype]
+        self.dtype = DTYPES[cfg.compute_dtype]
 
         nc, reg_max, strides = detect_info(model)
         self.loss_fn = loss_fn or TALoss(nc, reg_max, strides,
                                          loss_config or LossConfig())
         self.train_loader = train_loader
+        self.val_loader = val_loader
+        self._evaluator: Evaluator | None = None
 
         # -- state ----------------------------------------------------------
         if params is None or stats is None:
@@ -209,25 +215,50 @@ class Trainer:
                  "dfl %.4f", epoch, dt, n_images / max(dt, 1e-9), *mean_items)
         return mean_items
 
+    def validate(self, epoch: int = 0) -> dict[str, float]:
+        """Validate on the EMA weights (reference: trainer.py:315-334),
+        with per-epoch debug images (GT red / preds green) under
+        output_dir/debug/."""
+        if self.val_loader is None:
+            return {}
+        if self._evaluator is None:
+            self._evaluator = Evaluator(
+                self.model, self.val_loader, device=self.device,
+                debug_dir=str(Path(self.config.output_dir) / "debug"))
+        weights = {**self.model.state_dict(), **self.ema["params"],
+                   **self.ema["stats"]}
+        return self._evaluator.evaluate(weights, epoch=epoch + 1)
+
     def train(self) -> dict[str, float]:
         cfg = self.config
         out_dir = Path(cfg.output_dir)
+        results: dict[str, float] = {}
         for epoch in range(self.start_epoch, cfg.epochs):
             items = self.train_one_epoch(epoch)
-            self._log_metrics(out_dir, epoch, items)
+            if self.val_loader is not None and cfg.val_period > 0 \
+                    and (epoch + 1) % cfg.val_period == 0:
+                results = self.validate(epoch)
+                fitness = results.get("map50", 0.0)
+                if fitness > self.best_fitness:
+                    self.best_fitness = fitness
+                    self._save(out_dir / "best.npz", epoch)
+                    log.info("new best map50 %.4f -> best.npz", fitness)
+            self._log_metrics(out_dir, epoch, items, results)
             if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0:
                 self._save(out_dir / f"epoch{epoch}.npz", epoch)
         self._save(out_dir / "last.npz", cfg.epochs - 1)
-        return {}
+        return results
 
-    def _log_metrics(self, out_dir: Path, epoch: int, items) -> None:
+    def _log_metrics(self, out_dir: Path, epoch: int, items,
+                     results: dict[str, float]) -> None:
         """One JSON line per epoch in output_dir/metrics.jsonl."""
         out_dir.mkdir(parents=True, exist_ok=True)
         lr, _, momentum = self.schedule(self.global_step)
         record = {"epoch": epoch, "global_step": self.global_step,
                   "box_loss": float(items[0]), "cls_loss": float(items[1]),
-                  "dfl_loss": float(items[2]), "lr": float(lr),
-                  "momentum": float(momentum)}
+                  "dfl_loss": float(items[2]),
+                  **{f"val_{k}": float(v) for k, v in results.items()},
+                  "lr": float(lr), "momentum": float(momentum)}
         with open(out_dir / "metrics.jsonl", "a") as f:
             f.write(json.dumps(record) + "\n")
 
