@@ -12,7 +12,9 @@ non-zero (no phase is caught):
    bf16 and f32: max abs difference (against the tolerance stated below),
    time, and the time of one PyTorch call computing the same function where
    there is one (`library_ms`, bf16: F.conv2d with bias, no SiLU; for the
-   chain one conv's call times the 2n convs); the stage1 kernels at
+   chain one conv's call times the 2n convs); the stage1 kernels through
+   the packed calls a fused model makes (weights packed outside the timed
+   calls, as `fuse()` packs them once), at
    m (32, 32, 160, 160) for n = 1 and 2 (gelan-c, gelan-c-d2) and
    x (32, 64, 160, 160) and (32, 64, 80, 80);
 4. the trained tiny fixture (assets/dryrun_tiny.npz, TINY_YAML, 160 px)
@@ -45,7 +47,9 @@ non-zero (no phase is caught):
 the work: the larger of the bytes each function must move (inputs read
 once, outputs written once) over 3.35 TB/s, and its operations over 989
 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32, NMS), the H100 SXM data
-sheet's rates, computed from this run's inputs. The last three lines are
+sheet's rates, computed from this run's inputs; `bound_fraction` is
+bound_ms / ms, and the stage1 kernels carry their numbers at each shape
+phase 3 ran under `shapes`. The last three lines are
 the card's nvidia-smi line, a JSON line with one entry per kernel, and
 {"ok": true, "device": {...}}.
 """
@@ -235,11 +239,14 @@ def phase_kernels(dev) -> dict:
                     rand(n, 32, dtype=dtype) * 0.5 + 0.5,
                     rand(n, 32, 32, 3, 3, scale=0.06, dtype=dtype),
                     rand(n, 32, dtype=dtype) * 0.5 + 0.5)
-            y = csp_chain.bottleneck_chain(m, *args)
+            # the packed call of a fused RepNCSP; packing is fuse-time work
+            wp, bias = csp_chain.pack_weights(*args)
+            y = csp_chain.bottleneck_chain_packed(m, wp, bias)
             err = check_close(f"csp_chain n={n} {tag} {tuple(m.shape)}", y,
                               csp_chain.bottleneck_chain_plain(m, *args),
                               dtype)
-            ms = cuda_ms(lambda: csp_chain.bottleneck_chain(m, *args))
+            ms = cuda_ms(
+                lambda: csp_chain.bottleneck_chain_packed(m, wp, bias))
             plain_ms = cuda_ms(
                 lambda: csp_chain.bottleneck_chain_plain(m, *args))
             w0, b0 = args[0][0], args[1][0]
@@ -257,10 +264,12 @@ def phase_kernels(dev) -> dict:
             x = rand(BATCH, 64, *hw, dtype=dtype, cl=True)
             w = rand(64, 64, 3, 3, scale=0.05, dtype=dtype)
             b = rand(64, dtype=dtype)
-            y = conv3.conv3_silu(x, w, b)
+            # the packed call of a fused Conv; packing is fuse-time work
+            wp = conv3.pack_weights(w)
+            y = conv3.conv3_silu_packed(x, wp, b)
             err = check_close(f"conv3 {tag} {tuple(x.shape)}", y,
                               conv3.conv3_silu_plain(x, w, b), dtype)
-            ms = cuda_ms(lambda: conv3.conv3_silu(x, w, b))
+            ms = cuda_ms(lambda: conv3.conv3_silu_packed(x, wp, b))
             plain_ms = cuda_ms(lambda: conv3.conv3_silu_plain(x, w, b))
             lib_ms = cuda_ms(lambda: F.conv2d(x, w, b, padding=1))
             print(f"  conv3 {hw} {tag}: kernel {ms:.4f} ms, plain "
@@ -747,12 +756,34 @@ def main() -> int:
         "replaces": f"yolo_re_tpu/ops/pallas/{tpu}", "launches": launches,
         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"]} for name, src, tpu, launches, r in rows]
+        "library_ms": r["library_ms"],
+        "bound_fraction": r["bound_ms"] / r["ms"]}
+        for name, src, tpu, launches, r in rows]
+    # the stage1 kernels at every shape phase 3 ran, bf16
+    per_shape = {
+        "bottleneck_chain": {f"n={n} {STAGE1_HW[0]}x{STAGE1_HW[1]}":
+                             res["csp_chain"][(n, "bf16")]
+                             for n in CHAIN_DEPTHS},
+        "conv3_silu": {f"{hw[0]}x{hw[1]}": res["conv3"][(hw, "bf16")]
+                       for hw in CONV3_HW}}
+    for k in kernels:
+        if k["name"] in per_shape:
+            k["shapes"] = {
+                shape: {key: r[key] for key in (
+                    "ms", "library_ms", "bound_ms", "bound_by")}
+                for shape, r in per_shape[k["name"]].items()}
+    print("fraction of the bound (bound_ms / ms, bf16): " + ", ".join(
+        f"{k['name']} {k['bound_fraction']:.3f}" for k in kernels) + "; " +
+        ", ".join(f"{name} {shape} {r['bound_ms'] / r['ms']:.3f}"
+                  for name, shapes in per_shape.items()
+                  for shape, r in shapes.items()))
     print(f"(kernel ms/plain_ms/library_ms: bf16 at the serving, eval and "
           f"train shapes; adown kernels are the sum of gelan-c's five ADown "
           f"shapes, nms is K=512, bottleneck_chain n=1 with library_ms two "
           f"F.conv2d calls (one per conv; no SiLU, no residual), conv3_silu "
           f"at 160x160 with library_ms one F.conv2d with bias (no SiLU), "
+          f"both also under 'shapes' at each shape phase 3 ran (chain n=2: "
+          f"four F.conv2d calls; conv3 80x80), "
           f"stem_conv's "
           f"likewise, stem_wgrad's torch.nn.grad.conv2d_weight; no PyTorch "
           f"call computes ADown, its backward or greedy NMS: null; "

@@ -239,8 +239,8 @@ def test_stage1_elan_matches_jax_with_the_chain(monkeypatch, n, dtype):
     assert len(calls) == (2 if dtype == torch.bfloat16 else 0)
 
     counts = {"chain": 0, "conv3": 0}
-    for mod, name, key in ((csp_chain, "bottleneck_chain", "chain"),
-                           (conv3, "conv3_silu", "conv3")):
+    for mod, name, key in ((csp_chain, "bottleneck_chain_packed", "chain"),
+                           (conv3, "conv3_silu_packed", "conv3")):
         def counted(*a, _f=getattr(mod, name), _k=key):
             counts[_k] += 1
             return _f(*a)
@@ -267,3 +267,82 @@ def test_fuse_stacks_the_chain_only_at_its_geometry():
     assert fuse_model(no_res).chain is False
     grouped = B.Conv(64, 64, 3, 1, groups=4)
     assert not grouped.is_conv3 and B.Conv(64, 64, 3, 1).is_conv3
+
+
+# ---------------------------------------------------------------------------
+# the packed weight image the CUDA kernels read (csrc/hopper.cuh)
+# ---------------------------------------------------------------------------
+
+def _read_packed(packed: np.ndarray, c: int) -> np.ndarray:
+    """OIHW weights of the k convs in a packed image, read one element at a
+    time by the kernels' index arithmetic (hopper.cuh: packed_index)."""
+    per = 9 * c * c
+    convs = packed.reshape(-1, per)
+    w = np.empty((len(convs), c, c, 3, 3), packed.dtype)
+    for co in range(c):
+        for ci in range(c):
+            for tap in range(9):
+                i = ((tap * (c // 16) + ci // 16) * (16 * c) + (co // 8) * 128
+                     + (ci // 8) % 2 * 64 + (co % 8) * 8 + ci % 8)
+                w[:, co, ci, tap // 3, tap % 3] = convs[:, i]
+    return w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv3_packed_weights_read_back_exactly(dtype):
+    rng, w, b = _conv3_case(13)
+    wt, bt = _oihw(w).to(dtype), _vec(b).to(dtype)
+    x = _cl(rng.standard_normal((2, 9, 11, 64))).to(dtype)
+    wp = conv3.pack_weights(wt)
+    assert wp.shape == (9 * 64 * 64,) and wp.dtype == dtype
+    read = torch.from_numpy(_read_packed(wp.float().numpy(), 64)[0]).to(dtype)
+    assert torch.equal(read, wt) and torch.equal(conv3.unpack_weights(wp), wt)
+    ref = conv3.conv3_silu_plain(x, wt, bt)
+    assert torch.equal(conv3.conv3_silu_plain(x, read, bt), ref)
+    assert torch.equal(conv3.conv3_silu_packed(x, wp, bt), ref)
+    assert torch.equal(conv3.conv3_silu(x, wt, bt), ref)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_chain_packed_weights_read_back_exactly(n):
+    rng = np.random.default_rng(50 + n)
+    w1, w2 = (torch.from_numpy(rng.standard_normal(
+        (n, 32, 32, 3, 3)).astype(np.float32) * 0.06) for _ in range(2))
+    b1, b2 = (torch.from_numpy(rng.standard_normal((n, 32)).astype(
+        np.float32) * 0.5 + 0.5) for _ in range(2))
+    m = _cl(rng.standard_normal((1, 7, 10, 32))).bfloat16()
+    args = [t.bfloat16() for t in (w1, b1, w2, b2)]
+    wp, bias = csp_chain.pack_weights(*args)
+    assert wp.shape == (n * 2 * 9 * 32 * 32,) and bias.shape == (n, 2, 32)
+    read = torch.from_numpy(_read_packed(wp.float().numpy(), 32)).bfloat16()
+    assert torch.equal(read[0::2], args[0]) and torch.equal(read[1::2],
+                                                            args[2])
+    assert all(torch.equal(a, b) for a, b in
+               zip(csp_chain.unpack_weights(wp, bias), args))
+    ref = csp_chain.bottleneck_chain_plain(m, *args)
+    assert torch.equal(csp_chain.bottleneck_chain_plain(
+        m, read[0::2], bias[:, 0], read[1::2], bias[:, 1]), ref)
+    assert torch.equal(csp_chain.bottleneck_chain_packed(m, wp, bias), ref)
+
+
+def test_fuse_packs_kernel_weights_as_buffers_that_follow_to():
+    """A fused conv3-geometry Conv and a chain RepNCSP keep their packed
+    weights in non-persistent buffers: cast with the module, equal to the
+    packing of the cast weights, absent from the state dict."""
+    conv = B.Conv(64, 64, 3, 1).eval()
+    csp = B.RepNCSP(64, 64, 2).eval()
+    for mod in (conv, csp):
+        fuse_model(mod).to(torch.bfloat16)
+        names = {name for name, _ in mod.named_buffers()}
+        assert names & {"conv3_w", "chain_w", "chain_b"}
+        assert not names & set(mod.state_dict())
+    assert torch.equal(conv.conv3_w, conv3.pack_weights(conv.conv.weight))
+    bots = list(csp.bottlenecks)
+    wp, bias = csp_chain.pack_weights(
+        torch.stack([b.conv1.fused.weight for b in bots]),
+        torch.stack([b.conv1.fused.bias for b in bots]),
+        torch.stack([b.conv2.conv.weight for b in bots]),
+        torch.stack([b.conv2.conv.bias for b in bots]))
+    assert csp.chain_w.dtype == torch.bfloat16
+    assert torch.equal(csp.chain_w, wp) and torch.equal(csp.chain_b, bias)

@@ -170,6 +170,56 @@ def test_chain_kernel_matches_plain(cuda, dtype, n, shape):
     torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 160, 160), (1, 80, 80), (1, 20, 24)],
+                         ids=["many_tiles", "stage2", "fewer_tiles_than_sms"])
+def test_conv3_kernel_persistent_walk(cuda, dtype, shape):
+    """The persistent grid: 300 tiles over 132 CTAs (a ragged last round),
+    gelan-c's 80 x 80 sites, and 4 tiles (fewer CTAs than SMs), through
+    the packed call a fused Conv makes."""
+    g = torch.Generator().manual_seed(9)
+    x = _rand(g, shape[0], 64, *shape[1:], dtype=dtype, cl=True).to(cuda)
+    w = _rand(g, 64, 64, 3, 3, scale=0.05, dtype=dtype).to(cuda)
+    b = _rand(g, 64, dtype=dtype).to(cuda)
+    wp = conv3.pack_weights(w)
+    before = conv3.launches
+    y = conv3.conv3_silu_packed(x, wp, b)
+    torch.cuda.synchronize()
+    assert conv3.launches == before + 1
+    torch.testing.assert_close(y.float(),
+                               conv3.conv3_silu_plain(x, w, b).float(),
+                               atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (4, 160, 168)],
+                         ids=["border", "many_tiles"])
+def test_chain_kernel_persistent_walk(cuda, dtype, n, shape):
+    """n = 1-4: resident weights (n <= 2) and weights streamed conv by
+    conv (n = 3, 4); tiles cut by the border, and more tiles than CTAs
+    (each CTA walks several, the last round ragged)."""
+    g = torch.Generator().manual_seed(10 + n)
+    m = _rand(g, shape[0], 32, *shape[1:], dtype=dtype, cl=True).to(cuda)
+    args = [_rand(g, n, 32, 32, 3, 3, scale=0.06, dtype=dtype),
+            _rand(g, n, 32, dtype=dtype) * 0.5 + 0.5,
+            _rand(g, n, 32, 32, 3, 3, scale=0.06, dtype=dtype),
+            _rand(g, n, 32, dtype=dtype) * 0.5 + 0.5]
+    args = [a.to(cuda) for a in args]
+    wp, bias = csp_chain.pack_weights(*args)
+    before = csp_chain.launches
+    y = csp_chain.bottleneck_chain_packed(m, wp, bias)
+    torch.cuda.synchronize()
+    assert csp_chain.launches == before + 1
+    ref = csp_chain.bottleneck_chain_plain(m, *args)
+    # bf16: a rounding of one conv that differs by one ulp carries through
+    # the later bottlenecks, whose residual grows to ~16 at n = 4: 4 ulps
+    # of the largest output (chip_smoke.py's tolerance)
+    atol = (2.0 ** -6 * max(1.0, float(ref.abs().max()))
+            if dtype == torch.bfloat16 else ATOL[dtype])
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
+
+
 def test_stage1_wrappers_refuse_on_cuda(cuda):
     cl = torch.channels_last
     x = torch.zeros(1, 64, 8, 8, device=cuda).contiguous(memory_format=cl)

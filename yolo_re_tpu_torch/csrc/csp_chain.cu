@@ -24,34 +24,40 @@
 // about evenly, and each further bottleneck adds 30.2 GFLOP and no bytes.
 // So no intermediate goes to device memory.
 //
-// Design: one block per T x T output tile (T = 16; 8 for f32 at n >= 3,
-// where the buffers would not fit). The block loads the tile and its halo of
-// 2n pixels on each side, a Wb x Wb frame (Wb = T + 4n), once into shared
-// memory buffer R (zero outside the image). Conv k of the 2n (k = 1 .. 2n)
-// computes its outputs over the frame's inner square [k, Wb - k): conv 1 of
-// a bottleneck from R into buffer Tb, conv 2 from Tb back into R, adding the
-// residual in place. The weights of one conv (9 x 32 x 32) are staged in
-// shared memory before it runs. The frame's centre T x T of R is the output.
-// The halo costs redundant products: at n = 1 the two convs compute 18^2 +
-// 16^2 pixels per 16^2 outputs, 1.13x the work.
-// - bf16: tensor cores through nvcuda::wmma 16x16x16 bf16 fragments with
-//   f32 accumulators. An M fragment is 16 consecutive pixels of the frame in
-//   row-major order, whole rows of Wb included ("implicit GEMM" over the
-//   flat frame): tap (ky, kx) of all 16 reads the input buffer at one flat
-//   offset (ky - 1) * Wb + (kx - 1), so the A fragment is read in place with
-//   a 32-channel leading dimension. Pixels outside the conv's square (the
-//   wrapped columns) are computed and thrown away; the buffers carry a
-//   margin of Wb + 1 pixels before and 2 * Wb + 31 after the frame for
-//   those reads. The bias is added to the f32 accumulator, then SiLU, the
-//   mask and one rounding to bf16, through a per-warp staging area where
-//   lane l owns channel l.
-// - f32: CUDA cores; each thread a 4-pixel x 4-channel register tile of the
-//   conv's square, the buffers padded to 33 floats per pixel against bank
-//   conflicts.
-// Double buffering of the weights, TMA and wgmma are later work.
-#include <mma.h>
-
+// Design: a T x T output tile needs a Wb x Wb input frame (Wb = T + 4n, a
+// halo of 2n pixels on each side). Conv k of the 2n (k = 1 .. 2n) computes
+// its outputs over the frame's inner square [k, Wb - k): conv 1 of a
+// bottleneck from buffer R into buffer Tb, conv 2 from Tb back into R,
+// adding the residual in place; the last conv's square is the T x T tile.
+// - bf16: a persistent grid walking the tiles in (image, row, column)
+//   order: at n = 1 two CTAs of two warpgroups per SM (T = 16), beyond one
+//   CTA of four (T = 20 at n = 2, 16 at n = 3, 12 at n = 4), the largest
+//   tiles whose buffers fit. One kernel instance per n makes the frame,
+//   the squares and their divisions compile-time constants (faster on the
+//   card than run-time sizes: the kernel is bound by its non-product
+//   instructions as much as by its products). The weights of the 2n convs (9 x 32 x 32 each, packed
+//   by the wrapper in the wgmma B layout of hopper.cuh) stay resident for
+//   n <= 2 (36.9 KB at n = 1, 73.7 KB at n = 2); for n = 3 and 4 each conv's
+//   weights stream into one of two slots while the previous conv runs. The
+//   next tile's frame is loaded by cp.async (zero fill outside the image)
+//   into a third buffer while this tile computes. A pixel is 64 bytes, its
+//   16-byte chunks XOR-swizzled by pixel pairs against bank conflicts.
+//   Products: wgmma m64n32k16, M = 64 pixels of the conv's square in
+//   row-major order (the last chunk padded), A from registers (ldmatrix at
+//   each lane's own pixel address, shifted by the tap), so no wrapped
+//   columns are computed: at n = 1 the two convs compute 18^2 + 16^2
+//   pixels, padded to 640 rows, per 16^2 outputs (1.25x the useful
+//   products; the frame is 1.56x the tile's reads, mostly from L2). Conv
+//   1's epilogue writes bias + SiLU, rounded and masked by image, from the
+//   registers into Tb; conv 2 adds the residual from R in place; the last
+//   conv adds it and stores the tile straight to device memory, 16 bytes a
+//   lane.
+// - f32: CUDA cores; one block per tile (T = 16; 8 at n >= 3, where the
+//   buffers would not fit); each thread a 4-pixel x 4-channel register tile
+//   of the conv's square, the buffers padded to 33 floats per pixel against
+//   bank conflicts. It reads the same packed weights.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace yolo {
 namespace {
@@ -60,137 +66,264 @@ constexpr int kC = 32;                 // channels of the chain
 constexpr int kMaxN = 4;
 constexpr int kMaxSmem = 232448;       // an H100 block's shared memory
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kConvElems = 9 * kC * kC;   // one conv's packed weights
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core variant
+// bf16 tensor-core variant (wgmma)
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+using namespace sm90;
 
-constexpr int kWLd = kC + 8;           // padded weight row (bank conflicts)
-constexpr int kWElems = 9 * kC * kWLd;
-constexpr int kStageFloats = 16 * kC;  // one M fragment per warp
+constexpr int kPixBytes = kC * 2;                 // 64
+constexpr int kConvBytes = kConvElems * 2;        // 18,432
+constexpr int kBlockBytes = 16 * kC * 2;          // one (tap, k-step) block
 
-__host__ __device__ inline int buffer_pixels(int Wb) {
-  return Wb * Wb + 2 * Wb + 32;
+// convs whose weights stay resident; beyond, two streamed slots
+__host__ __device__ constexpr int weight_slots(int n) {
+  return n <= 2 ? 2 * n : 2;
 }
 
-inline size_t smem_bytes(int Wb) {
-  return (size_t)2 * buffer_pixels(Wb) * kC * sizeof(bf16) +
-         kWElems * sizeof(bf16) + (size_t)kWarps * kStageFloats * 4;
+__host__ __device__ constexpr int tile_for(int n) {
+  return n == 2 ? 20 : n == 4 ? 12 : 16;
 }
 
-__global__ void __launch_bounds__(kThreads)
-chain_wmma_kernel(const bf16* __restrict__ m, const bf16* __restrict__ wt,
-                  const bf16* __restrict__ bias, bf16* __restrict__ out,
-                  int H, int W, int n, int T, int tiles_w) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Wb = T + 4 * n, nb = buffer_pixels(Wb), org = Wb + 1;
-  bf16* R = reinterpret_cast<bf16*>(smem);           // [nb][kC]
-  bf16* Tb = R + nb * kC;                              // [nb][kC]
-  bf16* w_s = Tb + nb * kC;                            // [tap][ci][kWLd]
-  float* stage = reinterpret_cast<float*>(w_s + kWElems);
+// warpgroups per CTA and CTAs per SM: at n = 1 (113.7 KB of shared
+// memory) two CTAs of two warpgroups, beyond one CTA of four
+__host__ __device__ constexpr int warpgroups_for(int n) {
+  return n == 1 ? 2 : 4;
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int halo = 2 * n;
-  // image coordinates of frame pixel (0, 0)
-  const int fy0 = (blockIdx.x / tiles_w) * T - halo;
-  const int fx0 = (blockIdx.x % tiles_w) * T - halo;
-  const int b = blockIdx.y;
-  const bf16* mb = m + (size_t)b * H * W * kC;
-  const bf16 zero = __float2bfloat16(0.0f);
+inline size_t smem_bytes(int n, int T) {
+  const int Wb = T + 4 * n;
+  return (size_t)3 * Wb * Wb * kPixBytes +
+         (size_t)weight_slots(n) * kConvBytes;
+}
 
-  // the frame, 8 channels (16 bytes) per item; zero outside the image
-  for (int e = tid; e < Wb * Wb * (kC / 8); e += kThreads) {
-    const int q = e % (kC / 8), g = e / (kC / 8);
-    const int iy = fy0 + g / Wb, ix = fx0 + g % Wb;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      v = *reinterpret_cast<const uint4*>(mb + ((size_t)iy * W + ix) * kC +
-                                          8 * q);
-    *reinterpret_cast<uint4*>(R + (org + g) * kC + 8 * q) = v;
+// byte offset of chunk c (8 channels) of frame pixel q
+__device__ __forceinline__ uint32_t pix_off(int q, int c) {
+  return q * kPixBytes + ((c ^ ((q >> 1) & 3)) << 4);
+}
+
+struct Tile {
+  int b, y0, x0;      // image coordinates of frame pixel (0, 0)
+};
+
+__device__ __forceinline__ Tile tile_of(int t, int T, int halo, int tiles_h,
+                                        int tiles_w) {
+  const int per = tiles_h * tiles_w, r = t % per;
+  return {t / per, (r / tiles_w) * T - halo, (r % tiles_w) * T - halo};
+}
+
+__device__ __forceinline__ void load_frame(uint32_t buf, const bf16* m,
+                                           Tile t, int Wb, int H, int W,
+                                           int threads) {
+  for (int e = threadIdx.x; e < Wb * Wb * 4; e += threads) {
+    const int q = e / 4, c = e % 4;
+    const int iy = t.y0 + q / Wb, ix = t.x0 + q % Wb;
+    const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    const bf16* src =
+        ok ? m + (((size_t)t.b * H + iy) * W + ix) * kC + 8 * c : m;
+    cp_async16(buf + pix_off(q, c), src, ok);
   }
+}
 
-  float* st = stage + warp * kStageFloats;
-  for (int i = 0; i < n; ++i) {
-    for (int conv = 0; conv < 2; ++conv) {
-      const bf16* src = conv == 0 ? R : Tb;
-      bf16* dst = conv == 0 ? Tb : R;
-      const int lo = 2 * i + conv + 1, hi = Wb - lo;   // output square
-      __syncthreads();      // the frame is loaded / the last conv is done
-      const bf16* wg = wt + (size_t)(2 * i + conv) * 9 * kC * kC;
-      for (int e = tid; e < 9 * kC * (kC / 8); e += kThreads) {
-        const int v8 = e % (kC / 8), row = e / (kC / 8);   // row = tap*kC+ci
-        *reinterpret_cast<uint4*>(w_s + row * kWLd + 8 * v8) =
-            *reinterpret_cast<const uint4*>(wg + (size_t)row * kC + 8 * v8);
+__device__ __forceinline__ void load_weights(uint32_t slot, const bf16* w,
+                                             int threads) {
+  for (int e = threadIdx.x; e < kConvBytes / 16; e += threads)
+    cp_async16(slot + 16 * e, w + 8 * e, true);
+}
+
+// A registers of one kernel row (3 taps x 2 k-steps) for this lane's pixel
+// q (frame index of the output pixel)
+__device__ __forceinline__ void load_a(uint32_t (&a)[3][2][4], uint32_t src,
+                                       int q, int ky, int Wb, int hi) {
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) {
+    const int p = q + (ky - 1) * Wb + kx - 1;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) ldmatrix_x4(src + pix_off(p, 2 * s + hi),
+                                           a[kx][s]);
+  }
+}
+
+// one instance per n, so that the frame and square sizes are constants
+template <int n>
+__global__ void __launch_bounds__(128 * warpgroups_for(n), n == 1 ? 2 : 1)
+chain_wgmma_kernel(const bf16* __restrict__ m, const bf16* __restrict__ wt,
+                   const bf16* __restrict__ bias, bf16* __restrict__ out,
+                   int H, int W, int tiles_h, int tiles_w, int n_tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kWG = warpgroups_for(n), kThreadsN = 128 * kWG;
+  constexpr int T = tile_for(n), Wb = T + 4 * n, halo = 2 * n;
+  constexpr int convs = 2 * n, frame_bytes = Wb * Wb * kPixBytes;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t tb = base + 2 * frame_bytes;
+  const uint32_t w_s = base + 3 * frame_bytes;
+  constexpr bool streamed = n > 2;
+  // the conv after which the next tile's frame load is issued: the first
+  // when the weights are resident, else the last (after its weights)
+  constexpr int frame_at = streamed ? convs - 1 : 0;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, warp = (tid / 32) % 4, q4 = lane % 4;
+  const int hi = lane / 16;
+
+  int t = blockIdx.x;
+  for (int c = 0; c < (streamed ? 1 : convs); ++c)
+    load_weights(w_s + c * kConvBytes, wt + (size_t)c * kConvElems,
+                 kThreadsN);
+  load_frame(base, m, tile_of(t, T, halo, tiles_h, tiles_w), Wb, H, W,
+             kThreadsN);
+  cp_async_commit();
+
+  for (int it = 0; t < n_tiles; ++it, t += gridDim.x) {
+    const Tile tl = tile_of(t, T, halo, tiles_h, tiles_w);
+    const uint32_t R = base + (it & 1) * frame_bytes;
+    const int tn = t + gridDim.x;
+#pragma unroll
+    for (int c = 0; c < convs; ++c) {
+      if (c == 0 || streamed) {
+        cp_async_wait_all();
+        fence_proxy_async();
       }
-      __syncthreads();
-      const float bl = __bfloat162float(bias[(2 * i + conv) * kC + lane]);
-      const int end = hi * Wb;                             // flat, exclusive
-      const int nfrag = ceil_div((hi - lo) * Wb, 16);
-      for (int f = warp; f < nfrag; f += kWarps) {
-        const int g0 = lo * Wb + 16 * f;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-        wmma::fill_fragment(acc[0], 0.0f);
-        wmma::fill_fragment(acc[1], 0.0f);
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
+      __syncthreads();   // the last conv's writes, this conv's weights
+      if (streamed && (c + 1 < convs || tn < n_tiles))
+        load_weights(w_s + ((c + 1) & 1) * kConvBytes,
+                     wt + (size_t)((c + 1) % convs) * kConvElems, kThreadsN);
+      if (c == frame_at && tn < n_tiles)
+        load_frame(base + ((it + 1) & 1) * frame_bytes, m,
+                   tile_of(tn, T, halo, tiles_h, tiles_w), Wb, H, W,
+                   kThreadsN);
+      cp_async_commit();
+
+      const uint32_t wc = w_s + (streamed ? (c & 1) : c) * kConvBytes;
+      const uint32_t src = (c & 1) ? tb : R;
+      const bool last = c == convs - 1;
+      const int lo = c + 1, S = Wb - 2 * lo, npix = S * S;
+      float bl[4][2];
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const int off = (tap / 3 - 1) * Wb + (tap % 3 - 1);
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int kh = 0; kh < 2; ++kh) {
-            wmma::load_matrix_sync(a, src + (org + g0 + off) * kC + 16 * kh,
-                                   kC);
+        for (int e = 0; e < 2; ++e)
+          bl[j][e] = __bfloat162float(bias[c * kC + 8 * j + 2 * q4 + e]);
+
+      for (int ch = wg; 64 * ch < npix; ch += kWG) {
+        // this lane's A row, clamped into the square
+        const int ia = min(64 * ch + 16 * warp + lane % 16, npix - 1);
+        const int qa = (lo + ia / S) * Wb + lo + ia % S;
+        float acc[16];
 #pragma unroll
-            for (int nf = 0; nf < 2; ++nf) {
-              wmma::load_matrix_sync(
-                  bm, w_s + (tap * kC + 16 * kh) * kWLd + 16 * nf, kWLd);
-              wmma::mma_sync(acc[nf], a, bm, acc[nf]);
+        for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+        uint32_t a[2][3][2][4];
+        load_a(a[0], src, qa, 0, Wb, hi);
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          wgmma_fence();
+#pragma unroll
+          for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+              wgmma_m64n32k16(
+                  acc, a[ky & 1][kx][s],
+                  make_desc(wc + ((3 * ky + kx) * 2 + s) * kBlockBytes), 1);
+          wgmma_commit();
+          if (ky < 2) {
+            wgmma_wait<1>();
+            load_a(a[(ky + 1) & 1], src, qa, ky + 1, Wb, hi);
+          }
+        }
+        wgmma_wait<0>();
+
+        // epilogue: rows lane / 4 and lane / 4 + 8 of the warp's 16
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int idx = 64 * ch + 16 * warp + lane / 4 + 8 * r;
+          const int Y = lo + idx / S, X = lo + idx % S, q = Y * Wb + X;
+          const bool valid = idx < npix;
+          const bool in_image = tl.y0 + Y >= 0 && tl.y0 + Y < H &&
+                                tl.x0 + X >= 0 && tl.x0 + X < W;
+          uint32_t v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float t0 = __bfloat162float(__float2bfloat16(
+                silu_fast(acc[4 * j + 2 * r] + bl[j][0])));
+            const float t1 = __bfloat162float(__float2bfloat16(
+                silu_fast(acc[4 * j + 2 * r + 1] + bl[j][1])));
+            const uint32_t at = pix_off(valid ? q : 0, j) + 4 * q4;
+            if (!(c & 1)) {
+              v[j] = in_image ? pack_bf16x2(t0, t1) : 0u;
+            } else {
+              // the residual, in place in R
+              uint32_t rv;
+              asm volatile("ld.shared.b32 %0, [%1];\n"
+                           : "=r"(rv) : "r"(R + at));
+              const __nv_bfloat162 r2 =
+                  *reinterpret_cast<const __nv_bfloat162*>(&rv);
+              v[j] = in_image ? pack_bf16x2(__low2float(r2) + t0,
+                                            __high2float(r2) + t1)
+                              : 0u;
             }
           }
-        }
-        wmma::store_matrix_sync(st, acc[0], kC, wmma::mem_row_major);
-        wmma::store_matrix_sync(st + 16, acc[1], kC, wmma::mem_row_major);
-        __syncwarp();
-        // lane = channel; bias, SiLU, the out-of-square / out-of-image
-        // mask and the rounding; conv 2 adds the residual in place
-        for (int p = 0; p < 16 && g0 + p < end; ++p) {
-          const int g = g0 + p, Y = g / Wb, X = g % Wb;
-          const bool in_square = X >= lo && X < hi;
-          const bool in_image = fy0 + Y >= 0 && fy0 + Y < H &&
-                                fx0 + X >= 0 && fx0 + X < W;
-          bf16* d = dst + (org + g) * kC + lane;
-          const bf16 t = __float2bfloat16(silu(st[p * kC + lane] + bl));
-          if (conv == 0) {
-            *d = in_square && in_image ? t : zero;
-          } else if (in_square) {
-            *d = in_image
-                     ? __float2bfloat16(__bfloat162float(*d) +
-                                        __bfloat162float(t))
-                     : zero;
+          if (last) {
+            uint32_t o[4];
+            quad_transpose(v, o, q4);
+            if (valid && in_image)
+              *reinterpret_cast<uint4*>(
+                  out + (((size_t)tl.b * H + tl.y0 + Y) * W + tl.x0 + X) *
+                            kC + 8 * q4) = make_uint4(o[0], o[1], o[2], o[3]);
+          } else if (valid) {
+            const uint32_t dst = (c & 1) ? R : tb;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                               dst + pix_off(q, j) + 4 * q4),
+                           "r"(v[j])
+                           : "memory");
           }
         }
-        __syncwarp();
       }
     }
   }
-  __syncthreads();
+  cp_async_wait_all();
+}
 
-  // the frame's centre T x T is the output tile
-  for (int e = tid; e < T * T * (kC / 8); e += kThreads) {
-    const int q = e % (kC / 8), p = e / (kC / 8);
-    const int y = p / T, x = p % T;
-    const int iy = fy0 + halo + y, ix = fx0 + halo + x;
-    if (iy < H && ix < W)
-      *reinterpret_cast<uint4*>(out + (((size_t)b * H + iy) * W + ix) * kC +
-                                8 * q) =
-          *reinterpret_cast<const uint4*>(
-              R + (org + (halo + y) * Wb + halo + x) * kC + 8 * q);
+template <int n>
+cudaError_t launch_n(const bf16* m, const bf16* wt, const bf16* bias,
+                     bf16* out, int B, int H, int W, cudaStream_t stream) {
+  constexpr int T = tile_for(n), kMinBlocks = n == 1 ? 2 : 1;
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        chain_wgmma_kernel<n>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  const int tiles_h = ceil_div(H, T), tiles_w = ceil_div(W, T);
+  const int n_tiles = B * tiles_h * tiles_w;
+  const int slots = kMinBlocks * sm_count();
+  const int grid = n_tiles < slots ? n_tiles : slots;
+  chain_wgmma_kernel<n><<<grid, 128 * warpgroups_for(n), smem_bytes(n, T),
+                          stream>>>(m, wt, bias, out, H, W, tiles_h, tiles_w,
+                                    n_tiles);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* m, const void* wt, const void* bias,
+                   void* out, int B, int H, int W, int n,
+                   cudaStream_t stream) {
+  const bf16 *mp = static_cast<const bf16*>(m),
+             *wp = static_cast<const bf16*>(wt),
+             *bp = static_cast<const bf16*>(bias);
+  bf16* op = static_cast<bf16*>(out);
+  switch (n) {
+    case 1: return launch_n<1>(mp, wp, bp, op, B, H, W, stream);
+    case 2: return launch_n<2>(mp, wp, bp, op, B, H, W, stream);
+    case 3: return launch_n<3>(mp, wp, bp, op, B, H, W, stream);
+    default: return launch_n<4>(mp, wp, bp, op, B, H, W, stream);
   }
 }
 
@@ -244,10 +377,17 @@ chain_f32_kernel(const float* __restrict__ m, const float* __restrict__ wt,
       float* dst = conv == 0 ? Tb : R;
       const int lo = 2 * i + conv + 1, S = Wb - 2 * lo;   // square [lo, lo+S)
       __syncthreads();
-      const float* wg = wt + (size_t)(2 * i + conv) * 9 * kC * kC;
-      for (int e = tid; e < 9 * kC * kC / 4; e += kThreads)
-        reinterpret_cast<float4*>(w_s)[e] =
-            reinterpret_cast<const float4*>(wg)[e];
+      // the conv's weights, [tap][ci][co], from the packed image, where
+      // one output channel's 8 input channels of a group are contiguous
+      const float* wg = wt + (size_t)(2 * i + conv) * kConvElems;
+      for (int e = tid; e < kConvElems / 4; e += kThreads) {
+        const int co = e % kC, quad = (e / kC) % 8, tap = e / (8 * kC);
+        const float4 v = *reinterpret_cast<const float4*>(
+            wg + sm90::packed_index<kC>(co, 8 * (quad / 2), tap) +
+            4 * (quad % 2));
+        float* d = w_s + (tap * kC + 4 * quad) * kC + co;
+        d[0] = v.x; d[kC] = v.y; d[2 * kC] = v.z; d[3 * kC] = v.w;
+      }
       __syncthreads();
       const float4 bv = *reinterpret_cast<const float4*>(
           bias + (2 * i + conv) * kC + 4 * cg);
@@ -310,60 +450,43 @@ chain_f32_kernel(const float* __restrict__ m, const float* __restrict__ wt,
   }
 }
 
-}  // namespace f32
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, bool& done) {
-  if (done) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  done = e == cudaSuccess;
-  return e;
-}
-
-cudaError_t launch(const void* m, const void* wt, const void* bias, void* out,
-                   int B, int H, int W, int n, int dtype,
+cudaError_t launch(const void* m, const void* wt, const void* bias,
+                   void* out, int B, int H, int W, int n,
                    cudaStream_t stream) {
-  if (n < 1 || n > kMaxN) return cudaErrorInvalidValue;
-  if (dtype == kBFloat16) {
-    static bool ready = false;
-    cudaError_t e = allow_smem(tc::chain_wmma_kernel, ready);
-    if (e != cudaSuccess) return e;
-    const int T = 16;
-    const int tiles_w = ceil_div(W, T);
-    dim3 grid(tiles_w * ceil_div(H, T), B);
-    tc::chain_wmma_kernel<<<grid, kThreads, tc::smem_bytes(T + 4 * n),
-                            stream>>>(
-        static_cast<const __nv_bfloat16*>(m),
-        static_cast<const __nv_bfloat16*>(wt),
-        static_cast<const __nv_bfloat16*>(bias),
-        static_cast<__nv_bfloat16*>(out), H, W, n, T, tiles_w);
-    return cudaGetLastError();
-  }
   static bool ready = false;
-  cudaError_t e = allow_smem(f32::chain_f32_kernel, ready);
-  if (e != cudaSuccess) return e;
-  const int T = f32::smem_bytes(16 + 4 * n) <= (size_t)kMaxSmem ? 16 : 8;
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(
+        chain_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  const int T = smem_bytes(16 + 4 * n) <= (size_t)kMaxSmem ? 16 : 8;
   const int tiles_w = ceil_div(W, T);
   dim3 grid(tiles_w * ceil_div(H, T), B);
-  f32::chain_f32_kernel<<<grid, kThreads, f32::smem_bytes(T + 4 * n),
-                          stream>>>(
+  chain_f32_kernel<<<grid, kThreads, smem_bytes(T + 4 * n), stream>>>(
       static_cast<const float*>(m), static_cast<const float*>(wt),
       static_cast<const float*>(bias), static_cast<float*>(out), H, W, n, T,
       tiles_w);
   return cudaGetLastError();
 }
 
+}  // namespace f32
+
 }  // namespace
 }  // namespace yolo
 
-// m, out (B, H, W, 32) NHWC; wt (n, 2, 3, 3, 32, 32) [bottleneck][conv]
-// [ky][kx][ci][co] (the wrapper permutes the OIHW weights); bias (n, 2, 32);
-// all of one dtype, 16-byte aligned; 1 <= n <= 4 (checked by the Python
-// wrapper).
+// m, out (B, H, W, 32) NHWC; wt the packed weights of the 2n convs, conv
+// 2i + j (bottleneck i, conv j) at element 9216 * (2i + j) in the layout of
+// hopper.cuh: packed_index (ops/kernels/csp_chain.py: pack_weights); bias
+// (n, 2, 32); all of one dtype, 16-byte aligned; 1 <= n <= 4 (checked by the
+// Python wrapper).
 extern "C" int yolo_csp_chain(const void* m, const void* wt, const void* bias,
                               void* out, int B, int H, int W, int n,
                               int dtype, void* stream) {
-  return yolo::launch(m, wt, bias, out, B, H, W, n, dtype,
-                      static_cast<cudaStream_t>(stream));
+  if (n < 1 || n > yolo::kMaxN) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == yolo::kBFloat16)
+    return yolo::tc::launch(m, wt, bias, out, B, H, W, n, s);
+  return yolo::f32::launch(m, wt, bias, out, B, H, W, n, s);
 }

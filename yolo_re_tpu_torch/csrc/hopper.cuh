@@ -1,0 +1,178 @@
+// Hopper (sm_90a) building blocks of the tensor-core kernels conv3.cu and
+// csp_chain.cu: cp.async with zero fill, ldmatrix, and warpgroup
+// matrix multiply (wgmma) with A in registers and B in shared memory.
+//
+// B operand layout ("core matrices", no swizzle): the weights of one
+// k-step (16 input channels) for N output channels are N/8 groups of 8
+// output channels; each group holds two 8 x 8 core matrices (input
+// channels 0-7, then 8-15), each 8 rows of 16 contiguous bytes (one output
+// channel's 8 input channels). So the core matrix next along K is 128
+// bytes on and the one next along N 256 bytes on (kLboBytes, kSboBytes).
+// The Python wrappers pack the weights in this order once
+// (ops/kernels/conv3.py, csp_chain.py: pack_weights).
+//
+// A operand: each warp of the warpgroup owns 16 of the 64 rows (pixels);
+// ldmatrix.x4 takes one row address per lane (lane l: row l % 16, input
+// channels 8 * (l / 16) on), so the 16 pixels of a warp may lie anywhere
+// in shared memory: a tap of a 3x3 conv is a shift of those addresses.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace yolo {
+namespace sm90 {
+
+// the descriptor's two strides (bytes): next core matrix along K (the
+// leading dimension) and along N (the stride dimension)
+constexpr uint32_t kLboBytes = 128;
+constexpr uint32_t kSboBytes = 256;
+
+// Element index of w[co][ci][ky][kx] (tap = 3 * ky + kx) of a C -> C 3x3
+// conv in the packed weight image: 9 x C / 16 blocks (tap, k-step) of
+// 16 x C elements in the B layout above. The f32 kernels read the same
+// image, so one packed buffer serves both dtypes.
+template <int C>
+__host__ __device__ constexpr int packed_index(int co, int ci, int tap) {
+  return (tap * (C / 16) + ci / 16) * (16 * C) + (co / 8) * 128 +
+         ((ci / 8) % 2) * 64 + (co % 8) * 8 + ci % 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; valid == false writes 16 zero bytes (the
+// conv's zero padding) and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory (stores, cp.async) made visible
+// to the async proxy that wgmma reads B through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// shared-memory matrix descriptor, no swizzle
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kLboBytes >> 4) << 16) |
+         (static_cast<uint64_t>(kSboBytes >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (64 x 64, f32) += a (64 x 16, bf16, registers) * b (16 x 64, bf16,
+// shared memory by descriptor); scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// d (64 x 32, f32) += a (64 x 16) * b (16 x 32)
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// SiLU in f32 with the fast exponential and reciprocal (a few f32 ulps
+// from common.cuh's silu, far below the one bf16 rounding that follows)
+__device__ __forceinline__ float silu_fast(float y) {
+  return y * __frcp_rn(1.0f + __expf(-y));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
+  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+}
+
+// Within each quad of lanes (q = lane % 4), w[j] holds output channels
+// 8j + 2q, 8j + 2q + 1 of one pixel (the wgmma accumulator layout); after
+// the call o[j] holds channels 8q + 2j, 8q + 2j + 1: each lane then owns
+// 16 contiguous bytes of the pixel, for one 16-byte store.
+__device__ __forceinline__ void quad_transpose(const uint32_t (&w)[4],
+                                               uint32_t (&o)[4], int q) {
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, pick4(w, q ^ 1), 1);
+  const uint32_t r2 = __shfl_xor_sync(0xffffffffu, pick4(w, q ^ 2), 2);
+  const uint32_t r3 = __shfl_xor_sync(0xffffffffu, pick4(w, q ^ 3), 3);
+  const uint32_t own = pick4(w, q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = j ^ q;
+    o[j] = k == 0 ? own : k == 1 ? r1 : k == 2 ? r2 : r3;
+  }
+}
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+}  // namespace sm90
+}  // namespace yolo

@@ -101,9 +101,9 @@ class Conv(nn.Module):
                 x.contiguous(memory_format=torch.channels_last),
                 self.conv.weight, self.conv.bias)
         if self.bn is None and self.is_conv3:
-            return conv3_kernel.conv3_silu(
+            return conv3_kernel.conv3_silu_packed(
                 x.contiguous(memory_format=torch.channels_last),
-                self.conv.weight, self.conv.bias)
+                self.conv3_w, self.conv.bias)
         if self.training and self.is_stem:
             # train stem (ops/stem_train.py): kernel forward + weight-grad
             # kernel backward, then train BN and SiLU
@@ -112,11 +112,18 @@ class Conv(nn.Module):
         return conv_bn_act(x, self.conv, self.bn, self.activation)
 
     def fuse(self) -> None:
+        """Fold BN into the conv; at the conv3 kernel's geometry also pack
+        its weight once, as a non-persistent buffer (it follows `.to()`;
+        the state dict is unchanged)."""
         if self.bn is None:
             return
         w, b = fold_conv_bn(self.conv.weight, self.bn)
         self.conv = _biased_conv(self.conv, w, b)
         self.bn = None
+        if self.is_conv3:
+            self.register_buffer(
+                "conv3_w", conv3_kernel.pack_weights(self.conv.weight.detach()),
+                persistent=False)
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +207,7 @@ class RepNCSP(nn.Module):
     """CSP bottleneck with RepNBottleneck inner blocks (reference:
     src/yolo/blocks/csp.py:28-64).
 
-    `fuse()` (after its bottlenecks are fused) stacks the bottlenecks'
+    `fuse()` (after its bottlenecks are fused) packs the bottlenecks'
     weights for the chain kernel (ops/kernels/csp_chain.py) when every
     bottleneck is residual, 32 channels wide and there are at most four;
     the fused forward then runs the whole loop as one kernel call.
@@ -223,28 +230,30 @@ class RepNCSP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y1 = self.conv1(x)
         if self.chain:
-            y1 = csp_chain.bottleneck_chain(
+            y1 = csp_chain.bottleneck_chain_packed(
                 y1.contiguous(memory_format=torch.channels_last),
-                self.chain_w1, self.chain_b1, self.chain_w2, self.chain_b2)
+                self.chain_w, self.chain_b)
         else:
             for b in self.bottlenecks:
                 y1 = b(y1)
         return self.conv3(torch.cat([y1, self.conv2(x)], dim=1))
 
     def fuse(self) -> None:
-        """Stack the fused bottlenecks' weights once, as non-persistent
-        buffers (they follow `.to()`; the state dict is unchanged)."""
+        """Pack the fused bottlenecks' weights once into the chain kernel's
+        image, as non-persistent buffers (they follow `.to()`; the state
+        dict is unchanged)."""
         bots = list(self.bottlenecks)
         if self.chain or not 1 <= len(bots) <= csp_chain.MAX_N or \
                 not all(_is_chain_bottleneck(b) for b in bots):
             return
-        for name, tensors in (
-                ("chain_w1", [b.conv1.fused.weight for b in bots]),
-                ("chain_b1", [b.conv1.fused.bias for b in bots]),
-                ("chain_w2", [b.conv2.conv.weight for b in bots]),
-                ("chain_b2", [b.conv2.conv.bias for b in bots])):
-            self.register_buffer(name, torch.stack(tensors).detach(),
-                                 persistent=False)
+        wp, bias = csp_chain.pack_weights(
+            *(torch.stack(ts).detach() for ts in (
+                [b.conv1.fused.weight for b in bots],
+                [b.conv1.fused.bias for b in bots],
+                [b.conv2.conv.weight for b in bots],
+                [b.conv2.conv.bias for b in bots])))
+        self.register_buffer("chain_w", wp, persistent=False)
+        self.register_buffer("chain_b", bias, persistent=False)
         self.chain = True
 
 

@@ -9,8 +9,11 @@ Counterpart of the TPU kernel `conv3_silu` of
 `block2.1`, the sites the TPU kernel was written for) and the bottleneck
 convs of stage2's and fpn2's RepNCSPs, six per forward.
 
-It takes NCHW tensors in `torch.channels_last` memory and an OIHW weight.
-A CUDA tensor launches the hand-written kernel; a CPU tensor takes
+It takes NCHW tensors in `torch.channels_last` memory. The kernel reads
+its weight as a packed image (`pack_weights`, the wgmma operand layout of
+csrc/hopper.cuh), which a fused `Conv` makes once; `conv3_silu` takes an
+OIHW weight and packs it first, `conv3_silu_packed` takes the image. A
+CUDA tensor launches the hand-written kernel; a CPU tensor takes
 `conv3_silu_plain`, plain PyTorch.
 """
 
@@ -34,17 +37,27 @@ def conv3_silu_plain(x: torch.Tensor, w: torch.Tensor,
         memory_format=torch.channels_last)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW (64, 64, 3, 3) -> the kernel's packed image (36864,)."""
+    return common.pack_weights(w)
+
+
+def unpack_weights(packed: torch.Tensor) -> torch.Tensor:
+    """The packed image -> OIHW, read at the kernel's index arithmetic."""
+    return common.unpack_weights(packed, C)[0]
+
+
+def _check(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> None:
     common.check_dtype(x, "x")
     common.check_channels_last(x, "x")
     if x.shape[1] != C:
         raise ValueError(f"conv3_silu: x must be (B, {C}, H, W), got "
                          f"{tuple(x.shape)}")
-    if tuple(w.shape) != (C, C, 3, 3) or tuple(b.shape) != (C,):
-        raise ValueError(f"conv3_silu: w must be {(C, C, 3, 3)} and b "
-                         f"({C},), got {tuple(w.shape)} and "
-                         f"{tuple(b.shape)}")
-    common.check_same(x, w, "w")
+    if tuple(wp.shape) != (9 * C * C,) or tuple(b.shape) != (C,):
+        raise ValueError(f"conv3_silu: the packed weight must be "
+                         f"({9 * C * C},) and b ({C},), got "
+                         f"{tuple(wp.shape)} and {tuple(b.shape)}")
+    common.check_same(x, wp, "w")
     common.check_same(x, b, "b")
 
 
@@ -52,22 +65,28 @@ def conv3_silu(x: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """x (B, 64, H, W) channels_last; w (64, 64, 3, 3), b (64,) in x's
     dtype (float32 or bfloat16) -> (B, 64, H, W) channels_last."""
+    if tuple(w.shape) != (C, C, 3, 3):
+        raise ValueError(f"conv3_silu: w must be {(C, C, 3, 3)}, got "
+                         f"{tuple(w.shape)}")
+    return conv3_silu_packed(x, pack_weights(w), b)
+
+
+def conv3_silu_packed(x: torch.Tensor, wp: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """conv3_silu with the weight already packed (`pack_weights`)."""
     global launches
-    _check(x, w, b)
+    _check(x, wp, b)
     if x.device.type == "cpu":
-        return conv3_silu_plain(x, w, b)
+        return conv3_silu_plain(x, unpack_weights(wp), b)
     common.check_cuda(x)
     bsz, _, h, wd = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    # the kernel reads the weight input-channel major, (Cin, 3, 3, Cout),
-    # so that a row of output channels is contiguous
-    wt = w.permute(1, 2, 3, 0).contiguous()
-    for t, name in ((x, "x"), (wt, "w"), (b, "b"), (y, "y")):
+    for t, name in ((x, "x"), (wp, "w"), (b, "b"), (y, "y")):
         common.check_aligned(t, name)
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.yolo_conv3_silu(
-            x.data_ptr(), wt.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h,
+            x.data_ptr(), wp.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h,
             wd, common.dtype_code(x), common.stream(x))
     build.check(err, "conv3_silu")
     launches += 1

@@ -11,7 +11,11 @@ chip. In gelan-c it runs the bottlenecks of stage1's two RepNCSPs.
 
 It takes NCHW tensors in `torch.channels_last` memory and the OIHW weights
 of the n bottlenecks stacked: w1, w2 (n, 32, 32, 3, 3), b1, b2 (n, 32)
-(the fused RepConv and the fused Conv of each). A CUDA tensor launches the
+(the fused RepConv and the fused Conv of each). The kernel reads the 2n
+convs' weights as one packed image (`pack_weights`, the wgmma operand
+layout of csrc/hopper.cuh) and the biases stacked (n, 2, 32), which a fused
+`RepNCSP` makes once; `bottleneck_chain` packs the OIHW weights first,
+`bottleneck_chain_packed` takes the image. A CUDA tensor launches the
 hand-written kernel; a CPU tensor takes `bottleneck_chain_plain`, plain
 PyTorch.
 """
@@ -45,12 +49,45 @@ def bottleneck_chain_plain(m: torch.Tensor, w1: torch.Tensor,
     return r.contiguous(memory_format=torch.channels_last)
 
 
-def _check(m, w1, b1, w2, b2) -> None:
+def pack_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                 b2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stacked OIHW weights -> (the packed image of the 2n convs,
+    conv 2i + j (bottleneck i, conv j) at element 9216 * (2i + j); the
+    biases (n, 2, 32))."""
+    return (common.pack_weights(torch.stack([w1, w2], 1)),
+            torch.stack([b1, b2], 1).contiguous())
+
+
+def unpack_weights(wp: torch.Tensor, bias: torch.Tensor):
+    """The packed image and stacked biases -> w1, b1, w2, b2, the weights
+    read at the kernel's index arithmetic."""
+    w = common.unpack_weights(wp, C).reshape(-1, 2, C, C, 3, 3)
+    return w[:, 0], bias[:, 0], w[:, 1], bias[:, 1]
+
+
+def _check(m: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor) -> None:
     common.check_dtype(m, "m")
     common.check_channels_last(m, "m")
     if m.shape[1] != C:
         raise ValueError(f"bottleneck_chain: m must be (B, {C}, H, W), got "
                          f"{tuple(m.shape)}")
+    n = bias.shape[0] if bias.dim() == 3 else 0
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"bottleneck_chain: 1 to {MAX_N} bottlenecks, got "
+                         f"{n}")
+    for name, t, shape in (("w", wp, (n * 2 * 9 * C * C,)),
+                           ("b", bias, (n, 2, C))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"bottleneck_chain: packed {name} must be "
+                             f"{shape}, got {tuple(t.shape)}")
+        common.check_same(m, t, name)
+
+
+def bottleneck_chain(m: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """m (B, 32, H, W) channels_last; w1, w2 (n, 32, 32, 3, 3) and b1, b2
+    (n, 32) in m's dtype (float32 or bfloat16), 1 <= n <= 4
+    -> (B, 32, H, W) channels_last."""
     n = w1.shape[0]
     if not 1 <= n <= MAX_N:
         raise ValueError(f"bottleneck_chain: 1 to {MAX_N} bottlenecks, got "
@@ -61,33 +98,26 @@ def _check(m, w1, b1, w2, b2) -> None:
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"bottleneck_chain: {name} must be "
                              f"{shapes[name]}, got {tuple(t.shape)}")
-        common.check_same(m, t, name)
+    return bottleneck_chain_packed(m, *pack_weights(w1, b1, w2, b2))
 
 
-def bottleneck_chain(m: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """m (B, 32, H, W) channels_last; w1, w2 (n, 32, 32, 3, 3) and b1, b2
-    (n, 32) in m's dtype (float32 or bfloat16), 1 <= n <= 4
-    -> (B, 32, H, W) channels_last."""
+def bottleneck_chain_packed(m: torch.Tensor, wp: torch.Tensor,
+                            bias: torch.Tensor) -> torch.Tensor:
+    """bottleneck_chain with the weights already packed (`pack_weights`)."""
     global launches
-    _check(m, w1, b1, w2, b2)
+    _check(m, wp, bias)
     if m.device.type == "cpu":
-        return bottleneck_chain_plain(m, w1, b1, w2, b2)
+        return bottleneck_chain_plain(m, *unpack_weights(wp, bias))
     common.check_cuda(m)
     bsz, _, h, w = m.shape
-    n = w1.shape[0]
     out = torch.empty_like(m, memory_format=torch.channels_last)
-    # (n, 2, ky, kx, ci, co): one conv's 9 x 32 x 32 weights are contiguous,
-    # a row of output channels innermost
-    wt = torch.stack([w1, w2], 1).permute(0, 1, 4, 5, 3, 2).contiguous()
-    bias = torch.stack([b1, b2], 1).contiguous()
-    for t, name in ((m, "m"), (wt, "w"), (bias, "b"), (out, "out")):
+    for t, name in ((m, "m"), (wp, "w"), (bias, "b"), (out, "out")):
         common.check_aligned(t, name)
     lib = build.library()
     with torch.cuda.device(m.device):
         err = lib.yolo_csp_chain(
-            m.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            bsz, h, w, n, common.dtype_code(m), common.stream(m))
+            m.data_ptr(), wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            bsz, h, w, bias.shape[0], common.dtype_code(m), common.stream(m))
     build.check(err, "bottleneck_chain")
     launches += 1
     return out
