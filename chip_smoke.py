@@ -25,8 +25,11 @@ non-zero (no phase is caught):
    model in f32 on cuda against the CPU (every serving kernel in f32);
 6. the four train kernels (stem raw + weight grad, ADown raw + backward)
    against their plain versions at gelan-c's 640 px, batch 32 train
-   shapes, in f32 and bf16: outputs and dx within `tolerance`, weight
-   gradients within a relative L2 of 1e-5 (f32) / 2e-2 (bf16), and times;
+   shapes, in f32 and bf16 (the bf16 stem weight gradient also at batch
+   8, with its fraction of the bound and its bytes/s): outputs and dx
+   within `tolerance`, weight gradients within a relative L2 of 1e-5
+   (f32) / 2e-2 (bf16), the stem weight gradient equal across two calls,
+   and times;
 7. TINY_YAML, f32: 12 Trainer steps on cuda (kernels) and on the CPU
    (plain versions) from the same init; the loss curves must track within
    the bounds of scripts/validate_loss_curve.py (2% relative for the first
@@ -103,6 +106,7 @@ STAGE1_HW = (160, 160)     # stage1 at 640 px: the chain (32 ch), conv3 (64)
 CONV3_HW = (STAGE1_HW, (80, 80))   # conv3 also runs stage2's bottlenecks
 CHAIN_DEPTHS = (1, 2)      # gelan-c, gelan-c-d2
 TRAIN_STEPS = 5            # counted gelan-c train steps (after one warm-up)
+WGRAD_BATCHES = (BATCH, 8)   # the stem weight gradient's bf16 shapes
 EVAL_IMAGES = 64           # phase 9 (b): two batches of 32
 # weight gradients, kernel vs plain: relative L2 (both sum f32 products in
 # another order; bf16 inputs are exact in f32)
@@ -351,21 +355,32 @@ def phase_train_kernels(dev) -> dict:
         res["stem_raw"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                 "library_ms": lib_ms, **bound(
                                     nbytes(x, w, y), conv_flops(x, y, 3), tag)}
-        gy = rand(BATCH, 64, SIZE // 2, SIZE // 2, dtype=dtype, cl=True)
-        dw = stem.stem_wgrad(x, gy)
-        err = check_rel(f"stem_wgrad {tag} g {tuple(gy.shape)}", dw,
-                        stem.stem_wgrad_plain(x, gy), dtype)
-        ms = cuda_ms(lambda: stem.stem_wgrad(x, gy))
-        plain_ms = cuda_ms(lambda: stem.stem_wgrad_plain(x, gy))
-        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
-            x, w.shape, gy, stride=2, padding=1))
-        print(f"  stem_wgrad {tag}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, conv2d_weight {lib_ms:.4f} ms")
-        res["stem_wgrad"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                                  "library_ms": lib_ms, **bound(
-                                      nbytes(x, gy, dw), conv_flops(x, gy, 3),
-                                      tag)}
-        del x, y, gy
+        del y
+        # bf16 also at a quarter of the batch: fewer rows per CTA of the
+        # persistent grid
+        for bsz in WGRAD_BATCHES if dtype == torch.bfloat16 else (BATCH,):
+            xb = x[:bsz]
+            gy = rand(bsz, 64, SIZE // 2, SIZE // 2, dtype=dtype, cl=True)
+            dw = stem.stem_wgrad(xb, gy)
+            err = check_rel(f"stem_wgrad {tag} g {tuple(gy.shape)}", dw,
+                            stem.stem_wgrad_plain(xb, gy), dtype)
+            if not torch.equal(dw, stem.stem_wgrad(xb, gy)):
+                raise AssertionError("stem_wgrad: two calls differ")
+            ms = cuda_ms(lambda: stem.stem_wgrad(xb, gy))
+            plain_ms = cuda_ms(lambda: stem.stem_wgrad_plain(xb, gy))
+            lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                xb, w.shape, gy, stride=2, padding=1))
+            r = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, **bound(
+                     nbytes(xb, gy, dw), conv_flops(xb, gy, 3), tag)}
+            print(f"  stem_wgrad {tag} {tuple(xb.shape)}: kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.4f} ms, conv2d_weight "
+                  f"{lib_ms:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), fraction {r['bound_ms'] / ms:.3f}, "
+                  f"{nbytes(xb, gy) / ms / 1e9:.3f} TB/s")
+            res["stem_wgrad"][(bsz, tag)] = r
+            del gy
+        del x
 
         tot = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": []}
                for k in ("adown_raw", "adown_bwd")}
@@ -740,7 +755,7 @@ def main() -> int:
         ("stem_conv_raw", "stem.cu", "stem_kernel.py:265",
          tcounts["stem_raw"], tres["stem_raw"]["bf16"]),
         ("stem_wgrad", "stem_wgrad.cu", "stem_kernel.py:331",
-         tcounts["stem_wgrad"], tres["stem_wgrad"]["bf16"]),
+         tcounts["stem_wgrad"], tres["stem_wgrad"][(BATCH, "bf16")]),
         ("adown_raw", "adown.cu", "adown_kernel.py:233",
          tcounts["adown_raw"], tres["adown_raw"]["bf16"]),
         ("adown_bwd", "adown_bwd.cu", "adown_train_kernel.py:366",
@@ -765,7 +780,10 @@ def main() -> int:
                              res["csp_chain"][(n, "bf16")]
                              for n in CHAIN_DEPTHS},
         "conv3_silu": {f"{hw[0]}x{hw[1]}": res["conv3"][(hw, "bf16")]
-                       for hw in CONV3_HW}}
+                       for hw in CONV3_HW},
+        "stem_wgrad": {f"{b}x3x{SIZE}x{SIZE}":
+                       tres["stem_wgrad"][(b, "bf16")]
+                       for b in WGRAD_BATCHES}}
     for k in kernels:
         if k["name"] in per_shape:
             k["shapes"] = {
@@ -783,7 +801,9 @@ def main() -> int:
           f"F.conv2d calls (one per conv; no SiLU, no residual), conv3_silu "
           f"at 160x160 with library_ms one F.conv2d with bias (no SiLU), "
           f"both also under 'shapes' at each shape phase 3 ran (chain n=2: "
-          f"four F.conv2d calls; conv3 80x80), "
+          f"four F.conv2d calls; conv3 80x80), stem_wgrad at x "
+          f"({BATCH}, 3, {SIZE}, {SIZE}) and under 'shapes' also at "
+          f"{WGRAD_BATCHES[1]} images, "
           f"stem_conv's "
           f"likewise, stem_wgrad's torch.nn.grad.conv2d_weight; no PyTorch "
           f"call computes ADown, its backward or greedy NMS: null; "

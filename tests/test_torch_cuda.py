@@ -281,8 +281,14 @@ WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,c", [((2, 3, 32, 48), 64),
-                                     ((1, 3, 25, 31), 16)])
+                                     ((1, 3, 25, 31), 16),
+                                     ((3, 3, 37, 53), 64),
+                                     ((1, 3, 2, 2), 16),
+                                     ((4, 3, 160, 160), 80)])
 def test_stem_train_kernels_match_plain(cuda, dtype, shape, c):
+    """Odd H and W give input rows that are not 16-byte aligned (37 x 53),
+    2 x 2 one output row for a grid sized by the SM count, C = 80 gelan-e's
+    stem width (a channel slice of 16)."""
     g0 = torch.Generator().manual_seed(3)
     x = _rand(g0, *shape, dtype=dtype, cl=True).to(cuda)
     w = _rand(g0, c, 3, 3, 3, scale=0.3, dtype=dtype).to(cuda)
@@ -338,6 +344,50 @@ def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout):
     assert _rel_l2(dw2, rdw2) <= WGRAD_REL[dtype]
     again = adown.adown_bwd(x, g, w1, w2)                # fixed-order sums
     assert all(torch.equal(a, b) for a, b in zip(again, (dx, dw1, dw2)))
+
+
+def test_kernels_launch_on_a_second_device(cuda):
+    """Launch setup (the shared-memory opt-in, the SM count of a persistent
+    grid) is kept per device: the kernels that opt in run on cuda:1 after
+    cuda:0 in one process and match their plain versions on both."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    g0 = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+    x3 = _rand(g0, 1, 64, 20, 24, dtype=bf, cl=True)
+    w3, b3 = _rand(g0, 64, 64, 3, 3, scale=0.05, dtype=bf), \
+        _rand(g0, 64, dtype=bf)
+    m = _rand(g0, 1, 32, 20, 24, cl=True)
+    chain = (_rand(g0, 1, 32, 32, 3, 3, scale=0.06), _rand(g0, 1, 32),
+             _rand(g0, 1, 32, 32, 3, 3, scale=0.06), _rand(g0, 1, 32))
+    xa = _rand(g0, 1, 40, 8, 10, cl=True)
+    down = (_rand(g0, 12, 20, 3, 3, scale=0.05), _rand(g0, 12),
+            _rand(g0, 12, 20, 1, 1, scale=0.1), _rand(g0, 12))
+    xs = _rand(g0, 2, 3, 37, 53, dtype=bf, cl=True)
+    gs = _rand(g0, 2, 64, 19, 27, dtype=bf, cl=True)
+    for dev in ("cuda:0", "cuda:1"):
+        def on(*ts):
+            return [t.to(dev) for t in ts]
+        y = conv3.conv3_silu(*on(x3, w3, b3))
+        ref = conv3.conv3_silu_plain(*on(x3, w3, b3))
+        torch.testing.assert_close(y.float(), ref.float(), rtol=0,
+                                   atol=2.0 ** -6 * float(ref.abs().max()))
+        for dtype in (torch.float32, bf):
+            args = on(m.to(dtype), *(t.to(dtype) for t in chain))
+            y = csp_chain.bottleneck_chain(*args)
+            ref = csp_chain.bottleneck_chain_plain(*args)
+            atol = (2.0 ** -6 * float(ref.abs().max()) if dtype == bf
+                    else ATOL[dtype])
+            torch.testing.assert_close(y.float(), ref.float(), rtol=0,
+                                       atol=atol)
+        torch.testing.assert_close(adown.adown(*on(xa, *down)),
+                                   adown.adown_plain(*on(xa, *down)),
+                                   atol=ATOL[torch.float32], rtol=0)
+        dw = stem.stem_wgrad(*on(xs, gs))
+        assert dw.device == torch.device(dev)
+        assert _rel_l2(dw, stem.stem_wgrad_plain(*on(xs, gs))) <= \
+            WGRAD_REL[bf]
+    torch.cuda.synchronize()
 
 
 def test_tiny_train_step_cuda_matches_cpu(cuda, tmp_path):

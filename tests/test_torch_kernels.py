@@ -279,3 +279,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="float32"):
         nms.nms_select(torch.zeros(1, 4, 4).double(),
                        torch.zeros(1, 4).double(), 0.45, 10)
+
+
+def test_profile_launches_needs_a_card(monkeypatch, capsys):
+    """The launch profiler measures device time only: without a card it
+    exits with 2 and prints no timing."""
+    from yolo_re_tpu_torch.cli import profile_launches
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["train"], ["other"]):
+        assert profile_launches.main(argv) == 2
+    assert "ms" not in capsys.readouterr().out

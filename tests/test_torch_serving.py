@@ -89,6 +89,32 @@ def test_detector_takes_a_state_dict(detectors):
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
 
 
+class _DualHead(torch.nn.Module):
+    """A model whose head returns the dual head's {"aux", "main"} dict; the
+    aux branch scores nothing, so serving it would detect nothing."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        decoded, feats = self.model(x)
+        return {"aux": torch.zeros_like(decoded), "main": decoded}, feats
+
+
+def test_detector_takes_the_main_branch_of_a_dual_head(detectors):
+    _, det, _ = detectors
+    images = make_eval_batch(2, 160, 7)["images"]
+    ref = det(images)
+    det.model = _DualHead(det.model)
+    try:
+        out = det(images)
+    finally:
+        det.model = det.model.model
+    for k in ref:
+        torch.testing.assert_close(out[k], ref[k], rtol=0, atol=0)
+
+
 def test_detector_cuda_without_cuda_raises(detectors, monkeypatch):
     _, _, model = detectors
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -427,14 +427,9 @@ template <typename T>
 cudaError_t launch(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* y, int B, int H,
                    int W, int Cin, int Cout, int raw, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        adown_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)kSmemBytes);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static PerDeviceSmem smem;
+  cudaError_t e = smem.opt_in((const void*)adown_kernel<T>, (int)kSmemBytes);
+  if (e != cudaSuccess) return e;
   const int Ho = H / 2, Wo = W / 2;
   const int tiles_w = ceil_div(Wo, kTile), tiles_h = ceil_div(Ho, kTile);
   const int co_tiles = ceil_div(Cout / 2, kCoT);

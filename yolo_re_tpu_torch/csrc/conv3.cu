@@ -195,14 +195,9 @@ conv3_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
 cudaError_t launch(const void* x, const void* w, const void* b, void* y,
                    int B, int H, int W, cudaStream_t stream) {
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(
-        conv3_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
+  static PerDeviceSmem smem;
+  cudaError_t e = smem.opt_in((const void*)conv3_wgmma_kernel, kSmemBytes);
+  if (e != cudaSuccess) return e;
   const int tiles_h = ceil_div(H, kTH), tiles_w = ceil_div(W, kTW);
   const int n_tiles = B * tiles_h * tiles_w;
   const int grid = n_tiles < sm_count() ? n_tiles : sm_count();

@@ -294,14 +294,9 @@ template <int n>
 cudaError_t launch_n(const bf16* m, const bf16* wt, const bf16* bias,
                      bf16* out, int B, int H, int W, cudaStream_t stream) {
   constexpr int T = tile_for(n), kMinBlocks = n == 1 ? 2 : 1;
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(
-        chain_wgmma_kernel<n>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
+  static PerDeviceSmem smem;
+  cudaError_t e = smem.opt_in((const void*)chain_wgmma_kernel<n>, kMaxSmem);
+  if (e != cudaSuccess) return e;
   const int tiles_h = ceil_div(H, T), tiles_w = ceil_div(W, T);
   const int n_tiles = B * tiles_h * tiles_w;
   const int slots = kMinBlocks * sm_count();
@@ -453,14 +448,9 @@ chain_f32_kernel(const float* __restrict__ m, const float* __restrict__ wt,
 cudaError_t launch(const void* m, const void* wt, const void* bias,
                    void* out, int B, int H, int W, int n,
                    cudaStream_t stream) {
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(
-        chain_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
+  static PerDeviceSmem smem;
+  cudaError_t e = smem.opt_in((const void*)chain_f32_kernel, kMaxSmem);
+  if (e != cudaSuccess) return e;
   const int T = smem_bytes(16 + 4 * n) <= (size_t)kMaxSmem ? 16 : 8;
   const int tiles_w = ceil_div(W, T);
   dim3 grid(tiles_w * ceil_div(H, T), B);

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the tensor-core kernels conv3.cu and
-// csp_chain.cu: cp.async with zero fill, ldmatrix, and warpgroup
-// matrix multiply (wgmma) with A in registers and B in shared memory.
+// Hopper (sm_90a) building blocks of the tensor-core kernels conv3.cu,
+// csp_chain.cu and stem_wgrad.cu: cp.async with zero fill, ldmatrix, warp
+// matrix multiply (mma.sync), and warpgroup matrix multiply (wgmma) with A
+// in registers and B in shared memory.
 //
 // B operand layout ("core matrices", no swizzle): the weights of one
 // k-step (16 input channels) for N output channels are N/8 groups of 8
@@ -60,6 +61,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // generic-proxy writes to shared memory (stores, cp.async) made visible
 // to the async proxy that wgmma reads B through
 __device__ __forceinline__ void fence_proxy_async() {
@@ -71,6 +78,29 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// the same, each 8 x 8 matrix transposed: lane l receives the elements
+// [2 * (l % 4) + {0, 1}][l / 4] (an mma B fragment from row-major K x N)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
+                                                  uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row-major fragment) * b (16 x 8,
+// bf16, column-major fragment): one warp, mma.sync
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // shared-memory matrix descriptor, no swizzle
@@ -162,16 +192,6 @@ __device__ __forceinline__ void quad_transpose(const uint32_t (&w)[4],
     const int k = j ^ q;
     o[j] = k == 0 ? own : k == 1 ? r1 : k == 2 ? r2 : r3;
   }
-}
-
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
 }
 
 }  // namespace sm90

@@ -23,7 +23,11 @@ import torch.nn.functional as F
 from yolo_re_tpu_torch.ops.kernels import build, common
 
 MAX_C = 256   # csrc/stem.cu keeps the 27 x C weights in shared memory
-WGRAD_BLOCKS = 1024   # partial sums of csrc/stem_wgrad.cu (fixed: same order)
+# partial sums of csrc/stem_wgrad.cu, fixed for a device so that the sums
+# run in the same order on every call: bf16, a persistent grid of this many
+# CTAs per SM (at most one per output row); f32, at most this many blocks
+WGRAD_CTAS_PER_SM = 2
+WGRAD_BLOCKS = 1024
 
 launches = 0          # stem_conv
 raw_launches = 0      # stem_conv_raw
@@ -138,15 +142,16 @@ def stem_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Weight gradient of `stem_conv_raw`: x (B, 3, H, W) and the cotangent
     g (B, C, ceil(H/2), ceil(W/2)), both channels_last in one dtype
     (float32 or bfloat16) -> dW (C, 3, 3, 3) float32, summed in a fixed
-    order (the same result on every run)."""
+    order (the same result on every run on one device). C must be a
+    multiple of 16 (the bf16 kernel's channel tiles), as for `stem_conv`."""
     global wgrad_launches
     _check_x(x, "stem_wgrad")
     common.check_channels_last(g, "g")
     c = g.shape[1]
-    if tuple(g.shape) != _out_shape(x, c) or c > MAX_C or c % 4 or \
+    if tuple(g.shape) != _out_shape(x, c) or c > MAX_C or c % 16 or \
             g.shape[0] * g.shape[2] * g.shape[3] >= 2 ** 31:
         raise ValueError(f"stem_wgrad: g must be {_out_shape(x, c)} with "
-                         f"C a multiple of 4, at most {MAX_C}, and fewer "
+                         f"C a multiple of 16, at most {MAX_C}, and fewer "
                          f"than 2^31 pixels, got {tuple(g.shape)}")
     if g.device != x.device or g.dtype != x.dtype:
         raise ValueError(f"stem_wgrad: g must be {x.dtype} on {x.device}, "
@@ -154,9 +159,10 @@ def stem_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return stem_wgrad_plain(x, g)
     common.check_cuda(x)
+    common.check_aligned(x, "x")
+    common.check_aligned(g, "g")
     bsz, _, h, wd = x.shape
-    n_tiles = -(-(bsz * g.shape[2] * g.shape[3]) // 32)
-    nblk = min(WGRAD_BLOCKS, n_tiles)
+    nblk = _wgrad_blocks(x.dtype, bsz, g.shape[2], g.shape[3], x.device)
     part = torch.empty((nblk, 27, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((c, 3, 3, 3), dtype=torch.float32, device=x.device)
     lib = build.library()
@@ -167,3 +173,15 @@ def stem_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     build.check(err, "stem_wgrad")
     wgrad_launches += 1
     return dw
+
+
+def _wgrad_blocks(dtype: torch.dtype, bsz: int, ho: int, wo: int,
+                 device: torch.device) -> int:
+    """The partial sums `stem_wgrad`'s kernel writes: bf16, one per CTA of
+    its persistent grid, WGRAD_CTAS_PER_SM per SM of the device and at most
+    one per output row (B * Ho); f32, one per block, at most one per
+    32-pixel tile."""
+    if dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return min(WGRAD_CTAS_PER_SM * sms, bsz * ho)
+    return min(WGRAD_BLOCKS, -(-(bsz * ho * wo) // 32))

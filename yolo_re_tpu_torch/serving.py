@@ -91,6 +91,8 @@ class Detector:
         frames = torch.as_tensor(images_u8).to(self.device)
         x = batched_letterbox(frames, self.img_size, dtype=self.dtype)
         decoded, _ = self.model(x.permute(0, 3, 1, 2))
+        if isinstance(decoded, dict):       # dual head: the main branch
+            decoded = decoded["main"]
         return non_max_suppression(
             decoded, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
             max_det=self.max_det)
