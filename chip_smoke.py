@@ -28,8 +28,8 @@ non-zero (no phase is caught):
    shapes, in f32 and bf16 (the bf16 stem weight gradient also at batch
    8, with its fraction of the bound and its bytes/s): outputs and dx
    within `tolerance`, weight gradients within a relative L2 of 1e-5
-   (f32) / 2e-2 (bf16), the stem weight gradient equal across two calls,
-   and times;
+   (f32) / 2e-2 (bf16), the stem weight gradient and the ADown backward
+   equal across two calls, and times;
 7. TINY_YAML, f32: 12 Trainer steps on cuda (kernels) and on the CPU
    (plain versions) from the same init; the loss curves must track within
    the bounds of scripts/validate_loss_curve.py (2% relative for the first
@@ -411,6 +411,10 @@ def phase_train_kernels(dev) -> dict:
             err = check_close(f"adown_bwd {name} {tag} dx", dx, rdx, dtype)
             check_rel(f"adown_bwd {name} {tag} dW1", dw1, rdw1, dtype)
             check_rel(f"adown_bwd {name} {tag} dW2", dw2, rdw2, dtype)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    (dx, dw1, dw2), adown.adown_bwd(x, gy, w1, w2))):
+                raise AssertionError(f"adown_bwd {name} {tag}: two calls "
+                                     f"differ")
             # the input and the weight gradients of both convs: twice the
             # forward's products
             bwd_bound = bound(nbytes(x, gy, w1, w2, dx, dw1, dw2), 2 * ops,

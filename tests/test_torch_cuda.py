@@ -312,13 +312,19 @@ def test_stem_train_kernels_match_plain(cuda, dtype, shape, c):
                                         ((1, 48, 10, 10), 48),
                                         ((2, 256, 16, 16), 256),
                                         ((1, 64, 9, 7), 64),
-                                        ((1, 40, 8, 10), 24)])
+                                        ((1, 40, 8, 10), 24),
+                                        ((2, 64, 70, 66), 64),
+                                        ((2, 256, 37, 41), 256)])
 def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout):
     """Channel counts 32 and 48 are TINY_YAML's (48 takes the CUDA-core
     forward in bf16), 256 gelan-c's; odd H, W hit the avg-domain edges; the
-    last shape's branch channels (20 in, 12 out) are not multiples of 8,
-    so bf16 takes the CUDA-core backward too. Inputs are quantized to
-    halves so that maxpool ties are common."""
+    fifth shape's branch channels (20 in, 12 out) are not multiples of 8,
+    so bf16 takes the CUDA-core backward too, and the backward's
+    memory-bound passes take 1-channel lanes. (2, 64, 70, 66): the dx and
+    pool passes walk each column down several strips of rows, and a row's
+    66 columns of 8-channel lanes are not a whole number of a CTA's runs of
+    lanes; (2, 256, 37, 41): gelan-c's width at odd H and W. Inputs are
+    quantized to halves so that maxpool ties are common."""
     g0 = torch.Generator().manual_seed(4)
     cin = shape[1]
     x = (torch.round(torch.randn(*shape, generator=g0) * 2) / 2).to(dtype) \

@@ -7,8 +7,12 @@ and of one gelan-c train step.
 launches from one C entry point; `chip_smoke.py` times the call as a
 whole. This traces a few calls with `torch.profiler` and prints, per
 call, each kernel's device time: the bf16 ADown backward at gelan-c's
-down1 and down3 shapes (640 px, batch 32) and the bf16 stem weight
-gradient at (32, 3, 640, 640) -> 64.
+five ADown shapes (640 px, batch 32), each shape's sum and the sums over
+the five, and the bf16 stem weight gradient at (32, 3, 640, 640) -> 64.
+For the ADown backward's two memory-bound passes, the dx pass and the
+pool/avg pass, it also prints the bytes they must move (each input read
+once, each output written once), that over 3.35 TB/s (the H100 SXM data
+sheet's HBM3 rate) as their bound, and bound / time.
 
 `train`: gelan-c, bf16, batch 32, 640 px, random weights and synthetic
 batches (as chip_smoke.py's phase 8): after a warm-up step, the host
@@ -30,9 +34,16 @@ import torch
 from yolo_re_tpu_torch.ops.kernels import adown, stem
 
 BATCH = 32
-# (Cin, H, W) -> Cout of gelan-c's down1 and down3 at 640 px
-ADOWN_SHAPES = {"down1": (256, 160, 160, 256), "down3": (512, 40, 40, 512)}
+# gelan-c's five ADown inputs at 640 px: (Cin, H, W) -> Cout
+ADOWN_SHAPES = {"down1": (256, 160, 160, 256), "down2": (512, 80, 80, 512),
+                "down3": (512, 40, 40, 512), "pan_down1": (256, 80, 80, 256),
+                "pan_down2": (512, 40, 40, 512)}
 REPS = 5
+HBM_BYTES_PER_S = 3.35e12
+# the ADown backward's memory-bound passes, by kernel names of this tree
+# and of the trees before it
+PASSES = {"dx": ("dx_strips", "adown_dx"),
+          "pool/avg": ("pool_avg", "pool_argmax", "avg_bf16")}
 
 
 def launch_times(fn) -> list[tuple[float, int, str]]:
@@ -60,6 +71,59 @@ def report(title: str, rows: list[tuple[float, int, str]]) -> None:
     for ms, n, name in rows:
         print(f"  {ms:.4f} ms  x{n}  {name[:100]}")
     print(f"  total {sum(r[0] for r in rows):.4f} ms")
+
+
+def pass_bytes(cin: int, h: int, w: int) -> dict[str, int]:
+    """Bytes each memory-bound pass of the bf16 ADown backward must move:
+    the dx pass reads dA1, dM (f32) and idx (uint8) and writes dx (bf16);
+    the pool/avg pass reads x (bf16) and writes M (f32), idx and the bf16
+    branch-1 avg."""
+    ch, n = cin // 2, BATCH * (h // 2) * (w // 2) * (cin // 2)
+    x = BATCH * h * w * cin * 2
+    avg = BATCH * (h - 1) * (w - 1) * ch
+    return {"dx": avg * 4 + n * 4 + n + x, "pool/avg": x + n * 4 + n + avg * 2}
+
+
+def pass_ms(rows: list[tuple[float, int, str]]) -> dict[str, float]:
+    return {p: sum(ms for ms, _, name in rows
+                   if any(k in name for k in keys))
+            for p, keys in PASSES.items()}
+
+
+def adown_bwd_shapes(rand) -> None:
+    """Per-launch times of the bf16 ADown backward at the five shapes, the
+    two passes against their bytes bound, and the sums over the shapes."""
+    per_launch: dict[str, float] = {}
+    sums = {p: [0.0, 0] for p in PASSES}     # ms, bytes
+    total = 0.0
+    for name, (cin, h, w, cout) in ADOWN_SHAPES.items():
+        x = rand(BATCH, cin, h, w)
+        w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, cl=False)
+        w2 = rand(cout // 2, cin // 2, 1, 1, scale=0.06, cl=False)
+        g = rand(BATCH, cout, h // 2, w // 2)
+        rows = launch_times(lambda: adown.adown_bwd(x, g, w1, w2))
+        report(f"adown_bwd {name} bf16 x {tuple(x.shape)} -> {cout}, per "
+               f"call", rows)
+        for ms, _, kname in rows:
+            key = kname.replace("(anonymous namespace)::", "").split("(")[0]
+            per_launch[key] = per_launch.get(key, 0.0) + ms
+        total += sum(r[0] for r in rows)
+        nb, ms = pass_bytes(cin, h, w), pass_ms(rows)
+        for p in PASSES:
+            bound = nb[p] / HBM_BYTES_PER_S * 1e3
+            sums[p][0] += ms[p]
+            sums[p][1] += nb[p]
+            print(f"  {p} pass: {ms[p]:.4f} ms, {nb[p] / 1e6:.1f} MB, bound "
+                  f"{bound:.4f} ms, fraction {bound / ms[p]:.3f}")
+        del x, g
+    print("adown_bwd, sums over the five shapes, per launch")
+    for key, ms in sorted(per_launch.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:.4f} ms  {key}")
+    print(f"  total {total:.4f} ms")
+    for p, (ms, nb) in sums.items():
+        bound = nb / HBM_BYTES_PER_S * 1e3
+        print(f"  {p} pass, five shapes: {ms:.4f} ms, {nb / 1e6:.1f} MB, "
+              f"bound {bound:.4f} ms, fraction {bound / ms:.3f}")
 
 
 def train_step() -> None:
@@ -120,14 +184,7 @@ def main(argv: list[str] | None = None) -> int:
         t = (torch.randn(*shape, generator=gen, device=dev) * scale).bfloat16()
         return t.contiguous(memory_format=torch.channels_last) if cl else t
 
-    for name, (cin, h, w, cout) in ADOWN_SHAPES.items():
-        x = rand(BATCH, cin, h, w)
-        w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, cl=False)
-        w2 = rand(cout // 2, cin // 2, 1, 1, scale=0.06, cl=False)
-        g = rand(BATCH, cout, h // 2, w // 2)
-        report(f"adown_bwd {name} bf16 x {tuple(x.shape)} -> {cout}, per "
-               f"call", launch_times(lambda: adown.adown_bwd(x, g, w1, w2)))
-        del x, g
+    adown_bwd_shapes(rand)
     x = rand(BATCH, 3, 640, 640)
     g = rand(BATCH, 64, 320, 320)
     report(f"stem_wgrad bf16 x {tuple(x.shape)} -> 64, per call",

@@ -17,33 +17,41 @@
 // VMEM from step to step; its (row parity x column parity) dS planes avoid
 // scatters on the TPU. Here the same function is six launches on one
 // stream, none with atomics, so the result is the same on every run:
-//   1. pool_argmax: the branch-2 window max M and its first-max tap
-//      (one thread per output pixel and channel);
+//   1. pool_avg: the branch-2 window max M and its first-max tap idx, and
+//      for the bf16 tensor-core products the bf16 branch-1 avg avg1;
 //   2. gemm_dm: dM = g2 . w2^T, the gradient at M (tiled product);
 //   3. gemm_da1: dA1 = the transposed 3x3 stride-2 conv of g1, the
 //      gradient at the branch-1 avg. Blocks take one (row, column) parity
 //      class of avg pixels, so every pixel of a tile has the same 1, 2 or
 //      4 taps: no zero taps are multiplied;
-//   4. adown_dx: dx = (sum of the four avg pixels' gradients) / 4; the
+//   4. dx_strips: dx = (sum of the four avg pixels' gradients) / 4; the
 //      branch-2 gradient of an avg pixel is gathered from the <= 4 output
 //      windows whose first max it is (no scatter);
-//   5. gemm_dw: per slab of output pixels, partial dW1 (9 taps, with the
-//      avg recomputed from x) and dW2 (from M) as tiled products over the
-//      slab's pixels;
+//   5. gemm_dw: per slab of output pixels, partial dW1 (9 taps) and dW2
+//      (from M) as tiled products over the slab's pixels;
 //   6. dw_reduce: the slabs summed in a fixed order.
 // The avg is summed in the order above, the plain version's
 // (ops/kernels/adown.py:adown_raw_plain), so the first max is taken among
-// the same f32 values.
+// the same f32 values, and dx sums its four terms left to right from 0.
 //
 // What bounds it on an H100: at gelan-c's down1 ((32, 256, 160, 160),
 // Co = Ch = 128) the two 3x3 products (dA1 and dW1) are ~60 GFLOP each and
-// the rest ~13 GFLOP, against ~2 GB of traffic (x, g, dx and the f32
-// intermediates): arithmetic-bound on the CUDA cores. The products use
-// 64 x 64 output tiles: for f32 on the CUDA cores (a 4 x 4 register tile
-// per thread, 16-deep chunks in shared memory); for bf16 (Ch, Co multiples
-// of 8), products 3 and 5 on the tensor cores with nvcuda::wmma fragments
-// and 16-byte staging (namespace tc, one more launch writes the bf16 avg).
-// wgmma and TMA are later work.
+// the rest ~13 GFLOP. The products use 64 x 64 output tiles: for f32 on
+// the CUDA cores (a 4 x 4 register tile per thread, 16-deep chunks in
+// shared memory); for bf16 (Ch, Co multiples of 8), products 3 and 5 on
+// the tensor cores with nvcuda::wmma fragments and 16-byte staging
+// (namespace tc). wgmma and TMA for them are later work.
+// Passes 1 and 4 do almost no arithmetic: bytes bound them. At down1 the
+// dx pass must read dA1, dM (f32) and idx and write dx, 964.7 MB; the
+// pool/avg pass must read x and write M, idx and avg1, 757.6 MB (0.288
+// and 0.226 ms at 3.35 TB/s). Their design (the section "memory-bound
+// passes" below): a thread owns 8 channels of one column (16-byte loads
+// and stores), walks down a strip of rows and carries in registers what
+// the next row shares with this one (dx: the pair v[y-1, x-1] + v[y-1, x]
+// and the window row both avg rows 2oy -+ 1 reach; pool: the avg row
+// 2oy + 1 and x row 2oy + 2), so each input row leaves device memory once
+// a strip; 32-bit offsets advanced by row strides, no division in the
+// row loop; a persistent grid of as many CTAs as fit on the device.
 #include <mma.h>
 
 #include <type_traits>
@@ -88,38 +96,418 @@ __device__ __forceinline__ bool in_avg(int ay, int ax, int H, int W) {
   return ay >= 0 && ay <= H - 2 && ax >= 0 && ax <= W - 2;
 }
 
-// 1. M (B, Ho, Wo, Ch) f32 and idx: tap 3*ky + kx of the first max
-template <typename T>
+// ---------------------------------------------------------------------------
+// The memory-bound passes: pool_avg (1) and dx_strips (4)
+// ---------------------------------------------------------------------------
+//
+// A thread owns a vector lane, V consecutive channels of one branch (V = 8
+// when the branch width Ch is a multiple of 8, else 1), at one column,
+// and walks down a strip of rows. What the next row shares with this one
+// stays in registers, so each row of its inputs leaves device memory once a
+// strip; the lanes of neighbouring columns share theirs through L1. A task
+// is (image, branch, strip, run of kThreads lanes of one row); a persistent
+// grid of as many CTAs as fit on the device walks the tasks. Offsets are
+// 32-bit (the wrapper keeps every tensor below 2^31 elements), set once a
+// strip and advanced by row strides.
+
+template <int N> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<2> { using type = unsigned short; };
+template <> struct Word<1> { using type = unsigned char; };
+
+// V elements between device memory (aligned to their size, or to 16 bytes
+// above it) and a 16-byte aligned register array, in words of <= 16 bytes
+template <int V, typename E>
+__device__ __forceinline__ void vload(E (&dst)[V], const E* src) {
+  constexpr int kB = V * (int)sizeof(E);
+  using Wd = typename Word<(kB < 16 ? kB : 16)>::type;
+#pragma unroll
+  for (int i = 0; i < kB / (int)sizeof(Wd); ++i)
+    reinterpret_cast<Wd*>(dst)[i] = __ldg(reinterpret_cast<const Wd*>(src) + i);
+}
+
+template <int V, typename E>
+__device__ __forceinline__ void vstore(E* dst, const E (&src)[V]) {
+  constexpr int kB = V * (int)sizeof(E);
+  using Wd = typename Word<(kB < 16 ? kB : 16)>::type;
+#pragma unroll
+  for (int i = 0; i < kB / (int)sizeof(Wd); ++i)
+    reinterpret_cast<Wd*>(dst)[i] = reinterpret_cast<const Wd*>(src)[i];
+}
+
+// NC columns of one x row (column k valid where ok[k]; 0 elsewhere)
+template <int NC, int V, typename T>
+__device__ __forceinline__ void load_cols(T (&r)[NC][V], const T* p, int Cin,
+                                          const bool (&ok)[NC]) {
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    if (ok[k]) {
+      vload(r[k], p + k * Cin);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) r[k][j] = from_f32<T>(0.0f);
+    }
+  }
+}
+
+// the avg at NC - 1 columns from two x rows, avg4's order
+template <int NC, int V, typename T>
+__device__ __forceinline__ void avg_cols(float (&a)[NC - 1][V],
+                                         const T (&top)[NC][V],
+                                         const T (&bot)[NC][V]) {
+#pragma unroll
+  for (int k = 0; k + 1 < NC; ++k)
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      a[k][j] = ((to_f32(top[k][j]) + to_f32(top[k + 1][j])) +
+                 (to_f32(bot[k][j]) + to_f32(bot[k + 1][j]))) * 0.25f;
+}
+
+// the first max so far over one avg row of a window (taps 3 ky + kx)
+template <int V>
+__device__ __forceinline__ void take_max(float (&m)[V],
+                                         unsigned char (&arg)[V],
+                                         const float (&a)[3][V], int ky,
+                                         const bool (&ok)[3]) {
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) {
+    if (!ok[kx]) continue;
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (a[kx][j] > m[j]) {
+        m[j] = a[kx][j];
+        arg[j] = (unsigned char)(3 * ky + kx);
+      }
+  }
+}
+
+// 1a. branch 2: M and idx of output rows [o0, o1) at column ox, channels
+//     Ch + c.. of x. The avg row 2oy + 1, the window's last, is the next
+//     window's first and is carried, and so is x row 2oy + 2.
+template <typename T, int V>
+__device__ __forceinline__ void pool_strip(const T* __restrict__ x,
+                                           float* __restrict__ M,
+                                           unsigned char* __restrict__ idx,
+                                           int b, int H, int W, int Cin,
+                                           int Ho, int Wo, int ox, int c,
+                                           int o0, int o1) {
+  const int Ch = Cin / 2, cx = 2 * ox - 1, row = W * Cin;
+  bool col_ok[4], avg_ok[3];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) col_ok[k] = cx + k >= 0 && cx + k <= W - 1;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) avg_ok[k] = cx + k >= 0 && cx + k <= W - 2;
+  // x at (b, 2 o0, cx, Ch + c); may lie before x when cx = -1, read only
+  // through valid columns
+  int ox_off = ((b * H + 2 * o0) * W + cx) * Cin + Ch + c;
+  alignas(16) T x0[4][V], x1[4][V];
+  alignas(16) float a0[3][V], a[3][V];
+  load_cols(x0, x + ox_off, Cin, col_ok);          // x row 2 o0 <= H - 2
+  if (o0 > 0) {
+    load_cols(x1, x + ox_off - row, Cin, col_ok);
+    avg_cols(a0, x1, x0);                          // avg row 2 o0 - 1
+  }
+  int om = ((b * Ho + o0) * Wo + ox) * Ch + c;
+  for (int oy = o0; oy < o1; ++oy, om += Wo * Ch, ox_off += 2 * row) {
+    alignas(16) float m[V];
+    alignas(16) unsigned char arg[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      m[j] = -CUDART_INF_F;
+      arg[j] = 0;
+    }
+    if (oy > 0) take_max(m, arg, a0, 0, avg_ok);
+    load_cols(x1, x + ox_off + row, Cin, col_ok);  // row 2 oy + 1 <= H - 1
+    avg_cols(a, x0, x1);
+    take_max(m, arg, a, 1, avg_ok);
+    if (2 * oy + 1 <= H - 2) {
+      load_cols(x0, x + ox_off + 2 * row, Cin, col_ok);
+      avg_cols(a0, x1, x0);
+      take_max(m, arg, a0, 2, avg_ok);
+    }
+    vstore(M + om, m);
+    vstore(idx + om, arg);
+  }
+}
+
+// 1b. branch 1 (bf16 products only): avg1 at avg rows 2oy, 2oy + 1 and
+//     columns 2ox, 2ox + 1 for oy in [o0, o1), channels c..; x row 2oy + 2
+//     is carried
+template <typename T, int V>
+__device__ __forceinline__ void avg_strip(const T* __restrict__ x,
+                                          T* __restrict__ avg1, int b, int H,
+                                          int W, int Cin, int ox, int c,
+                                          int o0, int o1) {
+  const int Ch = Cin / 2, HA = H - 1, WA = W - 1, cx = 2 * ox;
+  const int row = W * Cin;
+  const bool col_ok[3] = {true, true, cx + 2 <= W - 1};
+  const bool right = cx + 1 <= W - 2;               // avg column 2ox + 1
+  int ox_off = ((b * H + 2 * o0) * W + cx) * Cin + c;
+  int oa = ((b * HA + 2 * o0) * WA + cx) * Ch + c;
+  alignas(16) T x0[3][V], x1[3][V], out[V];
+  alignas(16) float a[2][V];
+  load_cols(x0, x + ox_off, Cin, col_ok);
+  for (int oy = o0; oy < o1; ++oy, ox_off += 2 * row, oa += 2 * WA * Ch) {
+    load_cols(x1, x + ox_off + row, Cin, col_ok);
+    avg_cols(a, x0, x1);                            // avg row 2oy
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k == 1 && !right) break;
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[j] = from_f32<T>(a[k][j]);
+      vstore(avg1 + oa + k * Ch, out);
+    }
+    if (2 * oy + 1 > H - 2) break;                  // the last avg row
+    load_cols(x0, x + ox_off + 2 * row, Cin, col_ok);
+    avg_cols(a, x1, x0);                            // avg row 2oy + 1
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k == 1 && !right) break;
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[j] = from_f32<T>(a[k][j]);
+      vstore(avg1 + oa + WA * Ch + k * Ch, out);
+    }
+  }
+}
+
+// 1. M (B, Ho, Wo, Ch) f32 and idx (tap 3 ky + kx of the first max), and
+//    for the tensor-core products (avg1 not null) the bf16 branch-1 avg
+//    avg1 (B, H-1, W-1, Ch). Tasks: (b, branch, strip of R output rows, run
+//    of kThreads lanes of the Wo * Ch / V of a row), the run fastest.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-pool_argmax(const T* __restrict__ x, float* __restrict__ M,
-            unsigned char* __restrict__ idx, int B, int H, int W, int Cin,
-            int Ho, int Wo) {
-  const int Ch = Cin / 2;
-  const size_t total = (size_t)B * Ho * Wo * Ch;
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * kThreads) {
-    const int ci = (int)(e % Ch);
-    const size_t p = e / Ch;
-    const int ox = (int)(p % Wo);
-    const size_t t = p / Wo;
-    const int oy = (int)(t % Ho), b = (int)(t / Ho);
-    const T* xb = x + (size_t)b * H * W * Cin;
-    float m = -CUDART_INF_F;
-    int arg = 0;
+pool_avg(const T* __restrict__ x, float* __restrict__ M,
+         unsigned char* __restrict__ idx, T* __restrict__ avg1, int B, int H,
+         int W, int Cin, int Ho, int Wo, int R, int strips, int runs) {
+  const int G = Cin / 2 / V, lanes = Wo * G;
+  const int per_image = (avg1 ? 2 : 1) * strips * runs;
+  const int tasks = B * per_image;
+  for (int task = blockIdx.x; task < tasks; task += gridDim.x) {
+    const int b = task / per_image, t = task % per_image;
+    const int br = t / (strips * runs), strip = t / runs % strips;
+    const int lane = t % runs * kThreads + (int)threadIdx.x;
+    if (lane >= lanes) continue;
+    const int ox = lane / G, c = lane % G * V;
+    const int o0 = strip * R, o1 = min(o0 + R, Ho);
+    if (br == 0)
+      pool_strip<T, V>(x, M, idx, b, H, W, Cin, Ho, Wo, ox, c, o0, o1);
+    else
+      avg_strip<T, V>(x, avg1, b, H, W, Cin, ox, c, o0, o1);
+  }
+}
+
+// dM and idx of one output-window row at columns oxL (k 0) and oxL + 1
+// (k 1) and channels c..; idx 0xFF (no tap) where the window is outside
+template <int V>
+struct WinRow {
+  alignas(16) float d[2][V];
+  alignas(16) unsigned char k[2][V];
+};
+
+// the branch-2 gradient terms of one window row (ky) at avg columns x - 1
+// (l) and x (r), in da2's old column order: an odd avg column is reached
+// by kx = 0 from window column oxL + 1 (k 1), then by kx = 2 from oxL
+// (k 0); an even one by kx = 1 from the one window column over it. The
+// terms a lane does not have are added as +0, which leaves every sum as
+// it was (a sum from +0 is never -0), so all lanes of a warp run the same
+// instructions whatever their column's parity.
+template <int V>
+__device__ __forceinline__ void win_terms(float (&l)[V], float (&r)[V],
+                                          const WinRow<V>& w, int ky,
+                                          bool x_even) {
+  const int l1 = x_even ? 3 * ky : -1, l0 = 3 * ky + (x_even ? 2 : 1);
+  const int r1 = 3 * ky + (x_even ? 1 : 0), r0 = x_even ? -1 : 3 * ky + 2;
 #pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
+  for (int j = 0; j < V; ++j) {
+    const int k0 = w.k[0][j], k1 = w.k[1][j];
+    l[j] += k1 == l1 ? w.d[1][j] : 0.0f;
+    l[j] += k0 == l0 ? w.d[0][j] : 0.0f;
+    r[j] += k1 == r1 ? w.d[1][j] : 0.0f;
+    r[j] += k0 == r0 ? w.d[0][j] : 0.0f;
+  }
+}
+
+// branch 1's avg gradients: dA1 at avg columns x - 1 (l) and x (r), row by
+// row from the first; the next row is fetched while this one is used
+template <int V>
+struct Da1Rows {
+  const float* dA1;
+  int off, stride, Ch, left;   // (b, ay, x - 1, c); WA * Ch; rows to fetch
+  bool in_l, in_r;
+  alignas(16) float sl[V], sr[V];
+
+  __device__ __forceinline__ void fetch() {
+    if (left-- <= 0) return;
+    if (in_l) vload(sl, dA1 + off);
+    if (in_r) vload(sr, dA1 + off + Ch);
+    off += stride;
+  }
+
+  __device__ __forceinline__ void next(float (&l)[V], float (&r)[V]) {
 #pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const int ay = 2 * oy - 1 + ky, ax = 2 * ox - 1 + kx;
-        if (!in_avg(ay, ax, H, W)) continue;
-        const float v = avg4(xb, W, Cin, ay, ax, Ch + ci);
-        if (v > m) {
-          m = v;
-          arg = 3 * ky + kx;
+    for (int j = 0; j < V; ++j) {
+      l[j] = sl[j];
+      r[j] = sr[j];
+    }
+    fetch();
+  }
+};
+
+// branch 2's: the dM of every window whose first max sits at the avg
+// pixel, in da2's old order (the window rows oy = (ay + 1 - ky) / 2 for ky
+// = 0, 2 of an odd ay, ky = 1 of an even one; then the columns). The
+// window row both avg rows 2oy - 1 and 2oy + 1 reach is carried (`hi`), so
+// each window row is read once a strip, and the next one is fetched ahead
+// (`ahead`).
+template <int V>
+struct Da2Rows {
+  const float* dM;
+  const unsigned char* idx;
+  int off, stride, Ch;         // (b, oy_next, oxL, c); Wo * Ch
+  int ay, oy_next, oy_end;     // the next avg row; window rows to fetch
+  bool ok_l, ok_r, x_even;
+  WinRow<V> hi;                // window row ay / 2 (rounded down)
+  WinRow<V> ahead;             // window row (ay + 1) / 2 + (ay & 1 ? 0 : 1)
+
+  __device__ __forceinline__ void load(WinRow<V>& w) {
+    const bool ok = oy_next < oy_end;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (ok && (k ? ok_r : ok_l)) {
+        vload(w.d[k], dM + off + k * Ch);
+        vload(w.k[k], idx + off + k * Ch);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          w.d[k][j] = 0.0f;
+          w.k[k][j] = 0xFF;
         }
       }
-    M[e] = m;
-    idx[e] = (unsigned char)arg;
+    }
+    ++oy_next;
+    off += stride;
+  }
+
+  __device__ __forceinline__ void next(float (&l)[V], float (&r)[V]) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) l[j] = r[j] = 0.0f;
+    if (ay & 1) {
+      win_terms(l, r, ahead, 0, x_even);   // oy = (ay + 1) / 2, ky = 0
+      win_terms(l, r, hi, 2, x_even);
+      hi = ahead;
+      load(ahead);
+    } else {
+      win_terms(l, r, hi, 1, x_even);
+    }
+    ++ay;
+  }
+};
+
+// dx rows [y0, y1) at one column from the avg gradients of rows
+// max(y0 - 1, 0).. : s = ((P + v[y, x-1]) + v[y, x]) with P = (0 + v[y-1,
+// x-1]) + v[y-1, x] carried from the row above, pixels outside the avg
+// domain skipped: the old left-to-right order from s = 0, so dx is the same
+// to the bit
+template <typename T, int V, typename Src>
+__device__ __forceinline__ void dx_walk(Src& src, T* __restrict__ dx, int od,
+                                        int stride, int y0, int y1, int H,
+                                        bool in_l, bool in_r) {
+  alignas(16) float p[V], l[V], r[V];
+  alignas(16) T out[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) p[j] = 0.0f;
+  if (y0 > 0) {
+    src.next(l, r);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float q = 0.0f;
+      if (in_l) q += l[j];
+      if (in_r) q += r[j];
+      p[j] = q;
+    }
+  }
+  for (int y = y0; y < y1; ++y, od += stride) {
+    if (y <= H - 2) {
+      src.next(l, r);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float s = p[j], q = 0.0f;
+        if (in_l) {
+          s += l[j];
+          q += l[j];
+        }
+        if (in_r) {
+          s += r[j];
+          q += r[j];
+        }
+        out[j] = from_f32<T>(0.25f * s);
+        p[j] = q;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[j] = from_f32<T>(0.25f * p[j]);
+    }
+    vstore(dx + od, out);
+  }
+}
+
+// 4. dx[b, y, x, c] = (sum of the avg gradients at (y-1|y, x-1|x)) / 4.
+//    Tasks: (b, branch, strip of R dx rows, run of kThreads lanes of the
+//    W * Ch / V of a row and branch), the run fastest. Held to 128
+//    registers, two CTAs an SM: left free, nvcc takes ~150 and one CTA
+//    fits, and the pass ran 1.4x longer at down1 on an H100.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+dx_strips(const float* __restrict__ dA1, const float* __restrict__ dM,
+          const unsigned char* __restrict__ idx, T* __restrict__ dx, int B,
+          int H, int W, int Cin, int Ho, int Wo, int R, int strips,
+          int runs) {
+  const int Ch = Cin / 2, HA = H - 1, WA = W - 1, G = Ch / V, lanes = W * G;
+  const int per_image = 2 * strips * runs, tasks = B * per_image;
+  for (int task = blockIdx.x; task < tasks; task += gridDim.x) {
+    const int b = task / per_image, t = task % per_image;
+    const int br = t / (strips * runs), strip = t / runs % strips;
+    const int lane = t % runs * kThreads + (int)threadIdx.x;
+    if (lane >= lanes) continue;
+    const int x = lane / G, c = lane % G * V;
+    const int y0 = strip * R, y1 = min(y0 + R, H);
+    // the avg rows the walk reads: the one above the strip, if any, to
+    // the strip's last in the avg domain
+    const int a0 = y0 > 0 ? y0 - 1 : 0, a1 = min(y1, H - 1);
+    const bool in_l = x >= 1, in_r = x <= W - 2;
+    const int od = ((b * H + y0) * W + x) * Cin + br * Ch + c;
+    if (br == 0) {
+      Da1Rows<V> src;
+      src.dA1 = dA1;
+      src.off = ((b * HA + a0) * WA + x - 1) * Ch + c;
+      src.stride = WA * Ch;
+      src.Ch = Ch;
+      src.left = a1 - a0;
+      src.in_l = in_l;
+      src.in_r = in_r;
+      src.fetch();
+      dx_walk<T, V>(src, dx, od, W * Cin, y0, y1, H, in_l, in_r);
+    } else {
+      const int ox_l = x >= 1 ? (x - 1) / 2 : -1;
+      Da2Rows<V> src;
+      src.dM = dM;
+      src.idx = idx;
+      src.stride = Wo * Ch;
+      src.Ch = Ch;
+      src.ok_l = ox_l >= 0 && ox_l < Wo;
+      src.ok_r = ox_l + 1 < Wo;
+      src.x_even = !(x & 1);
+      src.ay = a0;
+      src.oy_next = a0 / 2;
+      // the last window row reached: (ay + 1) / 2 of the last avg row
+      src.oy_end = min(a1 / 2 + 1, Ho);
+      src.off = ((b * Ho + src.oy_next) * Wo + ox_l) * Ch + c;
+      src.load(src.hi);
+      src.load(src.ahead);
+      dx_walk<T, V>(src, dx, od, W * Cin, y0, y1, H, in_l, in_r);
+    }
   }
 }
 
@@ -219,57 +607,6 @@ gemm_da1(const T* __restrict__ g, const float* __restrict__ w1t,
   }
 }
 
-// branch-2 gradient at avg pixel (ay, ax), channel ci of image b: dM of
-// every output window whose first max sits there
-__device__ __forceinline__ float da2(const float* __restrict__ dM,
-                                     const unsigned char* __restrict__ idx,
-                                     int b, int ay, int ax, int ci, int Ho,
-                                     int Wo, int Ch) {
-  float v = 0.0f;
-  for (int ty = 0; ty < ((ay & 1) ? 2 : 1); ++ty) {
-    const int ky = (ay & 1) ? 2 * ty : 1;
-    const int oy = (ay + 1 - ky) / 2;
-    if (oy >= Ho) continue;
-    for (int tx = 0; tx < ((ax & 1) ? 2 : 1); ++tx) {
-      const int kx = (ax & 1) ? 2 * tx : 1;
-      const int ox = (ax + 1 - kx) / 2;
-      if (ox >= Wo) continue;
-      const size_t o = (((size_t)b * Ho + oy) * Wo + ox) * Ch + ci;
-      if (idx[o] == 3 * ky + kx) v += dM[o];
-    }
-  }
-  return v;
-}
-
-// 4. dx[b, y, x, c] = (sum of the avg gradients at (y-1|y, x-1|x)) / 4
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-adown_dx(const float* __restrict__ dA1, const float* __restrict__ dM,
-         const unsigned char* __restrict__ idx, T* __restrict__ dx, int B,
-         int H, int W, int Cin, int Ho, int Wo) {
-  const int Ch = Cin / 2, HA = H - 1, WA = W - 1;
-  const size_t total = (size_t)B * H * W * Cin;
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * kThreads) {
-    const int c = (int)(e % Cin);
-    const size_t p = e / Cin;
-    const int xx = (int)(p % W);
-    const size_t t = p / W;
-    const int y = (int)(t % H), b = (int)(t / H);
-    float s = 0.0f;
-#pragma unroll
-    for (int dy = -1; dy <= 0; ++dy)
-#pragma unroll
-      for (int dxx = -1; dxx <= 0; ++dxx) {
-        const int ay = y + dy, ax = xx + dxx;
-        if (!in_avg(ay, ax, H, W)) continue;
-        s += c < Ch ? dA1[(((size_t)b * HA + ay) * WA + ax) * Ch + c]
-                    : da2(dM, idx, b, ay, ax, c - Ch, Ho, Wo, Ch);
-      }
-    dx[e] = from_f32<T>(0.25f * s);
-  }
-}
-
 // 5. part[s, q, ci, co]: for tap q < 9, sum over the slab's output pixels
 //    of avg1pad[2oy-1+ky, 2ox-1+kx, ci] * g[p, co]; for q = 9,
 //    M[p, ci] * g[p, Co + co]
@@ -359,7 +696,7 @@ dw_reduce(const float* __restrict__ part, float* __restrict__ dw1,
 // columns at 32*(w%2). Every operand tile is staged with one 16-byte load
 // (8 channels) per thread per chunk: g, the weights (two float4 loads,
 // rounded to bf16: exact, the forward used bf16 weights), and for dW the
-// branch-1 avg that avg_bf16 writes once in bf16 (the forward kernel also
+// branch-1 avg that pool_avg writes once in bf16 (the forward kernel also
 // multiplies a bf16 avg) and the max M, rounded to bf16. The accumulators
 // go through shared memory to the same f32 outputs as the CUDA-core
 // kernels. (v2 staged with scalar loads and recomputed the avg from x for
@@ -393,24 +730,6 @@ __device__ __forceinline__ uint4 f32x8_to_bf16(const float* p) {
       __floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
       __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
   return *reinterpret_cast<const uint4*>(h);
-}
-
-// avg1 (B, H-1, W-1, Ch) bf16: the branch-1 avg, rounded once
-__global__ void __launch_bounds__(kThreads)
-avg_bf16(const bf16* __restrict__ x, bf16* __restrict__ avg1, int B, int H,
-         int W, int Cin) {
-  const int Ch = Cin / 2, HA = H - 1, WA = W - 1;
-  const size_t total = (size_t)B * HA * WA * Ch;
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * kThreads) {
-    const int ci = (int)(e % Ch);
-    const size_t p = e / Ch;
-    const int ax = (int)(p % WA);
-    const size_t t = p / WA;
-    const int ay = (int)(t % HA), b = (int)(t / HA);
-    avg1[e] = __float2bfloat16(
-        avg4(x + (size_t)b * H * W * Cin, W, Cin, ay, ax, ci));
-  }
 }
 
 // product 3 (dA1) on the tensor cores; see gemm_da1
@@ -565,6 +884,77 @@ int grid_for(size_t total) {
   return (int)(blocks < 132 * 64 ? (blocks ? blocks : 1) : 132 * 64);
 }
 
+// rows per strip of a pass: the longest of 32, 16, ... (not below lo)
+// that still gives each CTA of the persistent grid eight tasks
+int strip_rows(int rows, int tasks_per_strip, int ctas, int lo) {
+  int R = 32;
+  while (R > lo && tasks_per_strip * ceil_div(rows, R) < 8 * ctas) R /= 2;
+  return R;
+}
+
+// a persistent pass: as many CTAs of `kernel` as fit on the device at once
+template <typename K>
+cudaError_t resident_ctas(K kernel, int* ctas) {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kThreads, 0);
+  *ctas = sm_count() * per_sm;   // 0, a refused launch, if unknown
+  return err;
+}
+
+// pass 1 with V-channel lanes; avg1 null: M and idx only
+template <typename T, int V>
+cudaError_t launch_pool(const T* x, float* M, unsigned char* idx, T* avg1,
+                        int B, int H, int W, int Cin, cudaStream_t stream) {
+  const int Ho = H / 2, Wo = W / 2, branches = avg1 ? 2 : 1;
+  const int runs = ceil_div(Wo * (Cin / 2 / V), kThreads);
+  int ctas = 0;
+  cudaError_t err = resident_ctas(pool_avg<T, V>, &ctas);
+  if (err != cudaSuccess) return err;
+  const int R = strip_rows(Ho, B * branches * runs, ctas, 2);
+  const int strips = ceil_div(Ho, R);
+  const int tasks = B * branches * strips * runs;
+  pool_avg<T, V><<<tasks < ctas ? tasks : ctas, kThreads, 0, stream>>>(
+      x, M, idx, avg1, B, H, W, Cin, Ho, Wo, R, strips, runs);
+  return cudaGetLastError();
+}
+
+// pass 4 with V-channel lanes
+template <typename T, int V>
+cudaError_t launch_dx(const float* dA1, const float* dM,
+                      const unsigned char* idx, T* dx, int B, int H, int W,
+                      int Cin, cudaStream_t stream) {
+  const int runs = ceil_div(W * (Cin / 2 / V), kThreads);
+  int ctas = 0;
+  cudaError_t err = resident_ctas(dx_strips<T, V>, &ctas);
+  if (err != cudaSuccess) return err;
+  const int R = strip_rows(H, B * 2 * runs, ctas, 4);
+  const int strips = ceil_div(H, R);
+  const int tasks = B * 2 * strips * runs;
+  dx_strips<T, V><<<tasks < ctas ? tasks : ctas, kThreads, 0, stream>>>(
+      dA1, dM, idx, dx, B, H, W, Cin, H / 2, W / 2, R, strips, runs);
+  return cudaGetLastError();
+}
+
+// 8-channel lanes where the branch width Ch allows them (every gelan-c
+// and TINY_YAML site), else lanes of one channel
+template <typename T>
+cudaError_t launch_pool(const T* x, float* M, unsigned char* idx, T* avg1,
+                        int B, int H, int W, int Cin, cudaStream_t stream) {
+  if (Cin / 2 % 8 == 0)
+    return launch_pool<T, 8>(x, M, idx, avg1, B, H, W, Cin, stream);
+  return launch_pool<T, 1>(x, M, idx, avg1, B, H, W, Cin, stream);
+}
+
+template <typename T>
+cudaError_t launch_dx(const float* dA1, const float* dM,
+                      const unsigned char* idx, T* dx, int B, int H, int W,
+                      int Cin, cudaStream_t stream) {
+  if (Cin / 2 % 8 == 0)
+    return launch_dx<T, 8>(dA1, dM, idx, dx, B, H, W, Cin, stream);
+  return launch_dx<T, 1>(dA1, dM, idx, dx, B, H, W, Cin, stream);
+}
+
 template <typename T>
 cudaError_t launch(const void* x_, const void* g_, const float* w1t,
                    const float* w2t, void* dx_, float* dw1, float* dw2,
@@ -579,14 +969,15 @@ cudaError_t launch(const void* x_, const void* g_, const float* w1t,
   const long long N = (long long)B * Ho * Wo;
   const bool tensor_cores = std::is_same<T, __nv_bfloat16>::value &&
                             Ch % 8 == 0 && Co % 8 == 0;
-  const auto* xb = reinterpret_cast<const tc::bf16*>(x_);
   const auto* gb = reinterpret_cast<const tc::bf16*>(g_);
   auto* ab = static_cast<tc::bf16*>(avg1);
   cudaError_t err;
 
-  pool_argmax<T><<<grid_for((size_t)N * Ch), kThreads, 0, stream>>>(
-      x, M, idx, B, H, W, Cin, Ho, Wo);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // the bf16 branch-1 avg only for the tensor-core dW products
+  err = launch_pool<T>(x, M, idx, tensor_cores ? static_cast<T*>(avg1)
+                                               : nullptr,
+                       B, H, W, Cin, stream);
+  if (err != cudaSuccess) return err;
 
   const int ci_tiles = ceil_div(Ch, kT), co_tiles = ceil_div(Co, kT);
   dim3 g_dm((unsigned)((N + kT - 1) / kT), ci_tiles);
@@ -604,19 +995,16 @@ cudaError_t launch(const void* x_, const void* g_, const float* w1t,
                                                Co, Ch, tiles_j, ci_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  adown_dx<T><<<grid_for((size_t)B * H * W * Cin), kThreads, 0, stream>>>(
-      dA1, dM, idx, dx, B, H, W, Cin, Ho, Wo);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_dx<T>(dA1, dM, idx, dx, B, H, W, Cin, stream)) !=
+      cudaSuccess)
+    return err;
 
   const long long slab = (N + S - 1) / S;
   dim3 g_dw(S, 10, ci_tiles * co_tiles);
-  if (tensor_cores) {
-    tc::avg_bf16<<<grid_for((size_t)B * HA * WA * Ch), kThreads, 0,
-                   stream>>>(xb, ab, B, H, W, Cin);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (tensor_cores)
     tc::gemm_dw_wmma<<<g_dw, kThreads, 0, stream>>>(
         ab, gb, M, part, H, W, Cin, Ho, Wo, Co, (int)N, (int)slab, co_tiles);
-  } else
+  else
     gemm_dw<T><<<g_dw, kThreads, 0, stream>>>(x, g, M, part, H, W, Cin, Ho,
                                               Wo, Co, N, slab, co_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

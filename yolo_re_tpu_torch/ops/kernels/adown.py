@@ -183,11 +183,14 @@ def adown_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
     common.check_channels_last(g, "g")
     common.check_aligned(g, "g")
     if tuple(g.shape) != (bsz, 2 * co, h // 2, w // 2) or \
-            g.dtype != x.dtype or g.device != x.device or \
-            bsz * (h // 2) * (w // 2) >= 2 ** 31:
+            g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"adown_bwd: g must be {x.dtype} "
                          f"{(bsz, 2 * co, h // 2, w // 2)} on {x.device}, "
                          f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    # the kernel indexes x, dx and its scratch (all no larger) in 32 bits
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"adown_bwd: x must have fewer than 2^31 elements, "
+                         f"got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return adown_bwd_plain(x, g, w1, w2)
     common.check_cuda(x)
