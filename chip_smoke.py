@@ -16,7 +16,12 @@ non-zero (no phase is caught):
    the packed calls a fused model makes (weights packed outside the timed
    calls, as `fuse()` packs them once), at
    m (32, 32, 160, 160) for n = 1 and 2 (gelan-c, gelan-c-d2) and
-   x (32, 64, 160, 160) and (32, 64, 80, 80);
+   x (32, 64, 160, 160) and (32, 64, 80, 80); ADown at gelan-c's five
+   sites through `adown` (packs, then the kernel) and through the packed
+   call a fused ADown makes (timed), each site's time beside its bound and
+   (bf16) beside the time of its cuDNN composite (avg_pool2d, the two
+   F.conv2d with bias, max_pool2d, silu, cat: a composite of library calls,
+   not one call, so not the kernel's `library_ms`);
 4. the trained tiny fixture (assets/dryrun_tiny.npz, TINY_YAML, 160 px)
    served on cuda and on the CPU (plain versions) in f32: equal detections;
 5. gelan-c at full width: random weights from seed 0, fused, bf16, four
@@ -26,7 +31,9 @@ non-zero (no phase is caught):
 6. the four train kernels (stem raw + weight grad, ADown raw + backward)
    against their plain versions at gelan-c's 640 px, batch 32 train
    shapes, in f32 and bf16 (the bf16 stem weight gradient also at batch
-   8, with its fraction of the bound and its bytes/s): outputs and dx
+   8, with its fraction of the bound and its bytes/s; ADown raw, which
+   packs its weights on every call, per site beside its bound and, bf16,
+   its cuDNN composite without bias and SiLU): outputs and dx
    within `tolerance`, weight gradients within a relative L2 of 1e-5
    (f32) / 2e-2 (bf16), the stem weight gradient and the ADown backward
    equal across two calls, and times;
@@ -184,6 +191,41 @@ def check_close(name: str, y: torch.Tensor, ref: torch.Tensor,
     return err
 
 
+def adown_composite(x, w1, b1, w2, b2):
+    """ADown as a composite of PyTorch library calls (cuDNN convolutions),
+    the yardstick of its kernel: no single call computes it. b1 = b2 =
+    None gives the pre-BN train forward (no bias, no SiLU)."""
+    a1, a2 = F.avg_pool2d(x, 2, 1, 0).chunk(2, dim=1)
+    y1 = F.conv2d(a1, w1, b1, stride=2, padding=1)
+    y2 = F.conv2d(F.max_pool2d(a2, 3, 2, 1), w2, b2)
+    if b1 is not None:
+        y1, y2 = F.silu(y1), F.silu(y2)
+    return torch.cat([y1, y2], dim=1)
+
+
+def adown_site(name: str, tag: str, x: torch.Tensor, y: torch.Tensor,
+               ms: float, plain_ms: float, raw: bool, args) -> dict:
+    """One ADown site's numbers: its bound (x, the weights and y once; the
+    3x3 and the 1x1 conv, each writing half of y's channels), the bf16
+    composite's time, and the printed line."""
+    cin = x.shape[1]
+    ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
+    r = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+         **bound(nbytes(x, *args, y), ops, tag)}
+    line = (f"  {'adown_raw' if raw else 'adown'} {name} {tag}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), fraction "
+            f"{r['bound_ms'] / ms:.3f}")
+    if tag == "bf16":
+        comp = (lambda: adown_composite(x, args[0], None, args[1], None)) \
+            if raw else (lambda: adown_composite(x, *args))
+        r["composite_ms"] = cuda_ms(comp, 5)
+        line += (f"; cuDNN composite (a composite of library calls) "
+                 f"{r['composite_ms']:.4f} ms")
+    print(line)
+    return r
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at the main path's shapes.
     Returns the numbers per kernel and dtype; these launches are outside
@@ -212,28 +254,32 @@ def phase_kernels(dev) -> dict:
                                 nbytes(x, w, b, y), conv_flops(x, y, 3), tag)}
         del x, y
 
-        tot = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": []}
+        tot = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": [],
+               "sites": {}}
         for name, (cin, h, wd, cout) in ADOWN_SHAPES.items():
             x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
             args = (rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype),
                     rand(cout // 2, dtype=dtype),
                     rand(cout // 2, cin // 2, 1, 1, scale=0.06, dtype=dtype),
                     rand(cout // 2, dtype=dtype))
-            y = adown.adown(x, *args)
+            ref = adown.adown_plain(x, *args)
             err = check_close(f"adown {name} {tag} {tuple(x.shape)}->{cout}",
-                              y, adown.adown_plain(x, *args), dtype)
-            ms = cuda_ms(lambda: adown.adown(x, *args), 5)
+                              adown.adown(x, *args), ref, dtype)
+            # the fused block's call: weights packed once, as ADown.fuse()
+            w1p, w2p = adown.pack_weights(args[0], args[2])
+            y = adown.adown_packed(x, w1p, args[1], w2p, args[3])
+            err = max(err, check_close(f"adown_packed {name} {tag}", y, ref,
+                                       dtype))
+            ms = cuda_ms(lambda: adown.adown_packed(x, w1p, args[1], w2p,
+                                                    args[3]), 5)
             plain_ms = cuda_ms(lambda: adown.adown_plain(x, *args), 5)
-            print(f"  adown {name} {tag}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms")
-            # two convs of Cin/2 -> Cout/2 (3x3 and 1x1) on the half-size
-            # output, each writing half of y's channels
-            ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
+            r = adown_site(name, tag, x, y, ms, plain_ms, False, args)
             tot["err"] = max(tot["err"], err)
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
-            tot["bounds"].append(bound(nbytes(x, *args, y), ops, tag))
-            del x, y
+            tot["bounds"].append(r)
+            tot["sites"][name] = r
+            del x, y, ref
         res["adown"][tag] = {**tot, **add_bounds(tot.pop("bounds")),
                              "library_ms": None}
 
@@ -382,8 +428,8 @@ def phase_train_kernels(dev) -> dict:
             del gy
         del x
 
-        tot = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": []}
-               for k in ("adown_raw", "adown_bwd")}
+        tot = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": [],
+                   "sites": {}} for k in ("adown_raw", "adown_bwd")}
         for name, (cin, h, wd, cout) in ADOWN_SHAPES.items():
             x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
             w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype)
@@ -393,14 +439,15 @@ def phase_train_kernels(dev) -> dict:
                               adown.adown_raw_plain(x, w1, w2), dtype)
             # the two convs (3x3 and 1x1), each writing half of y
             ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
+            # the pack launch and the kernel, as the train forward calls it
             ms = cuda_ms(lambda: adown.adown_raw(x, w1, w2), 5)
             plain_ms = cuda_ms(lambda: adown.adown_raw_plain(x, w1, w2), 5)
-            print(f"  adown_raw {name} {tag}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms")
+            r = adown_site(name, tag, x, y, ms, plain_ms, True, (w1, w2))
             t = tot["adown_raw"]
             t["err"], t["ms"], t["plain_ms"] = (
                 max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
-            t["bounds"].append(bound(nbytes(x, w1, w2, y), ops, tag))
+            t["bounds"].append(r)
+            t["sites"][name] = r
             del y
 
             gy = rand(BATCH, cout, h // 2, wd // 2, dtype=dtype, cl=True)
@@ -787,12 +834,15 @@ def main() -> int:
                        for hw in CONV3_HW},
         "stem_wgrad": {f"{b}x3x{SIZE}x{SIZE}":
                        tres["stem_wgrad"][(b, "bf16")]
-                       for b in WGRAD_BATCHES}}
+                       for b in WGRAD_BATCHES},
+        "adown": res["adown"]["bf16"]["sites"],
+        "adown_raw": tres["adown_raw"]["bf16"]["sites"]}
     for k in kernels:
         if k["name"] in per_shape:
             k["shapes"] = {
                 shape: {key: r[key] for key in (
-                    "ms", "library_ms", "bound_ms", "bound_by")}
+                    "ms", "library_ms", "bound_ms", "bound_by",
+                    "composite_ms") if key in r}
                 for shape, r in per_shape[k["name"]].items()}
     print("fraction of the bound (bound_ms / ms, bf16): " + ", ".join(
         f"{k['name']} {k['bound_fraction']:.3f}" for k in kernels) + "; " +
@@ -801,7 +851,11 @@ def main() -> int:
                   for shape, r in shapes.items()))
     print(f"(kernel ms/plain_ms/library_ms: bf16 at the serving, eval and "
           f"train shapes; adown kernels are the sum of gelan-c's five ADown "
-          f"shapes, nms is K=512, bottleneck_chain n=1 with library_ms two "
+          f"shapes (adown: the packed call of a fused ADown; adown_raw: its "
+          f"pack launch and the kernel, as the train forward calls it), each "
+          f"also under 'shapes' with composite_ms, the time of its cuDNN "
+          f"composite (a composite of library calls, not one call), nms is "
+          f"K=512, bottleneck_chain n=1 with library_ms two "
           f"F.conv2d calls (one per conv; no SiLU, no residual), conv3_silu "
           f"at 160x160 with library_ms one F.conv2d with bias (no SiLU), "
           f"both also under 'shapes' at each shape phase 3 ran (chain n=2: "

@@ -66,28 +66,123 @@ def test_stem_kernel_matches_plain(cuda, dtype, shape, c):
                                atol=ATOL[dtype], rtol=0)
 
 
+# (x shape, Cout, weights at 1/sqrt(fan-in)): TINY_YAML's widths (32; 48
+# with Ch = 24, not a multiple of 16); Co = 256 per branch (the N = 256
+# instance) at odd H, W; Ho = 21, which no tile height divides; more tiles
+# than persistent CTAs, the last round ragged; Co = 512 per branch (two
+# n-blocks); 2 x 2 and 3 x 5 inputs (one output row, an avg domain of one
+# row). The wide cases draw their weights at 1/sqrt(fan-in), as the
+# model's init does, the others at 0.05 (3x3) and 0.1 (1x1).
+ADOWN_SHAPES = [((1, 32, 8, 24), 32, False), ((2, 48, 10, 10), 64, False),
+                ((1, 64, 9, 7), 64, False), ((1, 40, 8, 10), 24, False),
+                ((2, 48, 20, 18), 48, False), ((2, 512, 37, 41), 512, True),
+                ((1, 256, 42, 36), 256, True), ((3, 256, 66, 70), 256, True),
+                ((3, 256, 160, 168), 256, True),
+                ((1, 1024, 12, 14), 1024, True), ((2, 32, 2, 2), 32, False),
+                ((2, 32, 3, 5), 32, False)]
+
+
+def _w_scales(ch: int, fan_in: bool) -> tuple[float, float]:
+    return (1 / (9 * ch) ** 0.5, 1 / ch ** 0.5) if fan_in else (0.05, 0.1)
+
+
+def _adown_atol(dtype: torch.dtype, ref: torch.Tensor,
+                fan_in: bool) -> float:
+    """ATOL, which is about one bf16 ulp for outputs below 4; the wide
+    cases' outputs reach 4-8, where one bf16 ulp is 2^-5, and are held to
+    4 ulps of their largest output instead (chip_smoke.py's tolerance)."""
+    if fan_in and dtype == torch.bfloat16:
+        return 2.0 ** -6 * max(1.0, float(ref.abs().max()))
+    return ATOL[dtype]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,cout", [((1, 32, 8, 24), 32),
-                                        ((2, 48, 10, 10), 64),
-                                        ((1, 64, 9, 7), 64),
-                                        ((1, 40, 8, 10), 24)])
-def test_adown_kernel_matches_plain(cuda, dtype, shape, cout):
-    """The last shape's channel counts are not multiples of 16: bf16 then
-    takes the CUDA-core variant instead of the tensor-core one."""
+@pytest.mark.parametrize("shape,cout,fan_in", ADOWN_SHAPES)
+def test_adown_kernel_matches_plain(cuda, dtype, shape, cout, fan_in):
+    """(1, 40, 8, 10) -> 24: channel counts that are not multiples of 16,
+    so bf16 takes the CUDA-core variant instead of the tensor-core one.
+    `adown` packs the weights (one pack launch) and launches the kernel;
+    `adown_packed` on the plain packing gives the same output, and so does
+    a second call."""
     g = torch.Generator().manual_seed(1)
     cin = shape[1]
+    s1, s2 = _w_scales(cin // 2, fan_in)
     x = _rand(g, *shape, dtype=dtype, cl=True).to(cuda)
-    args = [_rand(g, cout // 2, cin // 2, 3, 3, scale=0.05, dtype=dtype),
+    args = [_rand(g, cout // 2, cin // 2, 3, 3, scale=s1, dtype=dtype),
             _rand(g, cout // 2, dtype=dtype),
-            _rand(g, cout // 2, cin // 2, 1, 1, scale=0.1, dtype=dtype),
+            _rand(g, cout // 2, cin // 2, 1, 1, scale=s2, dtype=dtype),
             _rand(g, cout // 2, dtype=dtype)]
     args = [a.to(cuda) for a in args]
-    before = adown.launches
+    before = (adown.launches, adown.pack_launches)
     y = adown.adown(x, *args)
     torch.cuda.synchronize()
-    assert adown.launches == before + 1
-    torch.testing.assert_close(y.float(), adown.adown_plain(x, *args).float(),
-                               atol=ATOL[dtype], rtol=0)
+    assert (adown.launches, adown.pack_launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = adown.adown_plain(x, *args)
+    torch.testing.assert_close(y.float(), ref.float(),
+                               atol=_adown_atol(dtype, ref, fan_in), rtol=0)
+    w1p, w2p = adown.pack_weights_plain(args[0], args[2])
+    assert torch.equal(adown.adown_packed(x, w1p, args[1], w2p, args[3]), y)
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)],
+                         ids=["f32", "bf16", "f32_to_bf16", "bf16_to_f32"])
+@pytest.mark.parametrize("ch,co", [(16, 16), (24, 24), (20, 12), (128, 128),
+                                   (256, 256), (512, 512)])
+def test_adown_pack_kernel_matches_plain(cuda, dtypes, ch, co):
+    """The pack kernel (one launch, with the cast) writes the plain
+    packing bit for bit, zero padding included."""
+    g = torch.Generator().manual_seed(11)
+    src, dst = dtypes
+    w1 = _rand(g, co, ch, 3, 3, dtype=src).to(cuda)
+    w2 = _rand(g, co, ch, 1, 1, dtype=src).to(cuda)
+    before = adown.pack_launches
+    got = adown.pack_weights(w1, w2, dst)
+    torch.cuda.synchronize()
+    assert adown.pack_launches == before + 1
+    want = adown.pack_weights_plain(w1, w2, dst)
+    assert all(a.dtype == dst and torch.equal(a, b)
+               for a, b in zip(got, want))
+
+
+def _cuda_kernels(fn) -> list[str]:
+    """Names of the CUDA kernels fn() runs, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_fused_adown_makes_one_launch(cuda):
+    """A fused ADown runs one CUDA kernel per call (its weights packed at
+    fuse time: no per-call permute or pack); the train forward two (the
+    pack, which casts the f32 weights, and the kernel)."""
+    from yolo_re_tpu_torch.models.blocks import ADown
+    from yolo_re_tpu_torch.models.fuse import fuse_model
+
+    g = torch.Generator().manual_seed(12)
+    mod = fuse_model(ADown(256, 256).eval()).to(cuda, torch.bfloat16)
+    x = _rand(g, 2, 256, 40, 40, dtype=torch.bfloat16, cl=True).to(cuda)
+    before = adown.launches
+    with torch.no_grad():
+        names = _cuda_kernels(lambda: mod(x))
+    assert len(names) == 1 and "adown" in names[0], names
+    assert adown.launches == before + 2
+    w1 = _rand(g, 128, 128, 3, 3, scale=0.05).to(cuda)
+    w2 = _rand(g, 128, 128, 1, 1, scale=0.1).to(cuda)
+    names = _cuda_kernels(lambda: adown.adown_raw(x, w1, w2))
+    assert len(names) == 2, names
+    assert torch.equal(adown.adown_raw(x, w1, w2),
+                       adown.adown_raw(x, w1.bfloat16(), w2.bfloat16()))
 
 
 @pytest.mark.parametrize("k", [100, 512, 8400])
@@ -308,29 +403,37 @@ def test_stem_train_kernels_match_plain(cuda, dtype, shape, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,cout", [((2, 32, 16, 24), 32),
-                                        ((1, 48, 10, 10), 48),
-                                        ((2, 256, 16, 16), 256),
-                                        ((1, 64, 9, 7), 64),
-                                        ((1, 40, 8, 10), 24),
-                                        ((2, 64, 70, 66), 64),
-                                        ((2, 256, 37, 41), 256)])
-def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout):
-    """Channel counts 32 and 48 are TINY_YAML's (48 takes the CUDA-core
-    forward in bf16), 256 gelan-c's; odd H, W hit the avg-domain edges; the
+@pytest.mark.parametrize("shape,cout,fan_in", [((2, 32, 16, 24), 32, False),
+                                               ((1, 48, 10, 10), 48, False),
+                                               ((2, 256, 16, 16), 256, False),
+                                               ((1, 64, 9, 7), 64, False),
+                                               ((1, 40, 8, 10), 24, False),
+                                               ((2, 64, 70, 66), 64, False),
+                                               ((2, 256, 37, 41), 256, False),
+                                               ((2, 512, 37, 41), 512, True),
+                                               ((1, 256, 42, 36), 256, True),
+                                               ((3, 256, 66, 70), 256, True)])
+def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
+    """Channel counts 32 and 48 are TINY_YAML's (48: 24 input channels a
+    branch, half a k-step of zero padding in the tensor-core forward), 256
+    gelan-c's; odd H, W hit the avg-domain edges; the
     fifth shape's branch channels (20 in, 12 out) are not multiples of 8,
     so bf16 takes the CUDA-core backward too, and the backward's
     memory-bound passes take 1-channel lanes. (2, 64, 70, 66): the dx and
     pool passes walk each column down several strips of rows, and a row's
     66 columns of 8-channel lanes are not a whole number of a CTA's runs of
-    lanes; (2, 256, 37, 41): gelan-c's width at odd H and W. Inputs are
-    quantized to halves so that maxpool ties are common."""
+    lanes; (2, 256, 37, 41): gelan-c's width at odd H and W; then the
+    forward's edges: Co = 256 per branch, Ho = 21 (no tile height divides
+    it) and more tiles than one round of its persistent grid, with weights
+    at 1/sqrt(fan-in) (`_w_scales`). Inputs are quantized to halves so
+    that maxpool ties are common."""
     g0 = torch.Generator().manual_seed(4)
     cin = shape[1]
+    s1, s2 = _w_scales(cin // 2, fan_in)
     x = (torch.round(torch.randn(*shape, generator=g0) * 2) / 2).to(dtype) \
         .contiguous(memory_format=torch.channels_last).to(cuda)
-    w1 = _rand(g0, cout // 2, cin // 2, 3, 3, scale=0.05, dtype=dtype).to(cuda)
-    w2 = _rand(g0, cout // 2, cin // 2, 1, 1, scale=0.1, dtype=dtype).to(cuda)
+    w1 = _rand(g0, cout // 2, cin // 2, 3, 3, scale=s1, dtype=dtype).to(cuda)
+    w2 = _rand(g0, cout // 2, cin // 2, 1, 1, scale=s2, dtype=dtype).to(cuda)
     before = (adown.raw_launches, adown.bwd_launches)
     y = adown.adown_raw(x, w1, w2)
     g = _rand(g0, *y.shape, dtype=dtype, cl=True).to(cuda)

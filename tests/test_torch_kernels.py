@@ -146,6 +146,85 @@ def test_adown_plain_matches_jax_block(cin, cout, hw):
     np.testing.assert_allclose(_nhwc(y), np.asarray(ref), atol=KERNEL_ATOL)
 
 
+# the packed weight images of the ADown kernels (csrc/adown.cu)
+ADOWN_WIDTHS = [(128, 128), (256, 256), (16, 16), (24, 24)]
+
+
+def _adown_packed_index(co, ch, taps):
+    """Element of w[o, i, tap] in the packed image, by the formula of
+    csrc/hopper.cuh: packed_index (numpy, independent of the wrapper)."""
+    ks = -(-ch // 16)
+    n = 128 if co <= 128 else -(-co // 256) * 256
+    o, i, t = np.meshgrid(np.arange(co), np.arange(ch), np.arange(taps),
+                          indexing="ij")
+    return ((t * ks + i // 16) * (16 * n) + (o // 8) * 128
+            + (i // 8) % 2 * 64 + (o % 8) * 8 + i % 8), 16 * ks * n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ch,co", ADOWN_WIDTHS,
+                         ids=[f"{c}to{o}" for c, o in ADOWN_WIDTHS])
+def test_adown_packed_weights_round_trip(ch, co, dtype):
+    """gelan-c's branch widths (128, 256) and TINY_YAML's (16, 24): pack ->
+    unpack gives the OIHW weights back; every weight sits where the
+    kernels' index arithmetic reads it, and the padding is zero."""
+    rng = np.random.default_rng(ch + co)
+    w1 = torch.from_numpy(rng.standard_normal((co, ch, 3, 3))
+                          .astype(np.float32)).to(dtype)
+    w2 = torch.from_numpy(rng.standard_normal((co, ch, 1, 1))
+                          .astype(np.float32)).to(dtype)
+    before = adown.pack_launches
+    w1p, w2p = adown.pack_weights(w1, w2)
+    assert adown.pack_launches == before        # CPU: the plain version
+    k, n = adown.packed_sizes(ch, co)
+    assert w1p.shape == (9 * k * n,) and w2p.shape == (k * n,)
+    assert w1p.dtype == w2p.dtype == dtype
+    r1, r2 = adown.unpack_weights(w1p, w2p, ch, co)
+    assert torch.equal(r1, w1) and torch.equal(r2, w2)
+    for wp, w, taps in ((w1p, w1, 9), (w2p, w2, 1)):
+        idx, per_tap = _adown_packed_index(co, ch, taps)
+        flat = wp.float().numpy()
+        np.testing.assert_array_equal(
+            flat[idx], w.float().numpy().reshape(co, ch, taps))
+        pad = np.ones(flat.size, bool)
+        pad[idx.ravel()] = False
+        assert flat.size == taps * per_tap and not flat[pad].any()
+    # the cast the train forward's pack makes
+    c1, c2 = adown.pack_weights(w1.float(), w2.float(), torch.bfloat16)
+    assert torch.equal(c1, adown.pack_weights(w1.bfloat16(), w2.bfloat16())[0])
+    assert torch.equal(c2, adown.pack_weights(w1.bfloat16(), w2.bfloat16())[1])
+
+
+@pytest.mark.parametrize("cin,cout,hw", [(32, 32, (10, 14)),
+                                         (48, 48, (9, 7)),
+                                         (256, 256, (12, 16)),
+                                         (512, 512, (6, 10))])
+def test_adown_packed_plain_equals_adown_plain(cin, cout, hw):
+    """On the CPU `adown_packed` and `adown` (which packs first) are the
+    plain version, bit for bit, and so is `adown_raw` with f32 master
+    weights and a bf16 x (it rounds them to bf16 as the kernel's pack
+    does)."""
+    rng = np.random.default_rng(cin + hw[0])
+    x = _cl(rng.standard_normal((2, *hw, cin)).astype(np.float32))
+    w1, w2 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                               * 0.05)
+              for s in ((cout // 2, cin // 2, 3, 3),
+                        (cout // 2, cin // 2, 1, 1)))
+    b1, b2 = (torch.from_numpy(rng.standard_normal(cout // 2)
+                               .astype(np.float32)) for _ in range(2))
+    ref = adown.adown_plain(x, w1, b1, w2, b2)
+    w1p, w2p = adown.pack_weights(w1, w2)
+    before = adown.launches
+    assert torch.equal(adown.adown_packed(x, w1p, b1, w2p, b2), ref)
+    assert torch.equal(adown.adown(x, w1, b1, w2, b2), ref)
+    assert adown.launches == before
+    xb = x.bfloat16()
+    assert torch.equal(adown.adown_raw(xb, w1, w2),
+                       adown.adown_raw_plain(xb, w1.bfloat16(),
+                                             w2.bfloat16()))
+
+
 # ---------------------------------------------------------------------------
 # NMS
 # ---------------------------------------------------------------------------
@@ -273,6 +352,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         adown.adown(torch.zeros(1, 7, 6, 6).contiguous(
             memory_format=torch.channels_last), torch.zeros(4, 3, 3, 3),
             torch.zeros(4), torch.zeros(4, 3, 1, 1), torch.zeros(4))
+    w1p, w2p = adown.pack_weights(torch.zeros(4, 4, 3, 3),
+                                  torch.zeros(4, 4, 1, 1))
+    with pytest.raises(ValueError, match="packed image"):
+        adown.adown_packed(xa, w1p[:-8], torch.zeros(4), w2p, torch.zeros(4))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        adown.pack_weights(torch.zeros(4, 4, 3, 3), torch.zeros(4, 4, 1, 1),
+                           torch.float16)
     with pytest.raises(ValueError, match="K must be"):
         nms.nms_select(torch.zeros(1, nms.MAX_K + 1, 4),
                        torch.zeros(1, nms.MAX_K + 1), 0.45, 10)

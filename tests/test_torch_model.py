@@ -28,6 +28,7 @@ from yolo_re_tpu_torch.models import blocks as B
 from yolo_re_tpu_torch.models.config import parse_yaml
 from yolo_re_tpu_torch.models.fuse import fuse_model
 from yolo_re_tpu_torch.models.yolo import YOLO
+from yolo_re_tpu_torch.ops.kernels import adown as adown_kernel
 
 ROOT = Path(__file__).resolve().parent.parent
 CONFIGS = sorted((ROOT / "configs" / "models").glob("*.yaml"))
@@ -240,6 +241,47 @@ def test_block_matches_jax(name, fused):
         y = module.eval()(_nchw(x))
     assert y.shape == _nchw(np.asarray(ref)).shape
     np.testing.assert_allclose(_nhwc(y), np.asarray(ref), atol=BLOCK_ATOL)
+
+
+@pytest.mark.parametrize("cin,cout,shape", [(32, 32, (2, 10, 14)),
+                                            (48, 48, (1, 9, 7)),
+                                            (256, 256, (1, 8, 12))])
+def test_fused_adown_packs_weights_as_buffers(cin, cout, shape):
+    """A fused ADown (TINY_YAML's widths and gelan-c's 256) carries both
+    weights packed once, in non-persistent buffers: its state dict is
+    the fused convs' alone, the buffers are the packing of the fused
+    weights and follow `.to()`, and its forward (the packed call) still
+    matches the JAX package's fused block."""
+    cfg = JB.ADownConfig(cin, cout)
+    params, stats = jax.device_get(JB.ADown.init(jax.random.key(4), cfg))
+    stats = _perturb_stats(stats, 5)
+    sd = {}
+    convert._EMITTERS["ADown"](sd, "", params, stats)
+    module = B.ADown(cin, cout)
+    module.load_state_dict(sd, strict=True)
+    fuse_model(module.eval())
+    assert module.packed
+    cs, cp = module.conv_stride.conv, module.conv_pool.conv
+    assert set(module.state_dict()) == {
+        "conv_stride.conv.weight", "conv_stride.conv.bias",
+        "conv_pool.conv.weight", "conv_pool.conv.bias"}
+    w1p, w2p = adown_kernel.pack_weights(cs.weight.detach(),
+                                         cp.weight.detach())
+    assert torch.equal(module.adown_w1, w1p)
+    assert torch.equal(module.adown_w2, w2p)
+    x = np.random.default_rng(6).standard_normal((*shape, cin)) \
+        .astype(np.float32)
+    fp, fs = jfuse(JB.ADown, cfg, params, stats)
+    ref, _ = JB.ADown.apply(cfg, fp, fs, jnp.asarray(x), train=False)
+    launches = adown_kernel.launches
+    with torch.no_grad():
+        y = module(_nchw(x))
+    assert adown_kernel.launches == launches      # CPU: the plain version
+    np.testing.assert_allclose(_nhwc(y), np.asarray(ref), atol=BLOCK_ATOL)
+    module.to(torch.bfloat16)
+    assert module.adown_w1.dtype == module.adown_w2.dtype == torch.bfloat16
+    assert torch.equal(module.adown_w1, adown_kernel.pack_weights(
+        cs.weight.detach(), cp.weight.detach())[0])
 
 
 @pytest.mark.parametrize("kind", ["Concat", "Upsample"])

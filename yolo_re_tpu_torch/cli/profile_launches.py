@@ -6,13 +6,20 @@ and of one gelan-c train step.
 `kernels` (the default): a wrapper such as `adown_bwd` makes several
 launches from one C entry point; `chip_smoke.py` times the call as a
 whole. This traces a few calls with `torch.profiler` and prints, per
-call, each kernel's device time: the bf16 ADown backward at gelan-c's
-five ADown shapes (640 px, batch 32), each shape's sum and the sums over
-the five, and the bf16 stem weight gradient at (32, 3, 640, 640) -> 64.
-For the ADown backward's two memory-bound passes, the dx pass and the
-pool/avg pass, it also prints the bytes they must move (each input read
-once, each output written once), that over 3.35 TB/s (the H100 SXM data
-sheet's HBM3 rate) as their bound, and bound / time.
+call, each kernel's device time: the bf16 ADown forward at gelan-c's five
+ADown shapes (640 px, batch 32), as a fused ADown calls it (weights
+packed beforehand) and as the train forward calls it (`adown_raw`, which
+packs on every call), each shape's sum and the sums over the five, with
+the forward's bound (x, the weights and y once each at 3.35 TB/s, or its
+products at 989 TFLOP/s, the H100 SXM data sheet's rates) and bound /
+time, and the fused call in f32 (the Evaluator's default dtype); the bf16
+ADown backward at the same shapes, each shape's sum and
+the sums over the five; and the bf16 stem weight gradient at
+(32, 3, 640, 640) -> 64. For the ADown backward's two memory-bound
+passes, the dx pass and the pool/avg pass, it also prints the bytes they
+must move (each input read once, each output written once), that over
+3.35 TB/s as their bound, and bound / time. The ADown tables run on older
+trees too (their `adown` permutes the weights on every call).
 
 `train`: gelan-c, bf16, batch 32, 640 px, random weights and synthetic
 batches (as chip_smoke.py's phase 8): after a warm-up step, the host
@@ -40,6 +47,7 @@ ADOWN_SHAPES = {"down1": (256, 160, 160, 256), "down2": (512, 80, 80, 512),
                 "pan_down2": (512, 40, 40, 512)}
 REPS = 5
 HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 # the ADown backward's memory-bound passes, by kernel names of this tree
 # and of the trees before it
 PASSES = {"dx": ("dx_strips", "adown_dx"),
@@ -88,6 +96,57 @@ def pass_ms(rows: list[tuple[float, int, str]]) -> dict[str, float]:
     return {p: sum(ms for ms, _, name in rows
                    if any(k in name for k in keys))
             for p, keys in PASSES.items()}
+
+
+def fused_adown(x, w1, b1, w2, b2):
+    """The call a fused ADown makes (weights packed beforehand; older
+    trees' `adown` permutes them on every call)."""
+    packed = getattr(adown, "adown_packed", None)   # absent in older trees
+    if packed is None:
+        return lambda: adown.adown(x, w1, b1, w2, b2)
+    w1p, w2p = adown.pack_weights(w1, w2)
+    return lambda: packed(x, w1p, b1, w2p, b2)
+
+
+def adown_fwd_shapes(rand) -> None:
+    """Per-launch times of the bf16 ADown forward at the five shapes: the
+    fused block's call and the train forward's, each against the
+    forward's bound, and the sums over the shapes; then the fused call in
+    f32."""
+    sums = {"adown": [0.0, 0.0], "adown_raw": [0.0, 0.0]}   # ms, bound ms
+    f32_ms = 0.0
+    for name, (cin, h, w, cout) in ADOWN_SHAPES.items():
+        x = rand(BATCH, cin, h, w)
+        w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, cl=False)
+        b1 = rand(cout // 2, cl=False)
+        w2 = rand(cout // 2, cin // 2, 1, 1, scale=0.06, cl=False)
+        b2 = rand(cout // 2, cl=False)
+        fused = fused_adown(x, w1, b1, w2, b2)
+        # x, the weights and y (half of x's pixels' channels: Cout over
+        # the quarter-size output) once each; the two convs' products
+        n_bytes = 2 * (x.numel() + w1.numel() + w2.numel() + 2 * cout // 2
+                       + BATCH * cout * (h // 2) * (w // 2))
+        ops = (9 + 1) * 2.0 * (cin // 2) * (cout // 2) * BATCH * (h // 2) \
+            * (w // 2)
+        bound = max(n_bytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+        for what, fn in (("adown", fused),
+                         ("adown_raw", lambda: adown.adown_raw(x, w1, w2))):
+            rows = launch_times(fn)
+            ms = sum(r[0] for r in rows)
+            report(f"{what} {name} bf16 x {tuple(x.shape)} -> {cout}, per "
+                   f"call", rows)
+            print(f"  bound {bound:.4f} ms, fraction {bound / ms:.3f}")
+            sums[what][0] += ms
+            sums[what][1] += bound
+        rows = launch_times(fused_adown(*(t.float()
+                                          for t in (x, w1, b1, w2, b2))))
+        report(f"adown {name} f32, per call", rows)
+        f32_ms += sum(r[0] for r in rows)
+        del x
+    for what, (ms, bound) in sums.items():
+        print(f"{what}, five shapes: {ms:.4f} ms, bound {bound:.4f} ms, "
+              f"fraction {bound / ms:.3f}")
+    print(f"adown f32, five shapes: {f32_ms:.4f} ms")
 
 
 def adown_bwd_shapes(rand) -> None:
@@ -184,6 +243,7 @@ def main(argv: list[str] | None = None) -> int:
         t = (torch.randn(*shape, generator=gen, device=dev) * scale).bfloat16()
         return t.contiguous(memory_format=torch.channels_last) if cl else t
 
+    adown_fwd_shapes(rand)
     adown_bwd_shapes(rand)
     x = rand(BATCH, 3, 640, 640)
     g = rand(BATCH, 64, 320, 320)

@@ -15,7 +15,8 @@ a CUDA tensor: the Cin=3 stem `Conv` (fused: ops/kernels/stem.py; train:
 ops/stem_train.py), the fused 64-channel stride-1 3x3 `Conv`
 (ops/kernels/conv3.py), the fused `RepNCSP`'s bottleneck loop at 32
 channels (ops/kernels/csp_chain.py) and `ADown` (fused:
-ops/kernels/adown.py; train: ops/adown_train.py). The gates are the
+ops/kernels/adown.py, on weights packed once by `fuse()`; train:
+ops/adown_train.py). The gates are the
 kernels' geometry; on a CPU tensor each kernel wrapper takes its plain
 version. The JAX package's width-packed layouts are not ported: every
 block stays NCHW in channels_last memory.
@@ -316,21 +317,23 @@ class ADown(nn.Module):
     """Stride-2 downsample: avgpool -> split -> (3x3 s2 conv | maxpool+1x1).
 
     Reference: src/yolo/blocks/downsample.py:24-50. Once fused, the whole
-    block is one call of the ADown kernel (ops/kernels/adown.py); in train
-    mode it is the kernel pair of ops/adown_train.py plus one train BN.
+    block is one call of the ADown kernel (ops/kernels/adown.py) on the
+    weights `fuse()` packed; in train mode it is the kernel pair of
+    ops/adown_train.py plus one train BN.
     """
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.conv_stride = Conv(in_channels // 2, out_channels // 2, 3, 2, 1)
         self.conv_pool = Conv(in_channels // 2, out_channels // 2, 1, 1, 0)
+        self.packed = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.conv_stride.bn is None and self.conv_pool.bn is None:
-            cs, cp = self.conv_stride.conv, self.conv_pool.conv
-            return adown_kernel.adown(
+        if self.packed:
+            return adown_kernel.adown_packed(
                 x.contiguous(memory_format=torch.channels_last),
-                cs.weight, cs.bias, cp.weight, cp.bias)
+                self.adown_w1, self.conv_stride.conv.bias, self.adown_w2,
+                self.conv_pool.conv.bias)
         if self.training:
             return adown_train(x, self.conv_stride, self.conv_pool)
         x = avg_pool2d(x, 2, 1, 0)
@@ -338,6 +341,21 @@ class ADown(nn.Module):
         y1 = self.conv_stride(x1)
         y2 = self.conv_pool(max_pool2d(x2, 3, 2, 1))
         return torch.cat([y1, y2], dim=1)
+
+    def fuse(self) -> None:
+        """Fold both branches' BNs, then pack both weights once for the
+        ADown kernel, as non-persistent buffers (`adown_w1`, `adown_w2`:
+        they follow `.to()`; the state dict is unchanged)."""
+        if self.packed:
+            return
+        self.conv_stride.fuse()
+        self.conv_pool.fuse()
+        w1p, w2p = adown_kernel.pack_weights(
+            self.conv_stride.conv.weight.detach(),
+            self.conv_pool.conv.weight.detach())
+        self.register_buffer("adown_w1", w1p, persistent=False)
+        self.register_buffer("adown_w2", w2p, persistent=False)
+        self.packed = True
 
 
 # ---------------------------------------------------------------------------

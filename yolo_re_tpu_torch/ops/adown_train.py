@@ -15,8 +15,9 @@ raw ones. In JAX the pair is opt-in on the TPU; in the port every
 train-mode ADown takes it.
 
 Compute dtype: the Function takes the f32 master weights and x in the
-compute dtype, runs the forward kernel with the weights cast to x's dtype,
-and returns the weight gradients in the weights' dtype.
+compute dtype. The forward packs the weights for the kernel, cast to x's
+dtype, in one launch (`adown_raw`); the backward reads them cast to x's
+dtype too, and returns the weight gradients in the weights' dtype.
 """
 
 from __future__ import annotations
@@ -36,17 +37,17 @@ class ADownRaw(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, w1: torch.Tensor,
                 w2: torch.Tensor) -> torch.Tensor:
-        w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
-        ctx.save_for_backward(x, w1c, w2c)
-        ctx.w_dtypes = (w1.dtype, w2.dtype)
-        return adown_kernel.adown_raw(x, w1c, w2c)
+        w1, w2 = w1.contiguous(), w2.contiguous()
+        ctx.save_for_backward(x, w1, w2)
+        return adown_kernel.adown_raw(x, w1, w2)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        x, w1c, w2c = ctx.saved_tensors
+        x, w1, w2 = ctx.saved_tensors
         g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
-        dx, dw1, dw2 = adown_kernel.adown_bwd(x, g, w1c, w2c)
-        return dx, dw1.to(ctx.w_dtypes[0]), dw2.to(ctx.w_dtypes[1])
+        dx, dw1, dw2 = adown_kernel.adown_bwd(x, g, w1.to(x.dtype),
+                                              w2.to(x.dtype))
+        return dx, dw1.to(w1.dtype), dw2.to(w2.dtype)
 
 
 def adown_train(x: torch.Tensor, conv_stride, conv_pool) -> torch.Tensor:

@@ -42,10 +42,12 @@ SIGNATURES = {
     "yolo_stem_conv_raw": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, g, part, dw, B, H, W, C, nblk, dtype, stream
     "yolo_stem_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, dtype, stream
+    # x, w1p, b1, w2p, b2, y, B, H, W, Cin, Cout, dtype, stream
     "yolo_adown": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, w1, w2, y, B, H, W, Cin, Cout, dtype, stream
+    # x, w1p, w2p, y, B, H, W, Cin, Cout, dtype, stream
     "yolo_adown_raw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # w1, w2, w1p, w2p, Co, Ch, src dtype, dst dtype, stream
+    "yolo_adown_pack": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, g, w1t, w2t, dx, dw1, dw2, M, idx, dM, dA1, avg1, part,
     # B, H, W, Cin, Cout, S, dtype, stream
     "yolo_adown_bwd": (_P,) * 13 + (_I,) * 7 + (_P,),

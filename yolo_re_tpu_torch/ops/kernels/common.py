@@ -48,34 +48,52 @@ def stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def packed_index(c: int, device=None) -> torch.Tensor:
-    """(c, c, 3, 3) int64: the element of w[co, ci, ky, kx] of a c -> c 3x3
-    conv in the packed weight image the CUDA kernels read
-    (csrc/hopper.cuh: packed_index): 9 x c/16 blocks (tap, 16 input
-    channels) of 16 x c elements, each c/8 groups of 8 output channels
-    holding two 8 x 8 core matrices (input channels 0-7, 8-15), one output
-    channel's 8 input channels contiguous."""
-    co = torch.arange(c, device=device).view(c, 1, 1, 1)
-    ci = torch.arange(c, device=device).view(1, c, 1, 1)
-    tap = torch.arange(9, device=device).view(1, 1, 3, 3)
-    return ((tap * (c // 16) + ci // 16) * (16 * c) + (co // 8) * 128
-            + (ci // 8) % 2 * 64 + (co % 8) * 8 + ci % 8)
+def packed_index(co: int, ci: int | None = None, kh: int = 3,
+                 n: int | None = None, k: int | None = None,
+                 device=None) -> torch.Tensor:
+    """(co, ci, kh, kh) int64: the element of w[o, i, ky, kx] of a ci -> co
+    conv with kh x kh taps in the packed weight image the CUDA kernels read
+    (csrc/hopper.cuh: packed_index), its output channels padded with zeros
+    to n (a multiple of 8; default co) and its input channels to k (a
+    multiple of 16; default ci, which defaults to co): kh^2 x k/16 blocks
+    (tap, 16 input channels), tap-major, of 16 x n elements, each n/8
+    groups of 8 output channels holding two 8 x 8 core matrices (input
+    channels 0-7, 8-15), one output channel's 8 input channels
+    contiguous."""
+    ci = co if ci is None else ci
+    n = co if n is None else n
+    k = ci if k is None else k
+    o = torch.arange(co, device=device).view(co, 1, 1, 1)
+    i = torch.arange(ci, device=device).view(1, ci, 1, 1)
+    tap = torch.arange(kh * kh, device=device).view(1, 1, kh, kh)
+    return ((tap * (k // 16) + i // 16) * (16 * n) + (o // 8) * 128
+            + (i // 8) % 2 * 64 + (o % 8) * 8 + i % 8)
 
 
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """OIHW (..., c, c, 3, 3) -> the packed image of each conv, flat and
-    concatenated in the order of the leading dimensions (9 c^2 elements a
-    conv)."""
-    c = w.shape[-4]
-    v = w.reshape(-1, c // 8, 8, c // 16, 2, 8, 3, 3)
+def pack_weights(w: torch.Tensor, n: int | None = None,
+                 k: int | None = None) -> torch.Tensor:
+    """OIHW (..., co, ci, kh, kw) -> the packed image of each conv, its
+    output channels padded with zeros to n and its input channels to k
+    (`packed_index`), flat and concatenated in the order of the leading
+    dimensions (kh kw n k elements a conv)."""
+    co, ci, kh, kw = w.shape[-4:]
+    n = co if n is None else n
+    k = ci if k is None else k
+    v = w.reshape(-1, co, ci, kh, kw)
+    if (n, k) != (co, ci):
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, k - ci, 0, n - co))
+    v = v.reshape(-1, n // 8, 8, k // 16, 2, 8, kh, kw)
     # (conv, ng, nr, s, kh, kc, ky, kx) -> (conv, ky, kx, s, ng, kh, nr, kc)
     return v.permute(0, 6, 7, 3, 1, 4, 2, 5).reshape(-1).contiguous()
 
 
-def unpack_weights(packed: torch.Tensor, c: int) -> torch.Tensor:
-    """The packed image of k convs -> OIHW (k, c, c, 3, 3), read element by
-    element at `packed_index`, the kernels' arithmetic."""
-    per = 9 * c * c
+def unpack_weights(packed: torch.Tensor, co: int, ci: int | None = None,
+                   kh: int = 3, n: int | None = None,
+                   k: int | None = None) -> torch.Tensor:
+    """The packed image of several convs -> OIHW (convs, co, ci, kh, kh),
+    read element by element at `packed_index`, the kernels' arithmetic."""
+    ci = co if ci is None else ci
+    per = kh * kh * (co if n is None else n) * (ci if k is None else k)
     convs = packed.reshape(-1, per)
-    idx = packed_index(c, packed.device).reshape(-1)
-    return convs[:, idx].reshape(-1, c, c, 3, 3)
+    idx = packed_index(co, ci, kh, n, k, packed.device).reshape(-1)
+    return convs[:, idx].reshape(-1, co, ci, kh, kh)
