@@ -55,13 +55,17 @@ non-zero (no phase is caught):
 
 `bound_ms` in the kernels line is the least time the card could take for
 the work: the larger of the bytes each function must move (inputs read
-once, outputs written once) over 3.35 TB/s, and its operations over 989
-TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32, NMS), the H100 SXM data
-sheet's rates, computed from this run's inputs; `bound_fraction` is
-bound_ms / ms, and the stage1 kernels carry their numbers at each shape
-phase 3 ran under `shapes`. The last three lines are
-the card's nvidia-smi line, a JSON line with one entry per kernel, and
-{"ok": true, "device": {...}}.
+once, outputs written once) over 3.35 TB/s, and its operations at the rate
+of the arithmetic the kernel issues (`ops_rate`): 989 TFLOP/s (bf16 tensor
+cores), three TF32 products per operation at 495 TFLOP/s (3xTF32: the f32
+chain and the f32 stem weight gradient) or 67 TFLOP/s (the other f32
+kernels and NMS, on the CUDA cores), the H100 SXM data sheet's rates,
+computed from this run's inputs; `bound_fraction` is bound_ms / ms. Each
+kernel's entry holds its bf16 numbers and, under "f32", its f32 ones (NMS
+runs in f32 only: the same numbers); the stage1 kernels, the stem weight
+gradient and ADown carry their numbers at each shape phase 3 or 6 ran
+under `shapes`. The last three lines are the card's nvidia-smi line, a
+JSON line with one entry per kernel, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -118,10 +122,13 @@ EVAL_IMAGES = 64           # phase 9 (b): two batches of 32
 # weight gradients, kernel vs plain: relative L2 (both sum f32 products in
 # another order; bf16 inputs are exact in f32)
 WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-# H100 SXM data sheet: HBM3 bytes/s; dense bf16 tensor-core and f32
-# (CUDA-core) operations/s
+# H100 SXM data sheet: HBM3 bytes/s; dense bf16 tensor-core, f32 (CUDA-
+# core) operations/s, and f32 operations/s in 3xTF32 (three TF32 products
+# per operation at 495 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "3xtf32": 495e12 / 3}
+# the f32 kernels whose products run in 3xTF32 on the tensor cores
+F32_3XTF32 = ("csp_chain", "stem_wgrad")
 
 
 def nbytes(*tensors) -> int:
@@ -134,14 +141,20 @@ def bound(n_bytes: float, ops: float, peak: str = "bf16") -> dict:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[peak] * 1e3
     return ({"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops
-            else {"bound_ms": t_ops, "bound_by": "operations"})
+            else {"bound_ms": t_ops, "bound_by": "operations"}) | {
+                "ops_rate": peak}
+
+
+def rate(kernel: str, tag: str) -> str:
+    """The arithmetic a kernel issues in a dtype (a PEAK_OPS key)."""
+    return "3xtf32" if tag == "f32" and kernel in F32_3XTF32 else tag
 
 
 def add_bounds(parts: list[dict]) -> dict:
     """Several launches: the sum of their bounds, named by the largest."""
     top = max(parts, key=lambda b: b["bound_ms"])
     return {"bound_ms": sum(b["bound_ms"] for b in parts),
-            "bound_by": top["bound_by"]}
+            "bound_by": top["bound_by"], "ops_rate": top["ops_rate"]}
 
 
 def conv_flops(x: torch.Tensor, y: torch.Tensor, k: int) -> float:
@@ -307,7 +320,7 @@ def phase_kernels(dev) -> dict:
                 "err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms,
                 **bound(nbytes(m, *args, y), 2 * n * conv_flops(m, y, 3),
-                        tag)}
+                        rate("csp_chain", tag))}
             del m, y
 
         for hw in CONV3_HW:
@@ -418,7 +431,8 @@ def phase_train_kernels(dev) -> dict:
                 xb, w.shape, gy, stride=2, padding=1))
             r = {"err": err, "ms": ms, "plain_ms": plain_ms,
                  "library_ms": lib_ms, **bound(
-                     nbytes(xb, gy, dw), conv_flops(xb, gy, 3), tag)}
+                     nbytes(xb, gy, dw), conv_flops(xb, gy, 3),
+                     rate("stem_wgrad", tag))}
             print(f"  stem_wgrad {tag} {tuple(xb.shape)}: kernel {ms:.4f} "
                   f"ms, plain {plain_ms:.4f} ms, conv2d_weight "
                   f"{lib_ms:.4f} ms; bound {r['bound_ms']:.4f} ms "
@@ -749,6 +763,84 @@ def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict) -> dict:
     return counts
 
 
+def kernels_line(res: dict, tres: dict, counts: dict,
+                 tcounts: dict) -> list[dict]:
+    """The kernels JSON line's entries from phases 3 and 6's numbers and
+    the launch counts of phases 5 and 8; prints each dtype's fractions of
+    the bound."""
+    # (name, source, TPU kernel, launches, {dtype: numbers}); NMS runs in
+    # f32 only
+    rows = (
+        ("stem_conv", "stem.cu", "stem_kernel.py:265", counts["stem"],
+         res["stem"]),
+        ("adown", "adown.cu", "adown_kernel.py:233", counts["adown"],
+         res["adown"]),
+        ("nms_select", "nms.cu", "nms_kernel.py:98", counts["nms"],
+         {"bf16": res["nms"][512], "f32": res["nms"][512]}),
+        ("stem_conv_raw", "stem.cu", "stem_kernel.py:265",
+         tcounts["stem_raw"], tres["stem_raw"]),
+        ("stem_wgrad", "stem_wgrad.cu", "stem_kernel.py:331",
+         tcounts["stem_wgrad"], {t: tres["stem_wgrad"][(BATCH, t)]
+                                 for t in ("bf16", "f32")}),
+        ("adown_raw", "adown.cu", "adown_kernel.py:233",
+         tcounts["adown_raw"], tres["adown_raw"]),
+        ("adown_bwd", "adown_bwd.cu", "adown_train_kernel.py:366",
+         tcounts["adown_bwd"], tres["adown_bwd"]),
+        ("bottleneck_chain", "csp_chain.cu", "csp_chain_kernel.py:231",
+         counts["csp_chain"], {t: res["csp_chain"][(1, t)]
+                               for t in ("bf16", "f32")}),
+        ("conv3_silu", "conv3.cu", "conv3_kernel.py:170", counts["conv3"],
+         {t: res["conv3"][(STAGE1_HW, t)] for t in ("bf16", "f32")}),
+    )
+
+    def numbers(r: dict) -> dict:
+        return {"max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "ops_rate": r["ops_rate"],
+                "library_ms": r["library_ms"],
+                "bound_fraction": r["bound_ms"] / r["ms"]}
+
+    kernels = [{
+        "name": name, "route": "cuda",
+        "source": f"yolo_re_tpu_torch/csrc/{src}",
+        "replaces": f"yolo_re_tpu/ops/pallas/{tpu}", "launches": launches,
+        **numbers(r["bf16"]), "f32": numbers(r["f32"])}
+        for name, src, tpu, launches, r in rows]
+
+    # the stage1 kernels, the stem weight gradient and ADown at every shape
+    # phases 3 and 6 ran
+    def per_shape(tag: str) -> dict:
+        return {
+            "bottleneck_chain": {f"n={n} {STAGE1_HW[0]}x{STAGE1_HW[1]}":
+                                 res["csp_chain"][(n, tag)]
+                                 for n in CHAIN_DEPTHS},
+            "conv3_silu": {f"{hw[0]}x{hw[1]}": res["conv3"][(hw, tag)]
+                           for hw in CONV3_HW},
+            "stem_wgrad": {f"{b}x3x{SIZE}x{SIZE}":
+                           tres["stem_wgrad"][(b, tag)]
+                           for b in WGRAD_BATCHES
+                           if (b, tag) in tres["stem_wgrad"]},
+            "adown": res["adown"][tag]["sites"],
+            "adown_raw": tres["adown_raw"][tag]["sites"]}
+
+    for tag in ("bf16", "f32"):
+        shapes = per_shape(tag)
+        for k in kernels:
+            if k["name"] in shapes:
+                (k if tag == "bf16" else k["f32"])["shapes"] = {
+                    shape: {key: r[key] for key in (
+                        "ms", "library_ms", "bound_ms", "bound_by",
+                        "ops_rate", "composite_ms") if key in r}
+                    for shape, r in shapes[k["name"]].items()}
+        print(f"fraction of the bound (bound_ms / ms, {tag}): " + ", ".join(
+            f"{k['name']} "
+            f"{(k if tag == 'bf16' else k['f32'])['bound_fraction']:.3f}"
+            for k in kernels) + "; " + ", ".join(
+            f"{name} {shape} {r['bound_ms'] / r['ms']:.3f}"
+            for name, sh in shapes.items() for shape, r in sh.items()))
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -795,79 +887,26 @@ def main() -> int:
         print("phase 9: eval")
         ecounts = phase_eval(dev, Path(td), gelan_c, sites)
 
-    # (name, source, TPU kernel, launches, bf16 numbers)
-    rows = (
-        ("stem_conv", "stem.cu", "stem_kernel.py:265", counts["stem"],
-         res["stem"]["bf16"]),
-        ("adown", "adown.cu", "adown_kernel.py:233", counts["adown"],
-         res["adown"]["bf16"]),
-        ("nms_select", "nms.cu", "nms_kernel.py:98", counts["nms"],
-         res["nms"][512]),
-        ("stem_conv_raw", "stem.cu", "stem_kernel.py:265",
-         tcounts["stem_raw"], tres["stem_raw"]["bf16"]),
-        ("stem_wgrad", "stem_wgrad.cu", "stem_kernel.py:331",
-         tcounts["stem_wgrad"], tres["stem_wgrad"][(BATCH, "bf16")]),
-        ("adown_raw", "adown.cu", "adown_kernel.py:233",
-         tcounts["adown_raw"], tres["adown_raw"]["bf16"]),
-        ("adown_bwd", "adown_bwd.cu", "adown_train_kernel.py:366",
-         tcounts["adown_bwd"], tres["adown_bwd"]["bf16"]),
-        ("bottleneck_chain", "csp_chain.cu", "csp_chain_kernel.py:231",
-         counts["csp_chain"], res["csp_chain"][(1, "bf16")]),
-        ("conv3_silu", "conv3.cu", "conv3_kernel.py:170", counts["conv3"],
-         res["conv3"][(STAGE1_HW, "bf16")]),
-    )
-    kernels = [{
-        "name": name, "route": "cuda",
-        "source": f"yolo_re_tpu_torch/csrc/{src}",
-        "replaces": f"yolo_re_tpu/ops/pallas/{tpu}", "launches": launches,
-        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"],
-        "bound_fraction": r["bound_ms"] / r["ms"]}
-        for name, src, tpu, launches, r in rows]
-    # the stage1 kernels at every shape phase 3 ran, bf16
-    per_shape = {
-        "bottleneck_chain": {f"n={n} {STAGE1_HW[0]}x{STAGE1_HW[1]}":
-                             res["csp_chain"][(n, "bf16")]
-                             for n in CHAIN_DEPTHS},
-        "conv3_silu": {f"{hw[0]}x{hw[1]}": res["conv3"][(hw, "bf16")]
-                       for hw in CONV3_HW},
-        "stem_wgrad": {f"{b}x3x{SIZE}x{SIZE}":
-                       tres["stem_wgrad"][(b, "bf16")]
-                       for b in WGRAD_BATCHES},
-        "adown": res["adown"]["bf16"]["sites"],
-        "adown_raw": tres["adown_raw"]["bf16"]["sites"]}
-    for k in kernels:
-        if k["name"] in per_shape:
-            k["shapes"] = {
-                shape: {key: r[key] for key in (
-                    "ms", "library_ms", "bound_ms", "bound_by",
-                    "composite_ms") if key in r}
-                for shape, r in per_shape[k["name"]].items()}
-    print("fraction of the bound (bound_ms / ms, bf16): " + ", ".join(
-        f"{k['name']} {k['bound_fraction']:.3f}" for k in kernels) + "; " +
-        ", ".join(f"{name} {shape} {r['bound_ms'] / r['ms']:.3f}"
-                  for name, shapes in per_shape.items()
-                  for shape, r in shapes.items()))
-    print(f"(kernel ms/plain_ms/library_ms: bf16 at the serving, eval and "
-          f"train shapes; adown kernels are the sum of gelan-c's five ADown "
-          f"shapes (adown: the packed call of a fused ADown; adown_raw: its "
-          f"pack launch and the kernel, as the train forward calls it), each "
-          f"also under 'shapes' with composite_ms, the time of its cuDNN "
-          f"composite (a composite of library calls, not one call), nms is "
-          f"K=512, bottleneck_chain n=1 with library_ms two "
-          f"F.conv2d calls (one per conv; no SiLU, no residual), conv3_silu "
-          f"at 160x160 with library_ms one F.conv2d with bias (no SiLU), "
-          f"both also under 'shapes' at each shape phase 3 ran (chain n=2: "
-          f"four F.conv2d calls; conv3 80x80), stem_wgrad at x "
-          f"({BATCH}, 3, {SIZE}, {SIZE}) and under 'shapes' also at "
-          f"{WGRAD_BATCHES[1]} images, "
-          f"stem_conv's "
-          f"likewise, stem_wgrad's torch.nn.grad.conv2d_weight; no PyTorch "
-          f"call computes ADown, its backward or greedy NMS: null; "
-          f"adown_bwd's max_abs_err is dx's, stem_wgrad's dW's; serving "
-          f"launches from phase 5's {REQUESTS} requests, train launches "
-          f"from phase 8's counted steps; phase 9 eval launches {ecounts})")
+    kernels = kernels_line(res, tres, counts, tcounts)
+    print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "
+          f"the serving, eval and train shapes, library calls with TF32 "
+          f"off; adown kernels are the sum of gelan-c's five ADown shapes "
+          f"(adown: the packed call of a fused ADown; adown_raw: its pack "
+          f"launch and the kernel, as the train forward calls it), each also "
+          f"under 'shapes' (bf16 with composite_ms, the time of its cuDNN "
+          f"composite: a composite of library calls, not one call), nms is "
+          f"K=512, bottleneck_chain n=1 with library_ms two F.conv2d calls "
+          f"(one per conv; no SiLU, no residual), conv3_silu at 160x160 with "
+          f"library_ms one F.conv2d with bias (no SiLU), both also under "
+          f"'shapes' at each shape phase 3 ran (chain n=2: four F.conv2d "
+          f"calls; conv3 80x80), stem_wgrad at x ({BATCH}, 3, {SIZE}, "
+          f"{SIZE}) (bf16 also at {WGRAD_BATCHES[1]} images under 'shapes'), "
+          f"stem_conv's likewise, stem_wgrad's torch.nn.grad.conv2d_weight; "
+          f"no PyTorch call computes ADown, its backward or greedy NMS: "
+          f"null; adown_bwd's max_abs_err is dx's, stem_wgrad's dW's; "
+          f"serving launches from phase 5's {REQUESTS} requests, train "
+          f"launches from phase 8's counted steps; phase 9 eval launches "
+          f"{ecounts})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

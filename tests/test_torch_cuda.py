@@ -315,6 +315,30 @@ def test_chain_kernel_persistent_walk(cuda, dtype, n, shape):
     torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(1, 37, 53), (2, 61, 45)],
+                         ids=["one_image", "two_images"])
+def test_chain_f32_kernel_matches_plain(cuda, n, shape):
+    """The f32 chain (3xTF32 products, tiles of 20 - 4n pixels a side):
+    H and W that no tile side divides, one image and two, one launch per
+    call, within the f32 tolerance."""
+    g = torch.Generator().manual_seed(20 + n)
+    m = _rand(g, shape[0], 32, *shape[1:], cl=True).to(cuda)
+    args = [_rand(g, n, 32, 32, 3, 3, scale=0.06),
+            _rand(g, n, 32) * 0.5 + 0.5,
+            _rand(g, n, 32, 32, 3, 3, scale=0.06),
+            _rand(g, n, 32) * 0.5 + 0.5]
+    args = [a.to(cuda) for a in args]
+    wp, bias = csp_chain.pack_weights(*args)
+    before = csp_chain.launches
+    y = csp_chain.bottleneck_chain_packed(m, wp, bias)
+    torch.cuda.synchronize()
+    assert csp_chain.launches == before + 1
+    torch.testing.assert_close(
+        y, csp_chain.bottleneck_chain_plain(m, *args),
+        atol=ATOL[torch.float32], rtol=0)
+
+
 def test_stage1_wrappers_refuse_on_cuda(cuda):
     cl = torch.channels_last
     x = torch.zeros(1, 64, 8, 8, device=cuda).contiguous(memory_format=cl)
@@ -400,6 +424,26 @@ def test_stem_train_kernels_match_plain(cuda, dtype, shape, c):
     assert dw.dtype == torch.float32 and dw.shape == (c, 3, 3, 3)
     assert _rel_l2(dw, stem.stem_wgrad_plain(x, g)) <= WGRAD_REL[dtype]
     assert torch.equal(dw, stem.stem_wgrad(x, g))      # fixed-order sums
+
+
+@pytest.mark.parametrize("c", [64, 80])
+@pytest.mark.parametrize("bsz", [1, 32])
+def test_stem_wgrad_f32_kernel_matches_plain(cuda, c, bsz):
+    """The f32 stem weight gradient (3xTF32 products, the persistent
+    grid): odd H and W, one image and a full batch, gelan-c's and
+    gelan-e's stem widths; one launch per call, equal across two calls."""
+    g0 = torch.Generator().manual_seed(c + bsz)
+    x = torch.rand(bsz, 3, 161, 97, generator=g0).contiguous(
+        memory_format=torch.channels_last).to(cuda)
+    g = _rand(g0, bsz, c, 81, 49, scale=1e-3, cl=True).to(cuda)
+    before = stem.wgrad_launches
+    dw = stem.stem_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert stem.wgrad_launches == before + 1
+    assert dw.dtype == torch.float32 and dw.shape == (c, 3, 3, 3)
+    assert _rel_l2(dw, stem.stem_wgrad_plain(x, g)) <= \
+        WGRAD_REL[torch.float32]
+    assert torch.equal(dw, stem.stem_wgrad(x, g))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

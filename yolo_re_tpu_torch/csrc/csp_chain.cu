@@ -52,10 +52,25 @@
 //   registers into Tb; conv 2 adds the residual from R in place; the last
 //   conv adds it and stores the tile straight to device memory, 16 bytes a
 //   lane.
-// - f32: CUDA cores; one block per tile (T = 16; 8 at n >= 3, where the
-//   buffers would not fit); each thread a 4-pixel x 4-channel register tile
-//   of the conv's square, the buffers padded to 33 floats per pixel against
-//   bank conflicts. It reads the same packed weights.
+// - f32: the same 30.2 GFLOP per bottleneck and 210 MB of m and out
+//   (0.063 ms of bytes) at n = 1; on the CUDA cores (67 TFLOP/s) the
+//   products alone take 0.451 ms, so they go to the tensor cores in
+//   3xTF32 (hopper.cuh: three TF32 products per f32 product, 3 x 30.2
+//   GFLOP at 495 TFLOP/s, 0.183 ms), by mma.sync m16n8k8 (which does not
+//   reach the TF32 peak that wgmma does). The skeleton is the bf16 one: a
+//   persistent grid of one CTA (12 warps) per SM walking the tiles in
+//   (image, row, column) order, the last conv storing from registers. A
+//   pixel is 128 bytes, its 16-byte chunks XOR-swizzled by pixel
+//   (pix_off). At n = 1 the frame is 20 x 20 (T = 16): three frames, the
+//   next tile's prefetched by cp.async with zero fill, and both convs'
+//   weights resident, 227,328 B. Beyond, the frame is 24 x 24 (T = 24 -
+//   4n), two frames, the next one loaded at the tile's start, and the
+//   weights stream conv by conv through two slots. The weights are staged
+//   from the packed image into [tap][16 channels][co][16 channels] slots
+//   and every operand is split into hi and lo in registers as its
+//   fragment is loaded, so the packed image stays the one layout. A warp
+//   takes 32 pixels of the square for all 32 channels; each tap's
+//   products are summed apart and then added by FADD.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -65,7 +80,6 @@ namespace {
 constexpr int kC = 32;                 // channels of the chain
 constexpr int kMaxN = 4;
 constexpr int kMaxSmem = 232448;       // an H100 block's shared memory
-constexpr int kThreads = 256;
 constexpr int kConvElems = 9 * kC * kC;   // one conv's packed weights
 
 // ---------------------------------------------------------------------------
@@ -325,140 +339,287 @@ cudaError_t launch(const void* m, const void* wt, const void* bias,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// f32 CUDA-core variant
+// f32 tensor-core variant (3xTF32, mma.sync)
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int kCS = kC + 1;            // buffer floats per pixel (banks)
+using namespace sm90;
+using tc::Tile;
+using tc::tile_of;
 
-inline size_t smem_bytes(int Wb) {
-  return (size_t)2 * Wb * Wb * kCS * sizeof(float) +
-         (size_t)9 * kC * kC * sizeof(float);
+constexpr int kPixBytes = kC * 4;                     // 128
+constexpr int kConvBytes = kConvElems * 4;            // 36,864
+// 12 warps: conv 1's 11 chunks at n = 1 in one round, three warps to hide
+// each sub-partition's waits
+constexpr int kThreads = 384;
+constexpr int kWarps = kThreads / 32;
+
+// The frame side: 20 at n = 1 (T = 16), where three frames (the next
+// tile's prefetched) fit beside two weight slots, 153,600 + 73,728 B; 24
+// beyond (T = 24 - 4n), two frames and the next one loaded at the tile's
+// start, 147,456 + 73,728 B: at n = 2 a 16-pixel tile takes a fifth less
+// work per output pixel than the 12 that three frames would leave.
+__host__ __device__ constexpr int wb_for(int n) { return n == 1 ? 20 : 24; }
+
+__host__ __device__ constexpr int frame_bytes(int n) {
+  return wb_for(n) * wb_for(n) * kPixBytes;
 }
 
-__global__ void __launch_bounds__(kThreads)
-chain_f32_kernel(const float* __restrict__ m, const float* __restrict__ wt,
-                 const float* __restrict__ bias, float* __restrict__ out,
-                 int H, int W, int n, int T, int tiles_w) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Wb = T + 4 * n;
-  float* R = reinterpret_cast<float*>(smem);          // [Wb*Wb][kCS]
-  float* Tb = R + Wb * Wb * kCS;                       // [Wb*Wb][kCS]
-  float* w_s = Tb + Wb * Wb * kCS;                     // [tap][ci][co]
+__host__ __device__ constexpr bool prefetched(int n) {
+  return 3 * frame_bytes(n) + 2 * kConvBytes <= kMaxSmem;
+}
 
-  const int tid = threadIdx.x;
-  const int cg = tid % 8, q = tid / 8;                 // 4 channels, group
-  const int halo = 2 * n;
-  const int fy0 = (blockIdx.x / tiles_w) * T - halo;
-  const int fx0 = (blockIdx.x % tiles_w) * T - halo;
-  const int b = blockIdx.y;
-  const float* mb = m + (size_t)b * H * W * kC;
+__host__ __device__ constexpr int frames_for(int n) {
+  return prefetched(n) ? 3 : 2;
+}
 
-  for (int e = tid; e < Wb * Wb * (kC / 4); e += kThreads) {
-    const int c4 = e % (kC / 4), g = e / (kC / 4);
-    const int iy = fy0 + g / Wb, ix = fx0 + g % Wb;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      v = *reinterpret_cast<const float4*>(mb + ((size_t)iy * W + ix) * kC +
-                                           4 * c4);
-    float* d = R + g * kCS + 4 * c4;
-    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+__host__ __device__ constexpr int smem_for(int n) {
+  return frames_for(n) * frame_bytes(n) + 2 * kConvBytes;
+}
+
+// SiLU by the fast exponential and division (two MUFU operations), within
+// ~1e-6 relative of common.cuh's silu, whose IEEE division made the
+// epilogue a visible share of the kernel's time
+__device__ __forceinline__ float silu_mufu(float y) {
+  return __fdividef(y, 1.0f + __expf(-y));
+}
+
+// byte offset of chunk c (4 channels) of frame pixel q: the chunks XOR-
+// swizzled by q % 4 (0, 4, 2, 6), so that the two pixels of an A load's
+// 8-lane phase, and the four of an epilogue store's 16, meet 8 bank groups
+__device__ __forceinline__ uint32_t pix_off(int q, int c) {
+  return q * kPixBytes + ((c ^ (((q & 1) << 2) | (q & 2))) << 4);
+}
+
+template <int Wb>
+__device__ __forceinline__ void load_frame(uint32_t buf, const float* m,
+                                           Tile t, int H, int W) {
+  for (int e = threadIdx.x; e < Wb * Wb * 8; e += kThreads) {
+    const int q = e / 8, c = e % 8;
+    const int iy = t.y0 + q / Wb, ix = t.x0 + q % Wb;
+    const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    const float* src =
+        ok ? m + (((size_t)t.b * H + iy) * W + ix) * kC + 4 * c : m;
+    cp_async16(buf + pix_off(q, c), src, ok);
   }
+}
 
-  for (int i = 0; i < n; ++i) {
-    for (int conv = 0; conv < 2; ++conv) {
-      const float* src = conv == 0 ? R : Tb;
-      float* dst = conv == 0 ? Tb : R;
-      const int lo = 2 * i + conv + 1, S = Wb - 2 * lo;   // square [lo, lo+S)
-      __syncthreads();
-      // the conv's weights, [tap][ci][co], from the packed image, where
-      // one output channel's 8 input channels of a group are contiguous
-      const float* wg = wt + (size_t)(2 * i + conv) * kConvElems;
-      for (int e = tid; e < kConvElems / 4; e += kThreads) {
-        const int co = e % kC, quad = (e / kC) % 8, tap = e / (8 * kC);
-        const float4 v = *reinterpret_cast<const float4*>(
-            wg + sm90::packed_index<kC>(co, 8 * (quad / 2), tap) +
-            4 * (quad % 2));
-        float* d = w_s + (tap * kC + 4 * quad) * kC + co;
-        d[0] = v.x; d[kC] = v.y; d[2 * kC] = v.z; d[3 * kC] = v.w;
+// one conv's weights from the packed image into the slot as
+// [tap][16-channel half h][co][16 input channels]: 16-byte chunk e =
+// ((2 tap + h) * 32 + co) * 4 + cq holds input channels 16 h + 4 cq ..
+// + 3 of output channel co, which the packed image keeps contiguous
+__device__ __forceinline__ void load_weights(uint32_t slot, const float* w) {
+  for (int e = threadIdx.x; e < kConvBytes / 16; e += kThreads) {
+    const int cq = e & 3, co = (e >> 2) & 31, th = e >> 7;
+    cp_async16(slot + 16 * e,
+               w + th * 16 * kC + (co / 8) * 128 + (cq / 2) * 64 +
+                   (co % 8) * 8 + (cq % 2) * 4,
+               true);
+  }
+}
+
+// One instance per n. Each warp takes 32 pixels of the conv's square at a
+// time (two m16 tiles) for all 32 output channels (four n8 tiles). In a
+// k8 step (tap, half h, s) the column t of A and B stands for input
+// channel 16 h + 4 t + 2 s and column t + 4 for the next one, so a lane
+// reads 4 contiguous channels (one 16-byte load) of its pixel for A and of
+// its output channel for B, for both steps s.
+template <int n>
+__global__ void __launch_bounds__(kThreads, 1)
+chain_tf32_kernel(const float* __restrict__ m, const float* __restrict__ wt,
+                  const float* __restrict__ bias, float* __restrict__ out,
+                  int H, int W, int tiles_h, int tiles_w, int n_tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int Wb = wb_for(n), T = Wb - 4 * n, halo = 2 * n, convs = 2 * n;
+  constexpr int FB = frame_bytes(n), WO = frames_for(n) * FB;
+  // n = 1: both convs' weights resident, the next tile's frame loaded
+  // while this one computes; beyond, the weights streamed conv by conv
+  constexpr bool streamed = n > 1, prefetch = prefetched(n);
+  static_assert(prefetch != streamed, "one schedule per n");
+  const uint32_t base = smem_u32(smem), w_s = base + WO;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+
+  int t = blockIdx.x;
+  for (int c = 0; c < (streamed ? 1 : convs); ++c)
+    load_weights(w_s + c * kConvBytes, wt + (size_t)c * kConvElems);
+  if (prefetch)
+    load_frame<Wb>(base, m, tile_of(t, T, halo, tiles_h, tiles_w), H, W);
+  cp_async_commit();
+
+  for (int it = 0; t < n_tiles; ++it, t += gridDim.x) {
+    const Tile tl = tile_of(t, T, halo, tiles_h, tiles_w);
+    unsigned char* const R = smem + (prefetch ? (it & 1) * FB : 0);
+    unsigned char* const Tb = smem + (prefetch ? 2 : 1) * FB;
+    const int tn = t + gridDim.x;
+#pragma unroll
+    for (int c = 0; c < convs; ++c) {
+      if (!prefetch && c == 0) {
+        __syncthreads();   // the last tile is done with R
+        load_frame<Wb>(base, m, tl, H, W);
+        cp_async_commit();
       }
-      __syncthreads();
-      const float4 bv = *reinterpret_cast<const float4*>(
-          bias + (2 * i + conv) * kC + 4 * cg);
-      const int npos = S * S;
-      for (int g4 = q; 4 * g4 < npos; g4 += kThreads / 8) {
-        int base[4];                       // input pixel of tap (0, 0)
+      if (c == 0 || streamed) cp_async_wait_all();
+      __syncthreads();   // the last conv's writes, this conv's weights
+      if (streamed && (c + 1 < convs || tn < n_tiles))
+        load_weights(w_s + ((c + 1) & 1) * kConvBytes,
+                     wt + (size_t)((c + 1) % convs) * kConvElems);
+      if (prefetch && c == 0 && tn < n_tiles)
+        load_frame<Wb>(base + ((it + 1) & 1) * FB, m,
+                       tile_of(tn, T, halo, tiles_h, tiles_w), H, W);
+      cp_async_commit();
+
+      const unsigned char* wc = smem + WO + (c & 1) * kConvBytes;
+      const unsigned char* src = (c & 1) ? Tb : R;
+      const bool last = c == convs - 1;
+      const int lo = c + 1, S = Wb - 2 * lo, npix = S * S;
+      float bc[4][2];   // biases of this lane's channels
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int idx = min(4 * g4 + s, npos - 1);
-          base[s] = (lo + idx / S - 1) * Wb + lo + idx % S - 1;
-        }
-        float acc[4][4];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int s = 0; s < 4; ++s)
+        for (int e = 0; e < 2; ++e)
+          bc[j][e] = __ldg(bias + c * kC + 8 * j + 2 * tq + e);
+
+      for (int ch = warp; 32 * ch < npix; ch += kWarps) {
+        // frame pixels of this lane's A rows gq and gq + 8 of each m16
+        // tile, clamped into the square
+        int qa[2][2];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[s][j] = 0.0f;
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const int off = (tap / 3) * Wb + tap % 3;
-          const float* wtap = w_s + tap * kC * kC + 4 * cg;
-#pragma unroll 4
-          for (int ci = 0; ci < kC; ++ci) {
-            const float4 wv = *reinterpret_cast<const float4*>(wtap + ci * kC);
-#pragma unroll
-            for (int s = 0; s < 4; ++s) {
-              const float a = src[(base[s] + off) * kCS + ci];
-              acc[s][0] += a * wv.x; acc[s][1] += a * wv.y;
-              acc[s][2] += a * wv.z; acc[s][3] += a * wv.w;
-            }
+          for (int r = 0; r < 2; ++r) {
+            const int i = min(32 * ch + 16 * mt + 8 * r + gq, npix - 1);
+            qa[mt][r] = (lo + i / S) * Wb + lo + i % S;
           }
-        }
+        float acc[2][4][4];
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int idx = 4 * g4 + s;
-          if (idx >= npos) break;
-          const int Y = lo + idx / S, X = lo + idx % S;
-          const bool in_image = fy0 + Y >= 0 && fy0 + Y < H &&
-                                fx0 + X >= 0 && fx0 + X < W;
-          float* d = dst + (Y * Wb + X) * kCS + 4 * cg;
-          const float t[4] = {silu(acc[s][0] + bv.x), silu(acc[s][1] + bv.y),
-                              silu(acc[s][2] + bv.z), silu(acc[s][3] + bv.w)};
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            d[j] = in_image ? (conv == 0 ? t[j] : d[j] + t[j]) : 0.0f;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) acc[mt][j][k] = 0.0f;
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dq = (tap / 3 - 1) * Wb + tap % 3 - 1;
+          float part[2][4][4];   // this tap's products, added by FADD
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) part[mt][j][k] = 0.0f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float4 av[2][2], bv[4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                av[mt][r] = *reinterpret_cast<const float4*>(
+                    src + pix_off(qa[mt][r] + dq, 4 * h + tq));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              bv[j] = *reinterpret_cast<const float4*>(
+                  wc + (((2 * tap + h) * kC + 8 * j + gq) << 6) + (tq << 4));
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              uint32_t ah[2][4], al[2][4];
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                const float4 &r0 = av[mt][0], &r1 = av[mt][1];
+                const float v[4] = {s ? r0.z : r0.x, s ? r1.z : r1.x,
+                                    s ? r0.w : r0.y, s ? r1.w : r1.y};
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                  split_tf32(v[k], ah[mt][k], al[mt][k]);
+              }
+              uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                split_tf32(s ? bv[j].z : bv[j].x, bh[j][0], bl[j][0]);
+                split_tf32(s ? bv[j].w : bv[j].y, bh[j][1], bl[j][1]);
+              }
+              mma_3xtf32(part, ah, al, bh, bl);
+            }
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[mt][j][k] += part[mt][j][k];
         }
+
+        // epilogue: rows gq and gq + 8 of each m16 tile, channels
+        // 8 j + 2 tq, + 1
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int idx = 32 * ch + 16 * mt + 8 * r + gq;
+            if (idx >= npix) continue;
+            const int Y = lo + idx / S, X = lo + idx % S, q = Y * Wb + X;
+            const bool in_image = tl.y0 + Y >= 0 && tl.y0 + Y < H &&
+                                  tl.x0 + X >= 0 && tl.x0 + X < W;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const uint32_t at = pix_off(q, 2 * j + tq / 2) + 8 * (tq % 2);
+              float2 v =
+                  make_float2(silu_mufu(acc[mt][j][2 * r] + bc[j][0]),
+                              silu_mufu(acc[mt][j][2 * r + 1] + bc[j][1]));
+              if (c & 1) {   // the residual, from R
+                const float2 rv = *reinterpret_cast<const float2*>(R + at);
+                v.x += rv.x;
+                v.y += rv.y;
+              }
+              if (!in_image) v = make_float2(0.0f, 0.0f);
+              if (last) {
+                if (in_image)
+                  *reinterpret_cast<float2*>(
+                      out + (((size_t)tl.b * H + tl.y0 + Y) * W + tl.x0 + X) *
+                                kC + 8 * j + 2 * tq) = v;
+              } else {
+                // conv 1 into Tb; conv 2 into R, in place
+                *reinterpret_cast<float2*>(((c & 1) ? R : Tb) + at) = v;
+              }
+            }
+          }
       }
     }
   }
-  __syncthreads();
+  cp_async_wait_all();
+}
 
-  for (int e = tid; e < T * T * (kC / 4); e += kThreads) {
-    const int c4 = e % (kC / 4), p = e / (kC / 4);
-    const int y = p / T, x = p % T;
-    const int iy = fy0 + halo + y, ix = fx0 + halo + x;
-    if (iy < H && ix < W) {
-      const float* s = R + ((halo + y) * Wb + halo + x) * kCS + 4 * c4;
-      *reinterpret_cast<float4*>(out + (((size_t)b * H + iy) * W + ix) * kC +
-                                 4 * c4) = make_float4(s[0], s[1], s[2], s[3]);
-    }
-  }
+template <int n>
+cudaError_t launch_n(const float* m, const float* wt, const float* bias,
+                     float* out, int B, int H, int W, cudaStream_t stream) {
+  constexpr int T = wb_for(n) - 4 * n;
+  static PerDeviceSmem smem;
+  cudaError_t e = smem.opt_in((const void*)chain_tf32_kernel<n>, smem_for(n));
+  if (e != cudaSuccess) return e;
+  const int tiles_h = ceil_div(H, T), tiles_w = ceil_div(W, T);
+  const int n_tiles = B * tiles_h * tiles_w;
+  const int slots = sm_count();
+  const int grid = n_tiles < slots ? n_tiles : slots;
+  chain_tf32_kernel<n><<<grid, kThreads, smem_for(n), stream>>>(
+      m, wt, bias, out, H, W, tiles_h, tiles_w, n_tiles);
+  return cudaGetLastError();
 }
 
 cudaError_t launch(const void* m, const void* wt, const void* bias,
                    void* out, int B, int H, int W, int n,
                    cudaStream_t stream) {
-  static PerDeviceSmem smem;
-  cudaError_t e = smem.opt_in((const void*)chain_f32_kernel, kMaxSmem);
-  if (e != cudaSuccess) return e;
-  const int T = smem_bytes(16 + 4 * n) <= (size_t)kMaxSmem ? 16 : 8;
-  const int tiles_w = ceil_div(W, T);
-  dim3 grid(tiles_w * ceil_div(H, T), B);
-  chain_f32_kernel<<<grid, kThreads, smem_bytes(T + 4 * n), stream>>>(
-      static_cast<const float*>(m), static_cast<const float*>(wt),
-      static_cast<const float*>(bias), static_cast<float*>(out), H, W, n, T,
-      tiles_w);
-  return cudaGetLastError();
+  const float *mp = static_cast<const float*>(m),
+              *wp = static_cast<const float*>(wt),
+              *bp = static_cast<const float*>(bias);
+  float* op = static_cast<float*>(out);
+  switch (n) {
+    case 1: return launch_n<1>(mp, wp, bp, op, B, H, W, stream);
+    case 2: return launch_n<2>(mp, wp, bp, op, B, H, W, stream);
+    case 3: return launch_n<3>(mp, wp, bp, op, B, H, W, stream);
+    default: return launch_n<4>(mp, wp, bp, op, B, H, W, stream);
+  }
 }
 
 }  // namespace f32

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels conv3.cu,
 // csp_chain.cu, stem_wgrad.cu and adown.cu: cp.async with zero fill,
-// ldmatrix, warp matrix multiply (mma.sync), and warpgroup matrix multiply
-// (wgmma, N = 32 to 256) with A in registers and B in shared memory.
+// ldmatrix, warp matrix multiply (mma.sync: bf16, and TF32 with the
+// 3xTF32 split that gives the f32 kernels f32 accuracy), and warpgroup
+// matrix multiply (wgmma, N = 32 to 256) with A in registers and B in
+// shared memory.
 //
 // B operand layout ("core matrices", no swizzle): the weights of one
 // k-step (16 input channels) for N output channels are N/8 groups of 8
@@ -109,6 +111,68 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f32-accurate products on the tensor cores (3xTF32), used by the f32
+// kernels of csp_chain.cu and stem_wgrad.cu. TF32 keeps 10 mantissa bits,
+// too few for the f32 tolerances, so each f32 operand is split into
+// hi = a rounded to TF32 (to nearest, ties away from zero: the value of
+// cvt.rna.tf32.f32) and lo = a - hi (exact in f32) cut to TF32, and a * b
+// is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b, the small terms first.
+// The dropped lo_a lo_b and the cut of lo are below 2^-21 of |a b|. The
+// split is integer arithmetic (4 instructions a value): cvt.rna.tf32.f32
+// gives the same hi but compiles to more instructions, and the chain ran
+// slower with it. The tensor cores' f32 sums are not rounded to nearest,
+// so the kernels add each short run of products (one tap, one segment)
+// into their own f32 registers with plain FADDs.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// d (16 x 8, f32) += a (16 x 8, tf32, row-major) * b (8 x 8, tf32,
+// column-major): one warp, mma.sync m16n8k8. With g = lane / 4 and
+// t = lane % 4, lane holds a[0] = A[g][t], a[1] = A[g + 8][t],
+// a[2] = A[g][t + 4], a[3] = A[g + 8][t + 4]; b0 = B[t][g], b1 =
+// B[t + 4][g]; d[0], d[1] = D[g][2t], D[g][2t + 1], d[2], d[3] the same
+// in row g + 8. Which input channel or pixel a column k stands for is the
+// caller's choice, as long as A and B agree.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[i][j] += a[i] * b[j] in 3xTF32 for M m16 tiles of A and N n8 tiles
+// of B (b[j] = {b0, b1}), from the split operands. The three passes go in
+// turn over all M x N tiles, so that consecutive mma.sync are independent:
+// a warp issues in order, and a product waits for the one before it on
+// the same accumulator.
+template <int M, int N>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[M][N][4],
+                                           const uint32_t (&a_hi)[M][4],
+                                           const uint32_t (&a_lo)[M][4],
+                                           const uint32_t (&b_hi)[N][2],
+                                           const uint32_t (&b_lo)[N][2]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      mma_m16n8k8_tf32(d[i][j], a_lo[i], b_hi[j][0], b_hi[j][1]);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      mma_m16n8k8_tf32(d[i][j], a_hi[i], b_lo[j][0], b_lo[j][1]);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      mma_m16n8k8_tf32(d[i][j], a_hi[i], b_hi[j][0], b_hi[j][1]);
 }
 
 // shared-memory matrix descriptor, no swizzle

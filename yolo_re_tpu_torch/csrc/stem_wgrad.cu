@@ -55,10 +55,20 @@
 // - at the end the warps that share channels are summed in warp order in
 //   shared memory, and the CTA writes its partial.
 //
-// f32 keeps the CUDA-core kernel (wgrad_partial): each block walks its
-// share of 32-pixel tiles (tile t to block t % blocks), stages the tile's
-// im2col rows and g rows in shared memory as f32, and a thread owns a
-// register tile of 4 channels x 7 taps for one of 256 / C pixel groups.
+// f32: the same shape reads 157.3 MB of x and 838.9 MB of g (0.2974 ms at
+// 3.35 TB/s); its 11.3 GFLOP would take 0.169 ms on the CUDA cores (67
+// TFLOP/s), more than half of that, and 0.069 ms in 3xTF32 on the tensor
+// cores (hopper.cuh: 3 x 11.3 GFLOP at 495 TFLOP/s). So the f32 kernel
+// (wgrad_tf32_kernel) is the bf16 one's walk with 3xTF32 products: the
+// same persistent grid of 2 CTAs per SM over row ranges, segments of at
+// most 16 KB of g (64 pixels at C = 64) through the 4-stage cp.async ring,
+// each staged pixel padded to C + 4 floats (an odd number of 16-byte
+// chunks, against bank conflicts), the input window of 12-byte pixels,
+// im2col in shared memory in f32, and mma.sync m16n8k8 on operands split
+// into hi and lo as they are loaded (M = 32 taps, N = 32 channels a warp,
+// K = 8 pixels a step). The tensor cores' f32 sums are not rounded to
+// nearest, so each warp adds a segment's products into its accumulators
+// by FADD. The partials and wgrad_sum are the bf16 ones: no atomics.
 #include <algorithm>
 
 #include "common.cuh"
@@ -378,100 +388,293 @@ cudaError_t launch(const void* x, const void* g, float* part, int B, int H,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// f32 CUDA-core variant
+// f32 tensor-core variant (3xTF32, mma.sync)
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int kP = 32;        // output pixels per staged tile
-constexpr int kMaxC = 256;
-constexpr int kTaps = 7;      // taps per thread: 27 = 7 + 7 + 7 + 6
+using namespace sm90;
+using tc::Seg;
+using tc::x_row_ok;
 
-__global__ void __launch_bounds__(kThreads)
-wgrad_partial(const float* __restrict__ x, const float* __restrict__ g,
-              float* __restrict__ part, int H, int W, int C, int Ho, int Wo,
-              int N, int ntiles) {
-  // g rows of the tile; after the tile loop, the pixel groups' sums
-  __shared__ __align__(16) float g_s[kP * kMaxC];
-  __shared__ float a_s[kP][28];          // [pixel][9*ci + 3*ky + kx]
-  __shared__ int pix_s[kP][3];           // image, first input row, column
+constexpr int kStages = 4;          // cp.async ring depth
+constexpr int kTapRows = 32;        // 27 taps, padded to two m16 tiles
+constexpr int kMaxSp = 256;         // pixels of a segment, at most
+constexpr int kSegElems = 4096;     // g elements of a segment, at most
+constexpr int kPixX = 12;           // bytes of an input pixel
 
+// 16-byte chunks of one input row's window for sp output pixels
+__host__ __device__ constexpr int x_chunks(int sp) {
+  return ((2 * sp + 1) * kPixX + 30) / 16;
+}
+
+constexpr int kMaxSmem =
+    kStages * (4 * (kSegElems + 4 * kMaxSp) + 3 * x_chunks(kMaxSp) * 16) +
+    2 * kTapRows * (kMaxSp + 8) * 4;
+
+// byte offsets in dynamic shared memory: kStages slots of (g, x window),
+// then two im2col tiles. A staged pixel of g takes C + 4 floats, an odd
+// number of 16-byte chunks, so that the 4 pixels of a B load's 8-lane
+// phase meet 8 bank groups; an im2col row takes sp + 8 floats (sp a
+// multiple of 16), so that the 8 taps of an A load do.
+struct Layout {
+  int g_bytes, slot_bytes, a_stride, a_bytes, a_off, total;
+};
+
+__host__ __device__ inline Layout layout(int sp, int C) {
+  Layout l;
+  l.g_bytes = sp * (C + 4) * 4;
+  l.slot_bytes = l.g_bytes + 3 * x_chunks(sp) * 16;
+  l.a_stride = sp + 8;
+  l.a_bytes = kTapRows * l.a_stride * 4;
+  l.a_off = kStages * l.slot_bytes;
+  l.total = l.a_off + 2 * l.a_bytes;
+  // the warps' sums reuse the ring at the end: kWarps x 32 x 32 f32
+  if (l.total < kWarps * 32 * 32 * 4) l.total = kWarps * 32 * 32 * 4;
+  return l;
+}
+
+__device__ __forceinline__ long long x_start(const Seg& s, int ky, int lo,
+                                            int H, int W) {
+  return (((long long)s.b * H + 2 * s.oy - 1 + ky) * W + lo) * kPixX;
+}
+
+// start the copies of segment s into a stage slot: g's chunk c of pixel p
+// to chunk p * (C / 4 + 1) + c, zero past the row's last pixel; the input
+// window as in tc::load_segment, with 12-byte pixels
+__device__ __forceinline__ void load_segment(const Seg& s, uint32_t slot,
+                                             unsigned char* slot_p,
+                                             const float* x, const float* g,
+                                             int H, int W, int C, int Wo,
+                                             int sp, long long x_bytes,
+                                             const Layout& L) {
+  const int cpp = C / 4;
+  const int nq = s.nks * 16 * cpp, valid = s.npix * cpp;
+  const char* gs = reinterpret_cast<const char*>(
+      g + ((size_t)s.r * Wo + s.ox0) * C);
   const int tid = threadIdx.x;
-  const int quads = C / 4;
-  const int groups = kThreads / C;       // pixel groups (C threads each)
-  const int pg = tid / C, r = tid % C;
-  const int q = r % quads, kg = r / quads;
-  const int k0 = kTaps * kg;
-  const int nk = 27 - k0 < kTaps ? 27 - k0 : kTaps;
-  const bool active = pg < groups;
-  float acc[kTaps][4] = {};
+  for (int q = tid; q < nq; q += kThreads)
+    cp_async16(slot + ((q + q / cpp) << 4), q < valid ? gs + 16 * q : gs,
+               q < valid);
 
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int p0 = tile * kP;
-    if (tid < kP) {
-      const int p = p0 + tid;
-      const int ox = p % Wo, t = p / Wo;
-      pix_s[tid][0] = p < N ? t / Ho : -1;
-      pix_s[tid][1] = 2 * (t % Ho) - 1;
-      pix_s[tid][2] = 2 * ox - 1;
+  const int xc = x_chunks(sp);
+  const int lo = max(0, 2 * s.ox0 - 1);
+  const int hi = min(W, 2 * (s.ox0 + s.npix));   // last column + 1
+  for (int e = tid; e < 3 * xc; e += kThreads) {
+    const int ky = (e >= xc) + (e >= 2 * xc), c = e - ky * xc;
+    if (!x_row_ok(s, ky, H)) continue;
+    const long long b0 = x_start(s, ky, lo, H, W);
+    const long long byte = (b0 & ~15LL) + 16 * c;
+    if (byte >= b0 + (long long)(hi - lo) * kPixX) continue;
+    const int off = L.g_bytes + e * 16;
+    const char* src = reinterpret_cast<const char*>(x) + byte;
+    if (byte + 16 <= x_bytes) {
+      cp_async16(slot + off, src, true);
+    } else {   // x's last chunk, cut by the end of the tensor
+      auto* d = reinterpret_cast<float*>(slot_p + off);
+      const auto* v = reinterpret_cast<const float*>(src);
+      const int m = (int)((x_bytes - byte) / 4);
+      for (int k = 0; k < 4; ++k) d[k] = k < m ? v[k] : 0.0f;
     }
-    for (int e = tid; e < kP * C; e += kThreads)
-      g_s[e] = p0 + e / C < N ? g[(size_t)p0 * C + e] : 0.0f;
-    __syncthreads();
-    for (int e = tid; e < kP * 27; e += kThreads) {
-      const int pl = e / 27, k = e % 27;
-      const int b = pix_s[pl][0];
-      const int iy = pix_s[pl][1] + (k / 3) % 3, ix = pix_s[pl][2] + k % 3;
-      float v = 0.0f;
-      if (b >= 0 && iy >= 0 && iy < H && ix >= 0 && ix < W)
-        v = x[(((size_t)b * H + iy) * W + ix) * 3 + k / 9];
-      a_s[pl][k] = v;
-    }
-    __syncthreads();
-    if (active) {
-      for (int pl = pg; pl < kP; pl += groups) {
-        const float4 gv = *reinterpret_cast<const float4*>(g_s + pl * C + 4 * q);
+  }
+}
+
+// im2col of segment s from its staged window: a[tap][pixel] as in
+// tc::build_a, in f32, two pixels a float2
+__device__ __forceinline__ void build_a(const Seg& s, const unsigned char* xw,
+                                        float* a, int H, int W, int sp,
+                                        const Layout& L) {
+  const int xc = x_chunks(sp);
+  const int lo = max(0, 2 * s.ox0 - 1);
+  const int pairs = s.nks * 8;
+  for (int e = threadIdx.x; e < 3 * pairs; e += kThreads) {
+    const int ky = (e >= pairs) + (e >= 2 * pairs), p = 2 * (e - ky * pairs);
+    const bool row_ok = x_row_ok(s, ky, H);
+    const unsigned char* row =
+        xw + ky * xc * 16 +
+        (row_ok ? (int)(x_start(s, ky, lo, H, W) & 15) : 0);
+    const bool ok0 = row_ok && p < s.npix, ok1 = row_ok && p + 1 < s.npix;
+    const int ix0 = 2 * (s.ox0 + p) - 1;
+    float v[5][3];
 #pragma unroll
-        for (int t = 0; t < kTaps; ++t) {
-          if (t < nk) {
-            const float a = a_s[pl][k0 + t];
-            acc[t][0] += a * gv.x;
-            acc[t][1] += a * gv.y;
-            acc[t][2] += a * gv.z;
-            acc[t][3] += a * gv.w;
-          }
-        }
-      }
+    for (int d = 0; d < 5; ++d) {
+      const int ix = ix0 + d;
+      const bool ok = (d <= 2 ? ok0 : ok1) && ix >= 0 && ix < W;
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci)
+        v[d][ci] = ok ? *reinterpret_cast<const float*>(
+                            row + (ix - lo) * kPixX + 4 * ci)
+                      : 0.0f;
     }
-    __syncthreads();
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci)
+#pragma unroll
+      for (int kx = 0; kx < 3; ++kx)
+        *reinterpret_cast<float2*>(a + (9 * ci + 3 * ky + kx) * L.a_stride +
+                                   p) =
+            make_float2(ok0 ? v[kx][ci] : 0.0f, ok1 ? v[kx + 2][ci] : 0.0f);
+  }
+}
+
+// The bf16 kernel's walk (tc::wgrad_mma_kernel), with 3xTF32 products on
+// mma.sync m16n8k8: M = the 32 taps, N = 32 channels a warp, K = the
+// pixels, 8 a step. Column t of a step stands for pixel 2 t and column
+// t + 4 for pixel 2 t + 1, so a lane reads A as float2; its n8 tile j
+// holds channel 32 slice + 4 (lane / 4) + j, so it reads B as one float4
+// per pixel for all four tiles. Each segment's products are summed apart
+// and then added by FADD.
+__global__ void __launch_bounds__(kThreads, 2)
+wgrad_tf32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                  float* __restrict__ part, int H, int W, int C, int Ho,
+                  int Wo, int R, int sp, int nseg, long long x_bytes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Layout L = layout(sp, C);
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+
+  const int r0 = (int)((long long)blockIdx.x * R / gridDim.x);
+  const int r1 = (int)((long long)(blockIdx.x + 1) * R / gridDim.x);
+  const int n_items = (r1 - r0) * nseg;
+
+  // the padding taps 27..31 of both tiles stay zero
+  for (int t = 0; t < 2; ++t) {
+    float* pad = reinterpret_cast<float*>(smem + L.a_off + t * L.a_bytes) +
+                 27 * L.a_stride;
+    for (int e = tid; e < (kTapRows - 27) * L.a_stride; e += kThreads)
+      pad[e] = 0.0f;
   }
 
-  // sum the pixel groups in order: red[group][k][c] in g_s
-  float* red = g_s;
-  if (active) {
+  // warp roles: 32 output channels (a slice) and every kw_n-th k-step
+  const int slices = ceil_div(C, 32), kw_n = kWarps / slices;
+  const int slice = warp / kw_n, kw = warp % kw_n;
+  const bool active = slice < slices;
+  const int cb = 32 * slice + 4 * gq;   // this lane's B channels
+  const bool c_ok = cb < C;
+  const int pix_chunks = C / 4 + 1;
+  float acc[2][4][4] = {};
+
+  Seg ld, bd;   // the next segment to load, to build
+  ld.start(r0, Ho, Wo, sp);
+  bd = ld;
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_items) {
+      load_segment(ld, base + i * L.slot_bytes, smem + i * L.slot_bytes, x,
+                   g, H, W, C, Wo, sp, x_bytes, L);
+      ld.next(Ho, Wo, sp);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();   // segment 0 is in
+  if (n_items > 0)
+    build_a(bd, smem + L.g_bytes, reinterpret_cast<float*>(smem + L.a_off),
+            H, W, sp, L);
+
+  for (int i = 0; i < n_items; ++i) {
+    const int nks = bd.nks;   // segment i's
+    bd.next(Ho, Wo, sp);      // segment i + 1
+    cp_async_wait<kStages - 3>();
+    // segments i + 1 (staged) and i (im2col) are in; the slot of i - 1 and
+    // the im2col tile of i - 1 are free
+    __syncthreads();
+    const int in = i + kStages - 1;
+    if (in < n_items) {
+      const int slot = in % kStages;
+      load_segment(ld, base + slot * L.slot_bytes,
+                   smem + slot * L.slot_bytes, x, g, H, W, C, Wo, sp,
+                   x_bytes, L);
+      ld.next(Ho, Wo, sp);
+    }
+    cp_async_commit();
+    if (i + 1 < n_items)
+      build_a(bd, smem + ((i + 1) % kStages) * L.slot_bytes + L.g_bytes,
+              reinterpret_cast<float*>(smem + L.a_off +
+                                       ((i + 1) & 1) * L.a_bytes),
+              H, W, sp, L);
+
+    if (active) {
+      const float4* gb =
+          reinterpret_cast<const float4*>(smem + (i % kStages) * L.slot_bytes);
+      const float* ab =
+          reinterpret_cast<const float*>(smem + L.a_off + (i & 1) * L.a_bytes);
+      float seg[2][4][4] = {};
+      for (int ks = kw; ks < 2 * nks; ks += kw_n) {
+        const int p = 8 * ks + 2 * tq;
+        uint32_t ah[2][4], al[2][4];
 #pragma unroll
-    for (int t = 0; t < kTaps; ++t)
-      if (t < nk)
+        for (int mt = 0; mt < 2; ++mt) {
+          const float2 v0 = *reinterpret_cast<const float2*>(
+              ab + (16 * mt + gq) * L.a_stride + p);
+          const float2 v1 = *reinterpret_cast<const float2*>(
+              ab + (16 * mt + gq + 8) * L.a_stride + p);
+          split_tf32(v0.x, ah[mt][0], al[mt][0]);
+          split_tf32(v1.x, ah[mt][1], al[mt][1]);
+          split_tf32(v0.y, ah[mt][2], al[mt][2]);
+          split_tf32(v1.y, ah[mt][3], al[mt][3]);
+        }
+        const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const float4 b0 = c_ok ? gb[p * pix_chunks + cb / 4] : zero;
+        const float4 b1 = c_ok ? gb[(p + 1) * pix_chunks + cb / 4] : zero;
+        const float v0[4] = {b0.x, b0.y, b0.z, b0.w};
+        const float v1[4] = {b1.x, b1.y, b1.z, b1.w};
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          split_tf32(v0[j], bh[j][0], bl[j][0]);
+          split_tf32(v1[j], bh[j][1], bl[j][1]);
+        }
+        mma_3xtf32(seg, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          red[(pg * 27 + k0 + t) * C + 4 * q + j] = acc[t][j];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[mt][j][k] += seg[mt][j][k];
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // sum the warps of each slice in warp order: red[warp][tap][channel % 32]
+  auto* red = reinterpret_cast<float*>(smem);
+  if (active) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int tap = 16 * mt + gq + 8 * (k / 2);
+          const int cl = 4 * (2 * tq + k % 2) + j;
+          red[(warp * 32 + tap) * 32 + cl] = acc[mt][j][k];
+        }
   }
   __syncthreads();
   float* out = part + (size_t)blockIdx.x * 27 * C;
   for (int e = tid; e < 27 * C; e += kThreads) {
+    const int tap = e / C, c = e % C;
     float v = 0.0f;
-    for (int grp = 0; grp < groups; ++grp) v += red[grp * 27 * C + e];
+    for (int k = 0; k < kw_n; ++k)
+      v += red[(((c / 32) * kw_n + k) * 32 + tap) * 32 + c % 32];
     out[e] = v;
   }
 }
 
 cudaError_t launch(const void* x, const void* g, float* part, int B, int H,
-                   int W, int C, int nblk, cudaStream_t stream) {
+                   int W, int C, int ctas, cudaStream_t stream) {
+  static PerDeviceSmem smem;
+  cudaError_t e = smem.opt_in((const void*)wgrad_tf32_kernel, kMaxSmem);
+  if (e != cudaSuccess) return e;
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
-  const int N = B * Ho * Wo;
-  wgrad_partial<<<nblk, kThreads, 0, stream>>>(
+  // segments of at most 16 KB of g, as even as 16-pixel steps allow
+  const int sp_max = std::min(kMaxSp, kSegElems / C / 16 * 16);
+  const int sp = ceil_div(ceil_div(Wo, ceil_div(Wo, sp_max)), 16) * 16;
+  const int nseg = ceil_div(Wo, sp);
+  wgrad_tf32_kernel<<<ctas, kThreads, layout(sp, C).total, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(g), part, H, W,
-      C, Ho, Wo, N, ceil_div(N, kP));
+      C, Ho, Wo, B * Ho, sp, nseg, (long long)B * H * W * kPixX);
   return cudaGetLastError();
 }
 
@@ -504,9 +707,8 @@ wgrad_sum(const float* __restrict__ part, float* __restrict__ dw, int nblk,
 
 // x (B, H, W, 3) and g (B, ceil(H/2), ceil(W/2), C) NHWC, one dtype, 16-byte
 // aligned; part (nblk, 27, C) f32 scratch; dw (C, 3, 3, 3) f32. C a
-// multiple of 16 and at most 256, B*Ho*Wo below 2^31. bf16: nblk CTAs
-// (the persistent grid), 1 <= nblk <= B*Ho; f32: nblk blocks,
-// 1 <= nblk <= ceil(B*Ho*Wo / 32) (checked by the Python wrapper).
+// multiple of 16 and at most 256, B*Ho*Wo below 2^31; nblk CTAs (the
+// persistent grid), 1 <= nblk <= B*Ho (checked by the Python wrapper).
 extern "C" int yolo_stem_wgrad(const void* x, const void* g, void* part,
                                void* dw, int B, int H, int W, int C, int nblk,
                                int dtype, void* stream) {

@@ -24,10 +24,9 @@ from yolo_re_tpu_torch.ops.kernels import build, common
 
 MAX_C = 256   # csrc/stem.cu keeps the 27 x C weights in shared memory
 # partial sums of csrc/stem_wgrad.cu, fixed for a device so that the sums
-# run in the same order on every call: bf16, a persistent grid of this many
-# CTAs per SM (at most one per output row); f32, at most this many blocks
+# run in the same order on every call: a persistent grid of this many CTAs
+# per SM (at most one per output row)
 WGRAD_CTAS_PER_SM = 2
-WGRAD_BLOCKS = 1024
 
 launches = 0          # stem_conv
 raw_launches = 0      # stem_conv_raw
@@ -162,7 +161,7 @@ def stem_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     common.check_aligned(x, "x")
     common.check_aligned(g, "g")
     bsz, _, h, wd = x.shape
-    nblk = _wgrad_blocks(x.dtype, bsz, g.shape[2], g.shape[3], x.device)
+    nblk = _wgrad_blocks(bsz, g.shape[2], x.device)
     part = torch.empty((nblk, 27, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((c, 3, 3, 3), dtype=torch.float32, device=x.device)
     lib = build.library()
@@ -175,13 +174,9 @@ def stem_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw
 
 
-def _wgrad_blocks(dtype: torch.dtype, bsz: int, ho: int, wo: int,
-                 device: torch.device) -> int:
-    """The partial sums `stem_wgrad`'s kernel writes: bf16, one per CTA of
-    its persistent grid, WGRAD_CTAS_PER_SM per SM of the device and at most
-    one per output row (B * Ho); f32, one per block, at most one per
-    32-pixel tile."""
-    if dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        return min(WGRAD_CTAS_PER_SM * sms, bsz * ho)
-    return min(WGRAD_BLOCKS, -(-(bsz * ho * wo) // 32))
+def _wgrad_blocks(bsz: int, ho: int, device: torch.device) -> int:
+    """The partial sums `stem_wgrad`'s kernel writes: one per CTA of its
+    persistent grid, WGRAD_CTAS_PER_SM per SM of the device and at most one
+    per output row (B * Ho)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(WGRAD_CTAS_PER_SM * sms, bsz * ho)
