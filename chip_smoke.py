@@ -33,8 +33,8 @@ non-zero (no phase is caught):
    shapes, in f32 and bf16 (the bf16 stem weight gradient also at batch
    8, with its fraction of the bound and its bytes/s; ADown raw, which
    packs its weights on every call, per site beside its bound and, bf16,
-   its cuDNN composite without bias and SiLU): outputs and dx
-   within `tolerance`, weight gradients within a relative L2 of 1e-5
+   its cuDNN composite without bias and SiLU; the ADown backward per site
+   beside its bound): outputs and dx within `tolerance`, weight gradients within a relative L2 of 1e-5
    (f32) / 2e-2 (bf16), the stem weight gradient and the ADown backward
    equal across two calls, and times;
 7. TINY_YAML, f32: 12 Trainer steps on cuda (kernels) and on the CPU
@@ -58,13 +58,14 @@ the work: the larger of the bytes each function must move (inputs read
 once, outputs written once) over 3.35 TB/s, and its operations at the rate
 of the arithmetic the kernel issues (`ops_rate`): 989 TFLOP/s (bf16 tensor
 cores), three TF32 products per operation at 495 TFLOP/s (3xTF32: the f32
-chain and the f32 stem weight gradient) or 67 TFLOP/s (the other f32
-kernels and NMS, on the CUDA cores), the H100 SXM data sheet's rates,
+chain, the f32 stem weight gradient and the f32 ADown backward's
+products) or 67 TFLOP/s (the other f32 kernels and NMS, on the CUDA
+cores), the H100 SXM data sheet's rates,
 computed from this run's inputs; `bound_fraction` is bound_ms / ms. Each
 kernel's entry holds its bf16 numbers and, under "f32", its f32 ones (NMS
 runs in f32 only: the same numbers); the stage1 kernels, the stem weight
-gradient and ADown carry their numbers at each shape phase 3 or 6 ran
-under `shapes`. The last three lines are the card's nvidia-smi line, a
+gradient and ADown (forward, raw forward and backward) carry their
+numbers at each shape phase 3 or 6 ran under `shapes`. The last three lines are the card's nvidia-smi line, a
 JSON line with one entry per kernel, and {"ok": true, "device": {...}}.
 """
 
@@ -128,7 +129,7 @@ WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "3xtf32": 495e12 / 3}
 # the f32 kernels whose products run in 3xTF32 on the tensor cores
-F32_3XTF32 = ("csp_chain", "stem_wgrad")
+F32_3XTF32 = ("csp_chain", "stem_wgrad", "adown_bwd")
 
 
 def nbytes(*tensors) -> int:
@@ -479,17 +480,21 @@ def phase_train_kernels(dev) -> dict:
             # the input and the weight gradients of both convs: twice the
             # forward's products
             bwd_bound = bound(nbytes(x, gy, w1, w2, dx, dw1, dw2), 2 * ops,
-                              tag)
+                              rate("adown_bwd", tag))
             del dx, dw1, dw2, rdx, rdw1, rdw2
             ms = cuda_ms(lambda: adown.adown_bwd(x, gy, w1, w2), 5)
             plain_ms = cuda_ms(lambda: adown.adown_bwd_plain(x, gy, w1, w2),
                                5)
             print(f"  adown_bwd {name} {tag}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms")
+                  f"{plain_ms:.4f} ms, bound {bwd_bound['bound_ms']:.4f} ms "
+                  f"({bwd_bound['bound_by']}, {bwd_bound['ops_rate']}), "
+                  f"fraction {bwd_bound['bound_ms'] / ms:.3f}")
             t = tot["adown_bwd"]
             t["err"], t["ms"], t["plain_ms"] = (
                 max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
             t["bounds"].append(bwd_bound)
+            t["sites"][name] = {"ms": ms, "plain_ms": plain_ms,
+                                "library_ms": None, **bwd_bound}
             del x, gy
         for k, v in tot.items():
             res[k][tag] = {**v, **add_bounds(v.pop("bounds")),
@@ -821,7 +826,8 @@ def kernels_line(res: dict, tres: dict, counts: dict,
                            for b in WGRAD_BATCHES
                            if (b, tag) in tres["stem_wgrad"]},
             "adown": res["adown"][tag]["sites"],
-            "adown_raw": tres["adown_raw"][tag]["sites"]}
+            "adown_raw": tres["adown_raw"][tag]["sites"],
+            "adown_bwd": tres["adown_bwd"][tag]["sites"]}
 
     for tag in ("bf16", "f32"):
         shapes = per_shape(tag)

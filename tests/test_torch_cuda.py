@@ -456,7 +456,10 @@ def test_stem_wgrad_f32_kernel_matches_plain(cuda, c, bsz):
                                                ((2, 256, 37, 41), 256, False),
                                                ((2, 512, 37, 41), 512, True),
                                                ((1, 256, 42, 36), 256, True),
-                                               ((3, 256, 66, 70), 256, True)])
+                                               ((3, 256, 66, 70), 256, True),
+                                               ((4, 256, 96, 96), 256, False),
+                                               ((2, 512, 40, 40), 512, True),
+                                               ((1, 12, 9, 11), 10, False)])
 def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
     """Channel counts 32 and 48 are TINY_YAML's (48: 24 input channels a
     branch, half a k-step of zero padding in the tensor-core forward), 256
@@ -469,8 +472,12 @@ def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
     lanes; (2, 256, 37, 41): gelan-c's width at odd H and W; then the
     forward's edges: Co = 256 per branch, Ho = 21 (no tile height divides
     it) and more tiles than one round of its persistent grid, with weights
-    at 1/sqrt(fan-in) (`_w_scales`). Inputs are quantized to halves so
-    that maxpool ties are common."""
+    at 1/sqrt(fan-in) (`_w_scales`); then the f32 backward's tensor-core
+    products over several blocks: (4, 256, 96, 96) 9216 output pixels in 3
+    slabs, (2, 512, 40, 40) 256 channels a branch (two channel tiles of
+    each product); last, branch channels (6 in, 5 out) that are not
+    multiples of 4, so those products stage by 4-byte copies. Inputs are
+    quantized to halves so that maxpool ties are common."""
     g0 = torch.Generator().manual_seed(4)
     cin = shape[1]
     s1, s2 = _w_scales(cin // 2, fan_in)
@@ -497,6 +504,24 @@ def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
     assert _rel_l2(dw2, rdw2) <= WGRAD_REL[dtype]
     again = adown.adown_bwd(x, g, w1, w2)                # fixed-order sums
     assert all(torch.equal(a, b) for a, b in zip(again, (dx, dw1, dw2)))
+
+
+def test_adown_bwd_f32_runs_the_tensor_core_products(cuda):
+    """One f32 backward call: the two passes, the three 3xTF32 products
+    and the slab sum, six launches, none of the CUDA-core product
+    kernels (gemm_dm, gemm_da1, gemm_dw)."""
+    g0 = torch.Generator().manual_seed(13)
+    x = _rand(g0, 2, 64, 20, 24, cl=True).to(cuda)
+    g = _rand(g0, 2, 64, 10, 12, cl=True).to(cuda)
+    w1 = _rand(g0, 32, 32, 3, 3, scale=0.05).to(cuda)
+    w2 = _rand(g0, 32, 32, 1, 1, scale=0.1).to(cuda)
+    names = [n for n in _cuda_kernels(lambda: adown.adown_bwd(x, g, w1, w2))
+             if "yolo" in n]
+    assert len(names) == 6, names
+    for kernel, n in (("pool_avg", 1), ("dgrad_tf32", 2), ("dx_strips", 1),
+                      ("dw_tf32", 1), ("dw_reduce", 1)):
+        assert sum(kernel in name for name in names) == n, names
+    assert not any("gemm_" in name for name in names), names
 
 
 def test_kernels_launch_on_a_second_device(cuda):

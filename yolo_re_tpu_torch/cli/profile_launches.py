@@ -1,7 +1,7 @@
 """Device time of each launch inside one call of a train kernel's wrapper,
 and of one gelan-c train step.
 
-    python -m yolo_re_tpu_torch.cli.profile_launches [kernels|train]
+    python -m yolo_re_tpu_torch.cli.profile_launches [kernels|train [f32]]
 
 `kernels` (the default): a wrapper such as `adown_bwd` makes several
 launches from one C entry point; `chip_smoke.py` times the call as a
@@ -12,19 +12,23 @@ packed beforehand) and as the train forward calls it (`adown_raw`, which
 packs on every call), each shape's sum and the sums over the five, with
 the forward's bound (x, the weights and y once each at 3.35 TB/s, or its
 products at 989 TFLOP/s, the H100 SXM data sheet's rates) and bound /
-time, and the fused call in f32 (the Evaluator's default dtype); the bf16
-ADown backward at the same shapes, each shape's sum and
-the sums over the five; and the bf16 stem weight gradient at
-(32, 3, 640, 640) -> 64. For the ADown backward's two memory-bound
-passes, the dx pass and the pool/avg pass, it also prints the bytes they
-must move (each input read once, each output written once), that over
-3.35 TB/s as their bound, and bound / time. The ADown tables run on older
-trees too (their `adown` permutes the weights on every call).
+time, and the fused call in f32 (the Evaluator's default dtype); the
+ADown backward at the same shapes in bf16 and in f32 (the default dtype
+of `TrainConfig`), each shape's sum and the sums over the five, per
+launch; and the bf16 stem weight gradient at (32, 3, 640, 640) -> 64. For
+the ADown backward's two memory-bound passes, the dx pass and the
+pool/avg pass, it also prints the bytes they must move (each input read
+once, each output written once; the pool/avg pass counts the branch-1
+avg it writes for the weight-gradient products), that over 3.35 TB/s as
+their bound, and bound / time. The ADown tables run on older trees too
+(their `adown` permutes the weights on every call).
 
-`train`: gelan-c, bf16, batch 32, 640 px, random weights and synthetic
-batches (as chip_smoke.py's phase 8): after a warm-up step, the host
-clock over five steps, then the device time per step over five traced
-steps (after three more), in all and by kernel (the largest first).
+`train`: gelan-c, bf16 (`train f32`: f32, the `TrainConfig` default),
+batch 32 (f32: 16 if 32 does not fit in the card's memory; the batch used
+is printed), 640 px, random weights and synthetic batches (as
+chip_smoke.py's phase 8): after a warm-up step, the host clock over five
+steps, then the device time per step over five traced steps (after three
+more), in all and by kernel (the largest first).
 
 Random inputs from a fixed seed. It needs a CUDA card and exits with 2
 without one; the first lines are the card's nvidia-smi name and power
@@ -81,15 +85,16 @@ def report(title: str, rows: list[tuple[float, int, str]]) -> None:
     print(f"  total {sum(r[0] for r in rows):.4f} ms")
 
 
-def pass_bytes(cin: int, h: int, w: int) -> dict[str, int]:
-    """Bytes each memory-bound pass of the bf16 ADown backward must move:
-    the dx pass reads dA1, dM (f32) and idx (uint8) and writes dx (bf16);
-    the pool/avg pass reads x (bf16) and writes M (f32), idx and the bf16
-    branch-1 avg."""
+def pass_bytes(cin: int, h: int, w: int, elem: int) -> dict[str, int]:
+    """Bytes each memory-bound pass of the ADown backward must move, x in
+    `elem`-byte elements: the dx pass reads dA1, dM (f32) and idx (uint8)
+    and writes dx (like x); the pool/avg pass reads x and writes M (f32),
+    idx and the branch-1 avg (like x)."""
     ch, n = cin // 2, BATCH * (h // 2) * (w // 2) * (cin // 2)
-    x = BATCH * h * w * cin * 2
+    x = BATCH * h * w * cin * elem
     avg = BATCH * (h - 1) * (w - 1) * ch
-    return {"dx": avg * 4 + n * 4 + n + x, "pool/avg": x + n * 4 + n + avg * 2}
+    return {"dx": avg * 4 + n * 4 + n + x,
+            "pool/avg": x + n * 4 + n + avg * elem}
 
 
 def pass_ms(rows: list[tuple[float, int, str]]) -> dict[str, float]:
@@ -149,25 +154,28 @@ def adown_fwd_shapes(rand) -> None:
     print(f"adown f32, five shapes: {f32_ms:.4f} ms")
 
 
-def adown_bwd_shapes(rand) -> None:
-    """Per-launch times of the bf16 ADown backward at the five shapes, the
-    two passes against their bytes bound, and the sums over the shapes."""
+def adown_bwd_shapes(rand, dtype: torch.dtype) -> None:
+    """Per-launch times of the ADown backward at the five shapes in one
+    dtype, the two passes against their bytes bound, and the sums over
+    the shapes."""
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    elem = 2 if dtype == torch.bfloat16 else 4
     per_launch: dict[str, float] = {}
     sums = {p: [0.0, 0] for p in PASSES}     # ms, bytes
     total = 0.0
     for name, (cin, h, w, cout) in ADOWN_SHAPES.items():
-        x = rand(BATCH, cin, h, w)
+        x = rand(BATCH, cin, h, w).to(dtype)
         w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, cl=False)
         w2 = rand(cout // 2, cin // 2, 1, 1, scale=0.06, cl=False)
-        g = rand(BATCH, cout, h // 2, w // 2)
+        g = rand(BATCH, cout, h // 2, w // 2).to(dtype)
         rows = launch_times(lambda: adown.adown_bwd(x, g, w1, w2))
-        report(f"adown_bwd {name} bf16 x {tuple(x.shape)} -> {cout}, per "
+        report(f"adown_bwd {name} {tag} x {tuple(x.shape)} -> {cout}, per "
                f"call", rows)
         for ms, _, kname in rows:
             key = kname.replace("(anonymous namespace)::", "").split("(")[0]
             per_launch[key] = per_launch.get(key, 0.0) + ms
         total += sum(r[0] for r in rows)
-        nb, ms = pass_bytes(cin, h, w), pass_ms(rows)
+        nb, ms = pass_bytes(cin, h, w, elem), pass_ms(rows)
         for p in PASSES:
             bound = nb[p] / HBM_BYTES_PER_S * 1e3
             sums[p][0] += ms[p]
@@ -175,7 +183,7 @@ def adown_bwd_shapes(rand) -> None:
             print(f"  {p} pass: {ms[p]:.4f} ms, {nb[p] / 1e6:.1f} MB, bound "
                   f"{bound:.4f} ms, fraction {bound / ms[p]:.3f}")
         del x, g
-    print("adown_bwd, sums over the five shapes, per launch")
+    print(f"adown_bwd {tag}, sums over the five shapes, per launch")
     for key, ms in sorted(per_launch.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:.4f} ms  {key}")
     print(f"  total {total:.4f} ms")
@@ -185,7 +193,8 @@ def adown_bwd_shapes(rand) -> None:
               f"bound {bound:.4f} ms, fraction {bound / ms:.3f}")
 
 
-def train_step() -> None:
+def train_step(dtype: str) -> None:
+    import gc
     import tempfile
     import time
     from pathlib import Path
@@ -196,24 +205,38 @@ def train_step() -> None:
     from yolo_re_tpu_torch.train.trainer import Trainer
 
     root = Path(__file__).resolve().parents[2]
-    model = YOLO.from_yaml(root / "configs" / "models" / "gelan-c.yaml")
-    batches = [make_eval_batch(BATCH, 640, seed) for seed in range(4)]
-    cfg = TrainConfig(epochs=1, compute_dtype="bfloat16",
-                      data_parallel=False,
-                      output_dir=tempfile.mkdtemp(prefix="profile_"))
-    trainer = Trainer(model, config=cfg, train_loader=batches, device="cuda")
+    # f32 steps hold twice bf16's activations: half the batch if 32 does
+    # not fit
+    for batch in (BATCH, BATCH // 2) if dtype == "float32" else (BATCH,):
+        model = YOLO.from_yaml(root / "configs" / "models" / "gelan-c.yaml")
+        batches = [make_eval_batch(batch, 640, seed) for seed in range(4)]
+        cfg = TrainConfig(epochs=1, compute_dtype=dtype,
+                          data_parallel=False,
+                          output_dir=tempfile.mkdtemp(prefix="profile_"))
+        trainer = Trainer(model, config=cfg, train_loader=batches,
+                          device="cuda")
 
-    def step(i: int) -> None:
-        b = batches[i % len(batches)]
-        trainer.train_step(b["images"], b["targets"])
+        def step(i: int) -> None:
+            b = batches[i % len(batches)]
+            trainer.train_step(b["images"], b["targets"])
 
-    step(0)
-    torch.cuda.synchronize()
+        try:
+            step(0)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == BATCH // 2:
+                raise
+        # outside the handler, so that its traceback frees the tensors
+        print(f"gelan-c {dtype} train step: batch {batch} does not fit")
+        del model, trainer, batches, step
+        gc.collect()
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     for i in range(5):
         step(i)
     torch.cuda.synchronize()
-    print(f"gelan-c bf16 train step, batch {BATCH}, 640 px: host clock "
+    print(f"gelan-c {dtype} train step, batch {batch}, 640 px: host clock "
           f"{(time.perf_counter() - t0) / 5 * 1e3:.1f} ms per step over 5")
     rows = launch_times(lambda: step(1))
     report("device time per step, by kernel (largest 15 of "
@@ -223,8 +246,9 @@ def train_step() -> None:
 
 def main(argv: list[str] | None = None) -> int:
     what = (sys.argv[1:] if argv is None else argv) or ["kernels"]
-    if what[0] not in ("kernels", "train"):
-        print("usage: profile_launches [kernels|train]", file=sys.stderr)
+    if what not in (["kernels"], ["train"], ["train", "f32"]):
+        print("usage: profile_launches [kernels|train [f32]]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_launches: no CUDA device", file=sys.stderr)
@@ -234,7 +258,7 @@ def main(argv: list[str] | None = None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
     if what[0] == "train":
-        train_step()
+        train_step("float32" if what[1:] == ["f32"] else "bfloat16")
         return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -244,7 +268,8 @@ def main(argv: list[str] | None = None) -> int:
         return t.contiguous(memory_format=torch.channels_last) if cl else t
 
     adown_fwd_shapes(rand)
-    adown_bwd_shapes(rand)
+    for dtype in (torch.bfloat16, torch.float32):
+        adown_bwd_shapes(rand, dtype)
     x = rand(BATCH, 3, 640, 640)
     g = rand(BATCH, 64, 320, 320)
     report(f"stem_wgrad bf16 x {tuple(x.shape)} -> 64, per call",

@@ -18,17 +18,18 @@
 // scatters on the TPU. Here the same function is six launches on one
 // stream, none with atomics, so the result is the same on every run:
 //   1. pool_avg: the branch-2 window max M and its first-max tap idx, and
-//      for the bf16 tensor-core products the bf16 branch-1 avg avg1;
-//   2. gemm_dm: dM = g2 . w2^T, the gradient at M (tiled product);
-//   3. gemm_da1: dA1 = the transposed 3x3 stride-2 conv of g1, the
-//      gradient at the branch-1 avg. Blocks take one (row, column) parity
-//      class of avg pixels, so every pixel of a tile has the same 1, 2 or
-//      4 taps: no zero taps are multiplied;
+//      for the products that read it (every f32 call; bf16 with Ch and Co
+//      multiples of 8) the branch-1 avg avg1 in x's dtype;
+//   2. dM = g2 . w2^T, the gradient at M (tiled product);
+//   3. dA1 = the transposed 3x3 stride-2 conv of g1, the gradient at the
+//      branch-1 avg. Blocks take one (row, column) parity class of avg
+//      pixels, so every pixel of a tile has the same 1, 2 or 4 taps: no
+//      zero taps are multiplied;
 //   4. dx_strips: dx = (sum of the four avg pixels' gradients) / 4; the
 //      branch-2 gradient of an avg pixel is gathered from the <= 4 output
 //      windows whose first max it is (no scatter);
-//   5. gemm_dw: per slab of output pixels, partial dW1 (9 taps) and dW2
-//      (from M) as tiled products over the slab's pixels;
+//   5. per slab of output pixels, partial dW1 (9 taps) and dW2 (from M)
+//      as tiled products over the slab's pixels;
 //   6. dw_reduce: the slabs summed in a fixed order.
 // The avg is summed in the order above, the plain version's
 // (ops/kernels/adown.py:adown_raw_plain), so the first max is taken among
@@ -36,15 +37,20 @@
 //
 // What bounds it on an H100: at gelan-c's down1 ((32, 256, 160, 160),
 // Co = Ch = 128) the two 3x3 products (dA1 and dW1) are ~60 GFLOP each and
-// the rest ~13 GFLOP. The products use 64 x 64 output tiles: for f32 on
-// the CUDA cores (a 4 x 4 register tile per thread, 16-deep chunks in
-// shared memory); for bf16 (Ch, Co multiples of 8), products 3 and 5 on
-// the tensor cores with nvcuda::wmma fragments and 16-byte staging
-// (namespace tc). wgmma and TMA for them are later work.
+// the rest ~13 GFLOP: operations, not bytes. Where the products run:
+//   - f32: all three on the tensor cores in 3xTF32 on mma.sync (namespace
+//     f32: dgrad_tf32 for 2 and 3, dw_tf32 for 5), any Ch and Co;
+//   - bf16, Ch and Co multiples of 8: 3 and 5 on the tensor cores with
+//     nvcuda::wmma bf16 fragments and 16-byte staging (namespace tc), 2 on
+//     the CUDA cores (gemm_dm);
+//   - bf16, other Ch or Co: all three on the CUDA cores (gemm_dm,
+//     gemm_da1, gemm_dw: 64 x 64 output tiles, a 4 x 4 register tile per
+//     thread, 16-deep chunks in shared memory).
+// wgmma and TMA for them are later work.
 // Passes 1 and 4 do almost no arithmetic: bytes bound them. At down1 the
 // dx pass must read dA1, dM (f32) and idx and write dx, 964.7 MB; the
 // pool/avg pass must read x and write M, idx and avg1, 757.6 MB (0.288
-// and 0.226 ms at 3.35 TB/s). Their design (the section "memory-bound
+// and 0.226 ms at 3.35 TB/s, bf16). Their design (the section "memory-bound
 // passes" below): a thread owns 8 channels of one column (16-byte loads
 // and stores), walks down a strip of rows and carries in registers what
 // the next row shares with this one (dx: the pair v[y-1, x-1] + v[y-1, x]
@@ -57,6 +63,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace yolo {
 namespace {
@@ -232,7 +239,7 @@ __device__ __forceinline__ void pool_strip(const T* __restrict__ x,
   }
 }
 
-// 1b. branch 1 (bf16 products only): avg1 at avg rows 2oy, 2oy + 1 and
+// 1b. branch 1 (the tensor-core products only): avg1 at avg rows 2oy, 2oy + 1 and
 //     columns 2ox, 2ox + 1 for oy in [o0, o1), channels c..; x row 2oy + 2
 //     is carried
 template <typename T, int V>
@@ -273,7 +280,7 @@ __device__ __forceinline__ void avg_strip(const T* __restrict__ x,
 }
 
 // 1. M (B, Ho, Wo, Ch) f32 and idx (tap 3 ky + kx of the first max), and
-//    for the tensor-core products (avg1 not null) the bf16 branch-1 avg
+//    for the tensor-core products (avg1 not null) the branch-1 avg
 //    avg1 (B, H-1, W-1, Ch). Tasks: (b, branch, strip of R output rows, run
 //    of kThreads lanes of the Wo * Ch / V of a row), the run fastest.
 template <typename T, int V>
@@ -879,6 +886,400 @@ gemm_dw_wmma(const bf16* __restrict__ avg1, const bf16* __restrict__ g,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// f32 inputs: products 2, 3 and 5 on the tensor cores in 3xTF32
+// ---------------------------------------------------------------------------
+//
+// mma.sync m16n8k8 in TF32 with every f32 operand split into hi and lo as
+// it leaves shared memory (hopper.cuh: split_tf32, mma_3xtf32), as the f32
+// chain and stem weight gradient do. A warp owns two (dW) or four (dA1,
+// dM) m16 tiles by four n8 tiles of outputs; K runs in chunks of 32
+// staged by cp.async into a 3-deep ring of padded shared rows (16-byte
+// copies when Ch and Co are multiples of 4, else 4-byte ones; zero fill
+// past every edge). Each chunk's products are summed apart on the tensor
+// cores and then added into the accumulators by FADD, in chunk order: no
+// atomics, the same result on every run. Outputs leave as 16-byte stores: a lane holds 8
+// consecutive channels of a row, one 32-byte sector. The three products:
+//   dW (5):  blocks of 16 warps, M = 128 input channels, N = 128 output
+//            channels, K = the slab's output pixels; A the branch-1 avg
+//            that pool_avg writes once in f32 (the values avg4 gave, to
+//            the bit) at the tap's pixels, or M for q = 9; B the rows of
+//            g. A block per (slab, tap, channel tiles); the 10 taps of a
+//            slab are neighbours in the grid and read the slab's g
+//            together through L2. A thread steps the output pixels of its
+//            A rows from chunk to chunk (no division).
+//   dA1 (3): blocks of 4 warps, two an SM, M = 64 avg pixels of one
+//            parity class, N = 128 input channels, K = Co x the class's 1,
+//            2 or 4 taps; A the g rows of each tap's output pixels, B
+//            w1t[tap].
+//   dM (2):  the same blocks, M = 64 output pixels, K = Co; A the g2 rows,
+//            B w2t.
+// What sets their time, from scratch builds with one stage removed at a
+// time (H100, gelan-c's down1): the product loop alone runs well below
+// the 3xTF32 rate and is bound by its shared-memory loads (splitting
+// each staged element once per block, hi and lo both staged, doubled the
+// loads and ran slower); staging alone costs a large part of the loop's
+// time and overlaps it only in part. dW's blocks run 128 chunks, so 16
+// warps with 128 x 128 outputs (1.5x fewer operand bytes per output)
+// paid; dA1's run ~9, and two small blocks an SM overlap one block's
+// start and end with the other's products (there, 64 x 32 outputs a warp
+// also ran faster than 32 x 32; for dW they did not). Scattered 4-byte
+// stores of dA1 and dM had cost a large share of their time.
+// A lane's fragment elements are chosen so that it reads shared memory in
+// 16-byte (or 8-byte) words: which channel or pixel a column k or row m of
+// an m16n8k8 tile stands for is free, as long as A, B and the outputs
+// agree (hopper.cuh: mma_m16n8k8_tf32 gives the fragment layout).
+namespace f32 {
+
+using namespace sm90;
+
+constexpr int kKc = 32;           // K chunk
+constexpr int kStages = 3;        // cp.async ring depth
+// dW: a block of 16 warps (4 x 4), 128 input channels (M) by 128 output
+// channels (N); [pixel][ci] and [pixel][co] rows, their stride 8 mod 32
+// floats, so the 8 lanes of a 16-byte load phase (rows tq, columns 4 gq)
+// meet 8 distinct bank groups
+constexpr int kWThreads = 512, kWM = 128, kWN = 128;
+constexpr int kWALd = kWM + 8, kWBLd = kWN + 8;
+constexpr int kWStage = kKc * (kWALd + kWBLd);              // floats
+// dA1, dM: a block of 4 warps (1 x 4), 64 pixels (M) by 128 input
+// channels (N), two blocks an SM; [pixel][co] rows (8-byte loads, rows
+// gq: 8 mod 32) and [co][ci] rows (16-byte loads, rows 2 tq: 4 mod 32)
+constexpr int kDM = 64, kDN = 128;
+constexpr int kDMT = 4;   // m16 tiles a warp: 64 x 32 outputs
+constexpr int kDThreads = 32 * (kDM / (16 * kDMT)) * (kDN / 32);
+constexpr int kDALd = kKc + 8, kDBLd = kDN + 4;
+constexpr int kDStage = kDM * kDALd + kKc * kDBLd;          // floats
+constexpr int kWSmem = kStages * kWStage * 4;               // bytes
+constexpr int kDSmem = kStages * kDStage * 4;
+
+// E consecutive f32 (E = 4: 16 bytes, E = 1: 4) global -> shared, zeros
+// where !valid (src is then not read)
+template <int E>
+__device__ __forceinline__ void copy(uint32_t dst, const float* src,
+                                     bool valid) {
+  if constexpr (E == 4)
+    cp_async16(dst, src, valid);
+  else
+    cp_async4(dst, src, valid);
+}
+
+__device__ __forceinline__ void split4(float4 v, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split_tf32(v.x, hi[0], lo[0]);
+  split_tf32(v.y, hi[1], lo[1]);
+  split_tf32(v.z, hi[2], lo[2]);
+  split_tf32(v.w, hi[3], lo[3]);
+}
+
+// B fragments of four n8 tiles from rows k (b0) and k' (b1): column g of
+// tile j is element j of a lane's float4
+__device__ __forceinline__ void b_frags(const float* r0, const float* r1,
+                                        uint32_t (&bh)[4][2],
+                                        uint32_t (&bl)[4][2]) {
+  uint32_t h0[4], l0[4], h1[4], l1[4];
+  split4(*reinterpret_cast<const float4*>(r0), h0, l0);
+  split4(*reinterpret_cast<const float4*>(r1), h1, l1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bh[j][0] = h0[j];
+    bh[j][1] = h1[j];
+    bl[j][0] = l0[j];
+    bl[j][1] = l1[j];
+  }
+}
+
+// the outputs of row r (0: g, 1: g + 8) of a lane's m16 tile mt: columns
+// c + j (k = 2 r) and c + 4 + j (k = 2 r + 1) of row `row` (C columns),
+// as two 16-byte stores where rows and c are 16-byte aligned (E = 4)
+template <int E, int MT>
+__device__ __forceinline__ void store_row(float* row, int c, int C,
+                                          const float (&acc)[MT][4][4],
+                                          int mt, int r) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = 2 * r + h, ch = c + 4 * h;
+    if constexpr (E == 4) {
+      if (ch < C)
+        *reinterpret_cast<float4*>(row + ch) = make_float4(
+            acc[mt][0][k], acc[mt][1][k], acc[mt][2][k], acc[mt][3][k]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (ch + j < C) row[ch + j] = acc[mt][j][k];
+    }
+  }
+}
+
+template <int MT>
+__device__ __forceinline__ void add_seg(float (&acc)[MT][4][4],
+                                        const float (&seg)[MT][4][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mt][j][k] += seg[mt][j][k];
+}
+
+// 5. part[s, q, ci, co] as gemm_dw. A k8 step's column t stands for pixel
+//    t of the step and t + 4 for pixel t + 4; the warp's row g of m16 tile
+//    mt for channel wm + 4 g + 2 mt and row g + 8 for the one after it, and
+//    column g of n8 tile j for wn + 4 g + j: a lane reads A and B as one
+//    float4 per pixel row. A thread copies the same pixel rows of every
+//    chunk, whose output pixel it steps by kKc a chunk (no division).
+template <int E>
+__global__ void __launch_bounds__(kWThreads, 1)
+dw_tf32(const float* __restrict__ avg1, const float* __restrict__ g,
+        const float* __restrict__ M, float* __restrict__ part, int H, int W,
+        int Ho, int Wo, int Ch, int Co, int N, int slab, int co_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  const int q = blockIdx.x % 10, tile = blockIdx.x / 10, s = blockIdx.y;
+  const int ci0 = tile / co_tiles * kWM, co0 = tile % co_tiles * kWN;
+  const int HA = H - 1, WA = W - 1, Cout = 2 * Co;
+  const int ky = q / 3, kx = q % 3, goff = q == 9 ? Co : 0;
+  const int p_begin = s * slab, p_end = min(p_begin + slab, N);
+  const int chunks = p_end > p_begin ? ceil_div(p_end - p_begin, kKc) : 0;
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int wm = 32 * (warp / 4), wn = 32 * (warp % 4);
+
+  // A copies: rows ka + i kAStep of a chunk, channels ci0 + E (tid % av);
+  // (b, oy, ox) of row i's pixel in the next chunk to load
+  constexpr int av = kWM / E, bv = kWN / E;    // copies a pixel row
+  constexpr int kAN = kKc * av / kWThreads, kAStep = kWThreads / av;
+  const int ka = tid / av, cia = ci0 + E * (tid % av);
+  int pb[kAN], poy[kAN], pox[kAN];
+#pragma unroll
+  for (int i = 0; i < kAN; ++i) {
+    const int p = p_begin + ka + i * kAStep, t = p / Wo;
+    pox[i] = p - t * Wo;
+    pb[i] = t / Ho;
+    poy[i] = t - pb[i] * Ho;
+  }
+
+  auto load = [&](int c) {   // called for c = 0, 1, 2, ... in turn
+    const uint32_t a_s = base + (c % kStages) * kWStage * 4;
+    const uint32_t b_s = a_s + kKc * kWALd * 4;
+    const int pk = p_begin + c * kKc;
+#pragma unroll
+    for (int i = 0; i < kAN; ++i) {
+      const int k = ka + i * kAStep, p = pk + k;
+      bool ok = p < p_end && cia < Ch;
+      const float* src = M;
+      if (q == 9) {
+        if (ok) src = M + (size_t)p * Ch + cia;
+      } else {
+        const int ay = 2 * poy[i] - 1 + ky, ax = 2 * pox[i] - 1 + kx;
+        ok = ok && in_avg(ay, ax, H, W);
+        if (ok)
+          src = avg1 + (((size_t)pb[i] * HA + ay) * WA + ax) * Ch + cia;
+      }
+      copy<E>(a_s + 4 * (k * kWALd + cia - ci0), src, ok);
+      for (pox[i] += kKc; pox[i] >= Wo;) {
+        pox[i] -= Wo;
+        if (++poy[i] == Ho) {
+          poy[i] = 0;
+          ++pb[i];
+        }
+      }
+    }
+    for (int e = tid; e < kKc * bv; e += kWThreads) {
+      const int k = e / bv, co = co0 + E * (e % bv), p = pk + k;
+      const bool ok = p < p_end && co < Co;
+      copy<E>(b_s + 4 * (k * kWBLd + co - co0),
+              ok ? g + (size_t)p * Cout + goff + co : g, ok);
+    }
+  };
+
+  float acc[2][4][4] = {};
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < chunks) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // chunk c is in; every warp is done with c - 1
+    if (c + kStages - 1 < chunks) load(c + kStages - 1);
+    cp_async_commit();
+    const float* a_s = smem + (c % kStages) * kWStage;
+    const float* b_s = a_s + kKc * kWALd;
+    float seg[2][4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kKc; ks += 8) {
+      uint32_t h0[4], l0[4], h1[4], l1[4];
+      split4(*reinterpret_cast<const float4*>(
+                 a_s + (ks + tq) * kWALd + wm + 4 * gq), h0, l0);
+      split4(*reinterpret_cast<const float4*>(
+                 a_s + (ks + tq + 4) * kWALd + wm + 4 * gq), h1, l1);
+      const uint32_t ah[2][4] = {{h0[0], h0[1], h1[0], h1[1]},
+                                 {h0[2], h0[3], h1[2], h1[3]}};
+      const uint32_t al[2][4] = {{l0[0], l0[1], l1[0], l1[1]},
+                                 {l0[2], l0[3], l1[2], l1[3]}};
+      uint32_t bh[4][2], bl[4][2];
+      b_frags(b_s + (ks + tq) * kWBLd + wn + 4 * gq,
+              b_s + (ks + tq + 4) * kWBLd + wn + 4 * gq, bh, bl);
+      mma_3xtf32(seg, ah, al, bh, bl);
+    }
+    add_seg(acc, seg);
+  }
+  cp_async_wait_all();
+
+  // d[mt][j]: channels ci (k 0, 1) and ci + 1 (k 2, 3), output channels
+  // co0 + wn + 8 tq + j (k even) and + 4 (k odd)
+  float* out = part + ((size_t)s * 10 + q) * Ch * Co;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int ci = ci0 + wm + 4 * gq + 2 * mt + r;
+      if (ci < Ch)
+        store_row<E>(out + (size_t)ci * Co, co0 + wn + 8 * tq, Co, acc, mt,
+                     r);
+    }
+}
+
+// 2. and 3. dM (kDa1 false) as gemm_dm, dA1 (kDa1 true) as gemm_da1: a
+//    block of 64 pixels and 128 input channels; K runs over the taps
+//    (dA1) and 32-channel chunks of Co. dM's pixels are the output pixels
+//    in order; dA1's those of one parity class (py, px), the avg pixels
+//    (2 cy + py, 2 cx + px) of every image in order, so every row of a
+//    block has the same 1, 2 or 4 taps. A k8 step's column t stands for
+//    channel 2 t of the step and t + 4 for 2 t + 1, so a lane reads A as a
+//    float2 per pixel row; column g of n8 tile j stands for channel
+//    wn + 4 g + j, so it reads B as one float4 per channel row.
+template <int E, bool kDa1>
+__global__ void __launch_bounds__(kDThreads, 2)
+dgrad_tf32(const float* __restrict__ g, const float* __restrict__ wt,
+           float* __restrict__ out, int B, int Ho, int Wo, int HA, int WA,
+           int Co, int Ch, int N, int ci_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  const int cls = kDa1 ? blockIdx.y / ci_tiles : 0;
+  const int ci0 = (blockIdx.y % ci_tiles) * kDN;
+  const int py = cls >> 1, px = cls & 1;
+  // the class's rows and columns of avg pixels
+  const int cr = (HA - py + 1) / 2, cc = (WA - px + 1) / 2;
+  const int rows = kDa1 ? B * cr * cc : N, m0 = blockIdx.x * kDM;
+  if (m0 >= rows) return;   // the classes with fewer pixels
+  const int Cout = 2 * Co, cchunks = ceil_div(Co, kKc);
+  const int ntx = px ? 2 : 1;
+  const int chunks = (kDa1 ? (py ? 2 : 1) * ntx : 1) * cchunks;
+  const uint32_t base = smem_u32(smem);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int wm = 16 * kDMT * (warp / 4), wn = 32 * (warp % 4);
+
+  // block row m: dA1 the avg pixel (b, ay, ax), dM the output pixel p (in
+  // b)
+  auto pixel = [&](int m, int& b, int& ay, int& ax) {
+    const int n = m0 + m;
+    if constexpr (kDa1) {
+      const int t = n / cc;
+      ax = 2 * (n - t * cc) + px;
+      b = t / cr;
+      ay = 2 * (t - b * cr) + py;
+    } else {
+      b = n;
+      ay = ax = 0;
+    }
+  };
+
+  // A copies: rows ma + i kAStep, channels E (tid % av) of each chunk
+  constexpr int av = kKc / E, bv = kDN / E;    // copies a row
+  constexpr int kAN = kDM * av / kDThreads, kAStep = kDThreads / av;
+  const int ma = tid / av, va = E * (tid % av);
+  int rb[kAN], ray[kAN], rax[kAN];
+#pragma unroll
+  for (int i = 0; i < kAN; ++i) {
+    pixel(ma + i * kAStep, rb[i], ray[i], rax[i]);
+    if (m0 + ma + i * kAStep >= rows) rb[i] = -1;
+  }
+
+  auto load = [&](int c) {
+    const uint32_t a_s = base + (c % kStages) * kDStage * 4;
+    const uint32_t b_s = a_s + kDM * kDALd * 4;
+    const int t = c / cchunks, co0 = (c % cchunks) * kKc;
+    // an even avg row is reached by ky = 1 only, an odd one by ky = 0 and
+    // 2 (gemm_da1's tap order)
+    const int ky = py ? 2 * (t / ntx) : 1, kx = px ? 2 * (t % ntx) : 1;
+    const int tap = kDa1 ? 3 * ky + kx : 0;
+    const int co = co0 + va;
+#pragma unroll
+    for (int i = 0; i < kAN; ++i) {
+      bool ok = rb[i] >= 0 && co < Co;
+      size_t off;
+      if constexpr (kDa1) {
+        const int oy = (ray[i] + 1 - ky) / 2, ox = (rax[i] + 1 - kx) / 2;
+        ok = ok && oy < Ho && ox < Wo;
+        off = (((size_t)rb[i] * Ho + oy) * Wo + ox) * Cout + co;
+      } else {
+        off = (size_t)rb[i] * Cout + Co + co;
+      }
+      copy<E>(a_s + 4 * ((ma + i * kAStep) * kDALd + va), ok ? g + off : g,
+              ok);
+    }
+    for (int e = tid; e < kKc * bv; e += kDThreads) {
+      const int k = e / bv, ci = ci0 + E * (e % bv);
+      const bool ok = co0 + k < Co && ci < Ch;
+      copy<E>(b_s + 4 * (k * kDBLd + ci - ci0),
+              ok ? wt + ((size_t)tap * Co + co0 + k) * Ch + ci : wt, ok);
+    }
+  };
+
+  float acc[kDMT][4][4] = {};
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < chunks) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (c + kStages - 1 < chunks) load(c + kStages - 1);
+    cp_async_commit();
+    const float* a_s = smem + (c % kStages) * kDStage;
+    const float* b_s = a_s + kDM * kDALd;
+    float seg[kDMT][4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kKc; ks += 8) {
+      uint32_t ah[kDMT][4], al[kDMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kDMT; ++mt) {
+        const float* r = a_s + (wm + 16 * mt + gq) * kDALd + ks + 2 * tq;
+        const float2 v0 = *reinterpret_cast<const float2*>(r);
+        const float2 v1 = *reinterpret_cast<const float2*>(r + 8 * kDALd);
+        split_tf32(v0.x, ah[mt][0], al[mt][0]);
+        split_tf32(v1.x, ah[mt][1], al[mt][1]);
+        split_tf32(v0.y, ah[mt][2], al[mt][2]);
+        split_tf32(v1.y, ah[mt][3], al[mt][3]);
+      }
+      uint32_t bh[4][2], bl[4][2];
+      b_frags(b_s + (ks + 2 * tq) * kDBLd + wn + 4 * gq,
+              b_s + (ks + 2 * tq + 1) * kDBLd + wn + 4 * gq, bh, bl);
+      mma_3xtf32(seg, ah, al, bh, bl);
+    }
+    add_seg(acc, seg);
+  }
+  cp_async_wait_all();
+
+  // d[mt][j]: rows wm + 16 mt + gq (k 0, 1) and + 8 (k 2, 3), channels
+  // wn + 8 tq + j (k even) and + 4 (k odd)
+#pragma unroll
+  for (int mt = 0; mt < kDMT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = wm + 16 * mt + gq + 8 * r;
+      if (m0 + m >= rows) continue;
+      int b, ay, ax;
+      pixel(m, b, ay, ax);
+      const size_t row =
+          (kDa1 ? ((size_t)b * HA + ay) * WA + ax : (size_t)b) * Ch;
+      store_row<E>(out + row, ci0 + wn + 8 * tq, Ch, acc, mt, r);
+    }
+}
+
+}  // namespace f32
+
 int grid_for(size_t total) {
   const size_t blocks = (total + kThreads - 1) / kThreads;
   return (int)(blocks < 132 * 64 ? (blocks ? blocks : 1) : 132 * 64);
@@ -1014,6 +1415,59 @@ cudaError_t launch(const void* x_, const void* g_, const float* w1t,
   return cudaGetLastError();
 }
 
+// The f32 backward: the passes and dw_reduce as for bf16, the products on
+// the tensor cores (namespace f32) with E-float copies
+template <int E>
+cudaError_t launch_f32(const float* x, const float* g, const float* w1t,
+                       const float* w2t, float* dx, float* dw1, float* dw2,
+                       float* M, unsigned char* idx, float* dM, float* dA1,
+                       float* avg1, float* part, int B, int H, int W, int Cin,
+                       int Cout, int S, cudaStream_t stream) {
+  using namespace f32;
+  static PerDeviceSmem smem_dm, smem_da1, smem_dw;
+  cudaError_t err;
+  if ((err = smem_dm.opt_in((const void*)dgrad_tf32<E, false>, kDSmem)) !=
+          cudaSuccess ||
+      (err = smem_da1.opt_in((const void*)dgrad_tf32<E, true>, kDSmem)) !=
+          cudaSuccess ||
+      (err = smem_dw.opt_in((const void*)dw_tf32<E>, kWSmem)) != cudaSuccess)
+    return err;
+  const int Ch = Cin / 2, Co = Cout / 2;
+  const int Ho = H / 2, Wo = W / 2, HA = H - 1, WA = W - 1;
+  const int N = B * Ho * Wo;
+
+  if ((err = launch_pool<float>(x, M, idx, avg1, B, H, W, Cin, stream)) !=
+      cudaSuccess)
+    return err;
+
+  const int ci_tiles = ceil_div(Ch, kDN);
+  dgrad_tf32<E, false><<<dim3(ceil_div(N, kDM), ci_tiles), kDThreads,
+                         kDSmem, stream>>>(g, w2t, dM, B, Ho, Wo, HA, WA, Co,
+                                           Ch, N, ci_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // blocks for the largest class, (0, 0); the others' last ones return
+  const int class_px = B * ceil_div(HA, 2) * ceil_div(WA, 2);
+  dgrad_tf32<E, true><<<dim3(ceil_div(class_px, kDM), 4 * ci_tiles),
+                        kDThreads, kDSmem, stream>>>(
+      g, w1t, dA1, B, Ho, Wo, HA, WA, Co, Ch, N, ci_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = launch_dx<float>(dA1, dM, idx, dx, B, H, W, Cin, stream)) !=
+      cudaSuccess)
+    return err;
+
+  const int co_tiles = ceil_div(Co, kWN);
+  dw_tf32<E><<<dim3(10 * ceil_div(Ch, kWM) * co_tiles, S), kWThreads,
+               kWSmem, stream>>>(avg1, g, M, part, H, W, Ho, Wo, Ch, Co, N,
+                         ceil_div(N, S), co_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  dw_reduce<<<grid_for((size_t)10 * Ch * Co), kThreads, 0, stream>>>(
+      part, dw1, dw2, S, Ch, Co);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace yolo
 
@@ -1022,7 +1476,7 @@ cudaError_t launch(const void* x_, const void* g_, const float* w1t,
 // permutes them); dx like x; dw1 (Cout/2, Cin/2, 3, 3), dw2 (Cout/2, Cin/2)
 // f32. Scratch, all allocated by the wrapper: M and dM (B, H/2, W/2, Cin/2)
 // f32, idx the same in uint8, dA1 (B, H-1, W-1, Cin/2) f32, avg1 the
-// same in bf16 (bf16 x only; may be null for f32), part
+// same in x's dtype, part
 // (S, 10, Cin/2, Cout/2) f32. Cin and Cout even, H and W >= 2,
 // 1 <= S <= B*(H/2)*(W/2) < 2^31, 16-byte aligned tensors (checked by the
 // Python wrapper).
@@ -1040,7 +1494,10 @@ extern "C" int yolo_adown_bwd(const void* x, const void* g, const void* w1t,
     return yolo::launch<__nv_bfloat16>(x, g, cf(w1t), cf(w2t), dx, f(dw1),
                                        f(dw2), f(M), i8, f(dM), f(dA1), avg1,
                                        f(part), B, H, W, Cin, Cout, S, s);
-  return yolo::launch<float>(x, g, cf(w1t), cf(w2t), dx, f(dw1), f(dw2),
-                             f(M), i8, f(dM), f(dA1), avg1, f(part), B, H, W,
-                             Cin, Cout, S, s);
+  // 16-byte copies where every row of the f32 products' operands starts
+  // 16-byte aligned
+  const bool vec = Cin / 2 % 4 == 0 && Cout / 2 % 4 == 0;
+  return (vec ? yolo::launch_f32<4> : yolo::launch_f32<1>)(
+      cf(x), cf(g), cf(w1t), cf(w2t), f(dx), f(dw1), f(dw2), f(M), i8, f(dM),
+      f(dA1), f(avg1), f(part), B, H, W, Cin, Cout, S, s);
 }

@@ -63,6 +63,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// the same for one 4-byte element (cp.async.ca: .cg copies 16 bytes only)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -114,7 +122,7 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
 }
 
 // f32-accurate products on the tensor cores (3xTF32), used by the f32
-// kernels of csp_chain.cu and stem_wgrad.cu. TF32 keeps 10 mantissa bits,
+// kernels of csp_chain.cu, stem_wgrad.cu and adown_bwd.cu. TF32 keeps 10 mantissa bits,
 // too few for the f32 tolerances, so each f32 operand is split into
 // hi = a rounded to TF32 (to nearest, ties away from zero: the value of
 // cvt.rna.tf32.f32) and lo = a - hi (exact in f32) cut to TF32, and a * b

@@ -298,9 +298,10 @@ def adown_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
     pool_idx = torch.empty((n, ch), dtype=torch.uint8, device=x.device)
     d_max = torch.empty((n, ch), **f32)
     d_avg1 = torch.empty((bsz, h - 1, w - 1, ch), **f32)
-    # the bf16 avg of the tensor-core products (bf16 only)
+    # the branch-1 avg in x's dtype, which the tensor-core weight-gradient
+    # products read
     avg1 = torch.empty((bsz, h - 1, w - 1, ch), dtype=x.dtype,
-                       device=x.device) if x.dtype == torch.bfloat16 else None
+                       device=x.device)
     part = torch.empty((slabs, 10, ch, co), **f32)
     # tap-major f32 weights: (9, Co, Ch) and (Co, Ch)
     w1t = w1.float().permute(2, 3, 0, 1).contiguous()
@@ -311,7 +312,7 @@ def adown_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
             x.data_ptr(), g.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
             dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
             pool_max.data_ptr(), pool_idx.data_ptr(), d_max.data_ptr(),
-            d_avg1.data_ptr(), None if avg1 is None else avg1.data_ptr(),
+            d_avg1.data_ptr(), avg1.data_ptr(),
             part.data_ptr(), bsz, h, w, cin, 2 * co,
             slabs, common.dtype_code(x), common.stream(x))
     build.check(err, "adown_bwd")
