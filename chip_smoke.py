@@ -19,9 +19,9 @@ non-zero (no phase is caught):
    x (32, 64, 160, 160) and (32, 64, 80, 80); ADown at gelan-c's five
    sites through `adown` (packs, then the kernel) and through the packed
    call a fused ADown makes (timed), each site's time beside its bound and
-   (bf16) beside the time of its cuDNN composite (avg_pool2d, the two
-   F.conv2d with bias, max_pool2d, silu, cat: a composite of library calls,
-   not one call, so not the kernel's `library_ms`);
+   beside the time of its cuDNN composite (avg_pool2d, the two F.conv2d
+   with bias, max_pool2d, silu, cat, TF32 off: a composite of library
+   calls, not one call, so not the kernel's `library_ms`);
 4. the trained tiny fixture (assets/dryrun_tiny.npz, TINY_YAML, 160 px)
    served on cuda and on the CPU (plain versions) in f32: equal detections;
 5. gelan-c at full width: random weights from seed 0, fused, bf16, four
@@ -32,8 +32,8 @@ non-zero (no phase is caught):
    against their plain versions at gelan-c's 640 px, batch 32 train
    shapes, in f32 and bf16 (the bf16 stem weight gradient also at batch
    8, with its fraction of the bound and its bytes/s; ADown raw, which
-   packs its weights on every call, per site beside its bound and, bf16,
-   its cuDNN composite without bias and SiLU; the ADown backward per site
+   packs its weights on every call, per site beside its bound and its
+   cuDNN composite without bias and SiLU; the ADown backward per site
    beside its bound): outputs and dx within `tolerance`, weight gradients within a relative L2 of 1e-5
    (f32) / 2e-2 (bf16), the stem weight gradient and the ADown backward
    equal across two calls, and times;
@@ -58,9 +58,9 @@ the work: the larger of the bytes each function must move (inputs read
 once, outputs written once) over 3.35 TB/s, and its operations at the rate
 of the arithmetic the kernel issues (`ops_rate`): 989 TFLOP/s (bf16 tensor
 cores), three TF32 products per operation at 495 TFLOP/s (3xTF32: the f32
-chain, the f32 stem weight gradient and the f32 ADown backward's
-products) or 67 TFLOP/s (the other f32 kernels and NMS, on the CUDA
-cores), the H100 SXM data sheet's rates,
+chain, the f32 stem weight gradient, the f32 ADown forward and raw
+forward, and the f32 ADown backward's products) or 67 TFLOP/s (the other
+f32 kernels and NMS, on the CUDA cores), the H100 SXM data sheet's rates,
 computed from this run's inputs; `bound_fraction` is bound_ms / ms. Each
 kernel's entry holds its bf16 numbers and, under "f32", its f32 ones (NMS
 runs in f32 only: the same numbers); the stage1 kernels, the stem weight
@@ -129,7 +129,7 @@ WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "3xtf32": 495e12 / 3}
 # the f32 kernels whose products run in 3xTF32 on the tensor cores
-F32_3XTF32 = ("csp_chain", "stem_wgrad", "adown_bwd")
+F32_3XTF32 = ("csp_chain", "stem_wgrad", "adown", "adown_raw", "adown_bwd")
 
 
 def nbytes(*tensors) -> int:
@@ -220,23 +220,22 @@ def adown_composite(x, w1, b1, w2, b2):
 def adown_site(name: str, tag: str, x: torch.Tensor, y: torch.Tensor,
                ms: float, plain_ms: float, raw: bool, args) -> dict:
     """One ADown site's numbers: its bound (x, the weights and y once; the
-    3x3 and the 1x1 conv, each writing half of y's channels), the bf16
-    composite's time, and the printed line."""
+    3x3 and the 1x1 conv, each writing half of y's channels, at the rate
+    of the arithmetic the kernel issues), its cuDNN composite's time, and
+    the printed line."""
     cin = x.shape[1]
     ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
+    kernel = "adown_raw" if raw else "adown"
     r = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-         **bound(nbytes(x, *args, y), ops, tag)}
-    line = (f"  {'adown_raw' if raw else 'adown'} {name} {tag}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), fraction "
-            f"{r['bound_ms'] / ms:.3f}")
-    if tag == "bf16":
-        comp = (lambda: adown_composite(x, args[0], None, args[1], None)) \
-            if raw else (lambda: adown_composite(x, *args))
-        r["composite_ms"] = cuda_ms(comp, 5)
-        line += (f"; cuDNN composite (a composite of library calls) "
-                 f"{r['composite_ms']:.4f} ms")
-    print(line)
+         **bound(nbytes(x, *args, y), ops, rate(kernel, tag))}
+    comp = (lambda: adown_composite(x, args[0], None, args[1], None)) \
+        if raw else (lambda: adown_composite(x, *args))
+    r["composite_ms"] = cuda_ms(comp, 5)
+    print(f"  {kernel} {name} {tag}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}, {r['ops_rate']}), fraction "
+          f"{r['bound_ms'] / ms:.3f}; cuDNN composite (a composite of "
+          f"library calls) {r['composite_ms']:.4f} ms")
     return r
 
 
@@ -899,8 +898,8 @@ def main() -> int:
           f"off; adown kernels are the sum of gelan-c's five ADown shapes "
           f"(adown: the packed call of a fused ADown; adown_raw: its pack "
           f"launch and the kernel, as the train forward calls it), each also "
-          f"under 'shapes' (bf16 with composite_ms, the time of its cuDNN "
-          f"composite: a composite of library calls, not one call), nms is "
+          f"under 'shapes' with composite_ms, the time of its cuDNN "
+          f"composite (a composite of library calls, not one call), nms is "
           f"K=512, bottleneck_chain n=1 with library_ms two F.conv2d calls "
           f"(one per conv; no SiLU, no residual), conv3_silu at 160x160 with "
           f"library_ms one F.conv2d with bias (no SiLU), both also under "

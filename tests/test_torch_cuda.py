@@ -524,6 +524,32 @@ def test_adown_bwd_f32_runs_the_tensor_core_products(cuda):
     assert not any("gemm_" in name for name in names), names
 
 
+@pytest.mark.parametrize("shape,cout", [((2, 64, 20, 24), 64),
+                                        ((1, 12, 9, 11), 10)])
+def test_adown_f32_runs_the_tensor_core_kernel(cuda, shape, cout):
+    """An f32 fused call (`adown_packed`) launches the 3xTF32 kernel once,
+    an f32 `adown_raw` the pack and that kernel, neither the CUDA-core
+    `adown_kernel`; a second call gives the same output, bit for bit.
+    (1, 12, 9, 11) -> 10: branch channels 6 in, 5 out, so the kernel takes
+    4-byte copies and stores."""
+    g0 = torch.Generator().manual_seed(14)
+    cin, co = shape[1], cout // 2
+    x = _rand(g0, *shape, cl=True).to(cuda)
+    w1 = _rand(g0, co, cin // 2, 3, 3, scale=0.05).to(cuda)
+    b1 = _rand(g0, co).to(cuda)
+    w2 = _rand(g0, co, cin // 2, 1, 1, scale=0.1).to(cuda)
+    b2 = _rand(g0, co).to(cuda)
+    w1p, w2p = adown.pack_weights(w1, w2)
+    for fn, launches in (
+            (lambda: adown.adown_packed(x, w1p, b1, w2p, b2), 1),
+            (lambda: adown.adown_raw(x, w1, w2), 2)):
+        names = [n for n in _cuda_kernels(fn) if "yolo" in n]
+        assert len(names) == launches, names
+        assert sum("adown_tf32_kernel" in n for n in names) == 1, names
+        assert not any("adown_kernel" in n for n in names), names
+        assert torch.equal(fn(), fn())
+
+
 def test_kernels_launch_on_a_second_device(cuda):
     """Launch setup (the shared-memory opt-in, the SM count of a persistent
     grid) is kept per device: the kernels that opt in run on cuda:1 after

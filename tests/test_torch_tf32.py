@@ -5,13 +5,16 @@ TF32 keeps 10 mantissa bits. The f32 bottleneck chain, the f32 stem
 weight gradient and the f32 ADown backward's products split each f32
 operand into hi = a rounded to TF32 (to nearest, ties away from zero:
 cvt.rna.tf32.f32) and lo = a - hi cut to TF32, and take a * b as
-lo_a hi_b + hi_a lo_b + hi_a hi_b. Here the split is emulated in torch with
-the kernels' integer arithmetic; a product of two TF32 values is exact in
-f32, as on the tensor cores, and the sums are f32. At the shapes and
-scales of the chain's convs, of the stem weight gradient and of the ADown
-backward's dW1 and dA1, 3xTF32 meets the f32 tolerances of chip_smoke.py
-and tests/test_torch_cuda.py against an f64 reference, and one TF32
-product does not.
+lo_a hi_b + hi_a lo_b + hi_a hi_b. The f32 ADown forward splits its A
+operand (the avg, the max) so, and its weights by cutting (hi = the weight
+cut to TF32, as the tensor cores read an f32 operand's top bits). Here the
+split is emulated in torch with the kernels' integer arithmetic; a product
+of two TF32 values is exact in f32, as on the tensor cores, and the sums
+are f32. At the shapes and scales of the chain's convs, of the stem weight
+gradient, of the ADown backward's dW1 and dA1 and of the ADown forward's
+two convs, 3xTF32 meets the f32 tolerances of chip_smoke.py and
+tests/test_torch_cuda.py against an f64 reference, and one TF32 product
+does not.
 """
 
 import numpy as np
@@ -43,9 +46,20 @@ def split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, cut(a - hi)
 
 
-def three_tf32(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """op (bilinear, f32) in 3xTF32, the small terms first."""
-    (ah, al), (bh, bl) = split(a), split(b)
+def split_cut(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """hi = a cut to TF32, lo = a - hi (exact) cut to TF32: what the
+    tensor cores multiply when handed a and a - cut(a) as they are (they
+    read a TF32 operand's top 19 bits), as the f32 ADown forward hands them
+    its weights."""
+    hi = cut(a)
+    return hi, cut(a - hi)
+
+
+def three_tf32(op, a: torch.Tensor, b: torch.Tensor,
+               split_a=split) -> torch.Tensor:
+    """op (bilinear, f32) in 3xTF32, the small terms first; a split by
+    `split_a`, b rounded (split)."""
+    (ah, al), (bh, bl) = split_a(a), split(b)
     return (op(al, bh) + op(ah, bl)) + op(ah, bh)
 
 
@@ -70,6 +84,11 @@ def test_tf32_rounding_is_cvt_rna():
     assert not (lo.view(torch.int32) & 0x1FFF).any()
     assert ((h.double() + lo.double() - a.double()).abs()
             <= a.abs().double() * 2.0 ** -21).all()
+    # cut: lo holds all but 2^-20 of a
+    h, lo = split_cut(a)
+    assert torch.equal(h, cut(a)) and not (lo.view(torch.int32) & 0x1FFF).any()
+    assert ((h.double() + lo.double() - a.double()).abs()
+            <= a.abs().double() * 2.0 ** -20).all()
 
 
 def _chain(r, ws, bs, conv):
@@ -191,3 +210,85 @@ def test_3xtf32_adown_da1_meets_the_f32_tolerance():
            for name, f in (("3x", three_tf32), ("1x", one_tf32))}
     assert err["3x"] <= ATOL / 10, err
     assert err["1x"] > ATOL, err
+
+
+def _adown_fwd_operands(ch: int, seed: int):
+    """The ADown forward's operands at Ch = Co = ch: the f32 avg of x (the
+    kernel's order, ((x00 + x01) + (x10 + x11)) / 4) split into the two
+    branches' halves, and w1, w2 at 1/sqrt(fan-in) as the model's init
+    draws them; a 12 x 12 image, so 36 output pixels."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((1, 2 * ch, 12, 12),
+                                             dtype=np.float32))
+    a = ((x[:, :, :-1, :-1] + x[:, :, :-1, 1:])
+         + (x[:, :, 1:, :-1] + x[:, :, 1:, 1:])) * 0.25
+    a1, a2 = a.chunk(2, dim=1)
+    w1 = torch.from_numpy(rng.standard_normal((ch, ch, 3, 3),
+                                              dtype=np.float32)
+                          / np.sqrt(9 * ch).astype(np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((ch, ch), dtype=np.float32)
+                          / np.sqrt(ch).astype(np.float32))
+    return a1, a2, w1, w2
+
+
+def _segments(f, w: torch.Tensor, cols: torch.Tensor, parts) -> torch.Tensor:
+    """sum over parts of f(w[:, part] @ cols[part]): each part's products
+    summed apart (on the card, by the tensor cores), then the parts added
+    in f32 (by FADD)."""
+    out = 0.0
+    for p in parts:
+        out = out + f(lambda u, v: u @ v, w[:, p], cols[p])
+    return out
+
+
+# the weights' split: rounded as the other f32 kernels split, or cut as
+# csrc/adown.cu's f32 forward splits them
+W_SPLITS = {"round": split, "cut": split_cut}
+
+
+@pytest.mark.parametrize("w_split", sorted(W_SPLITS))
+@pytest.mark.parametrize("segments", ["chunks", "taps"])
+@pytest.mark.parametrize("ch", [128, 256])
+def test_3xtf32_adown_conv_meets_the_f32_tolerance(ch, segments, w_split):
+    """Branch 1, the 3x3 stride-2 conv of the f32 avg, as an implicit
+    GEMM over K = (channel, tap): "chunks" sums the 9 taps of each two
+    8-channel chunks apart, as csrc/adown.cu's f32 kernel does; "taps"
+    each tap's products over all channels (nine segments)."""
+    a1, _, w1, _ = _adown_fwd_operands(ch, 9 + ch)
+    cols = F.unfold(a1, 3, padding=1, stride=2)[0]     # (ch 9, 36)
+    w = w1.reshape(ch, 9 * ch)                         # k = 9 ci + tap
+    k = torch.arange(9 * ch)
+    parts = ([k[(k // 9) // 16 == c] for c in range(ch // 16)]
+             if segments == "chunks" else [k[k % 9 == t] for t in range(9)])
+    ref = w.double() @ cols.double()
+    tol = OUT_REL * max(1.0, float(ref.abs().max()))
+    def three(op, a, b):
+        return three_tf32(op, a, b, W_SPLITS[w_split])
+
+    err = {name: float((_segments(f, w, cols, parts).double() - ref)
+                       .abs().max())
+           for name, f in (("3x", three), ("1x", one_tf32))}
+    assert err["3x"] <= tol / 10, err
+    assert err["1x"] > tol, err
+
+
+@pytest.mark.parametrize("w_split", sorted(W_SPLITS))
+@pytest.mark.parametrize("ch", [128, 256])
+def test_3xtf32_adown_pool_meets_the_f32_tolerance(ch, w_split):
+    """Branch 2, the 1x1 conv of maxpool(3, 2, 1) of the f32 avg, the
+    products of each two 8-channel chunks summed apart, as the f32 kernel
+    does."""
+    _, a2, _, w2 = _adown_fwd_operands(ch, 11 + ch)
+    m = F.max_pool2d(a2, 3, 2, 1)[0].reshape(ch, -1)   # (ch, 36)
+    k = torch.arange(ch)
+    parts = [k[k // 16 == c] for c in range(ch // 16)]
+    ref = w2.double() @ m.double()
+    tol = OUT_REL * max(1.0, float(ref.abs().max()))
+    def three(op, a, b):
+        return three_tf32(op, a, b, W_SPLITS[w_split])
+
+    err = {name: float((_segments(f, w2, m, parts).double() - ref)
+                       .abs().max())
+           for name, f in (("3x", three), ("1x", one_tf32))}
+    assert err["3x"] <= tol / 10, err
+    assert err["1x"] > tol, err

@@ -26,7 +26,7 @@
 // output channels to 128 (Co <= 128) or a multiple of 256 (`packed_n`).
 // A fused ADown packs them once (ops/kernels/adown.py: pack_weights); the
 // train forward packs, casting to x's dtype, in one launch of
-// yolo_adown_pack. Both variants below read the same image.
+// yolo_adown_pack. Every variant below reads the same image.
 //
 // What bounds it on an H100 (bf16, gelan-c at 640 px, batch 32): x, the
 // weights and y once each at 3.35 TB/s, or the products at 989 TFLOP/s:
@@ -86,10 +86,20 @@
 // Raw mode is a template parameter (as a run-time flag in the wmma kernel
 // it cost 7 registers and a third of the speed).
 //
-// Everything else (f32, the Evaluator's default; bf16 with other channel
-// counts): CUDA cores, an 8x8-pixel tile, 64 output channels of one branch
-// per block, chunks of 16 input channels, a 4-pixel x 4-channel f32
-// register tile per thread. Its redesign is later work.
+// f32 (the default dtype of the Evaluator and of TrainConfig), any even
+// Cin and Cout: the products on the tensor cores in 3xTF32 by TF32 wgmma
+// (hopper.cuh: wgmma_m64n128k8_tf32; one TF32 product misses the f32
+// tolerances), `namespace f32` below. Its bound is the products: 10 x 2 x
+// Ch x (output elements / 2) operations at 495 / 3 TFLOP/s, 0.407 ms at
+// down1 and down2, 0.102 at down3, pan_down1 and pan_down2 (the f32 bytes,
+// 0.31, 0.16, 0.04, 0.08, 0.04 ms, stay below): one block takes a tile's
+// whole n-block of output channels for both branches, so each avg value is
+// formed once a task, and its loads, operand builds and products overlap.
+//
+// bf16 with channel counts that are not multiples of 16 (no model config;
+// the card tests): CUDA cores, an 8x8-pixel tile, 64 output channels of
+// one branch per block, chunks of 16 input channels, a 4-pixel x
+// 4-channel f32 register tile per thread.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -113,17 +123,11 @@ constexpr int kMaxFloats = kTile * kTile * kCK;
 constexpr size_t kSmemBytes =
     sizeof(float) * (kAvgFloats + kW1Floats + kMaxFloats);
 
+using bf16 = __nv_bfloat16;
+
 // 8 contiguous elements of the packed image (one output channel's 8 input
 // channels of a tap), as f32
-__device__ __forceinline__ void load8(float (&v)[8], const float* p) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(float (&v)[8],
-                                      const __nv_bfloat16* p) {
+__device__ __forceinline__ void load8(float (&v)[8], const bf16* p) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
@@ -134,11 +138,10 @@ __device__ __forceinline__ void load8(float (&v)[8],
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-             const T* __restrict__ b1, const T* __restrict__ w2,
-             const T* __restrict__ b2, T* __restrict__ y, int H, int W,
+adown_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+             const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+             const bf16* __restrict__ b2, bf16* __restrict__ y, int H, int W,
              int Cin, int Cout, int Ho, int Wo, int tiles_w, int co_tiles,
              int raw) {
   extern __shared__ float smem[];
@@ -166,7 +169,7 @@ adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  const T* xb = x + (size_t)b * H * W * Cin;
+  const bf16* xb = x + (size_t)b * H * W * Cin;
   const int cbase = branch * Ch;          // first input channel of the branch
   const float pad = branch == 0 ? 0.0f : -CUDART_INF_F;
 
@@ -180,7 +183,7 @@ adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
       if (ci0 + k >= Ch) {
         v = 0.0f;                         // channel past the branch: no term
       } else if (ay >= 0 && ay <= H - 2 && ax >= 0 && ax <= W - 2) {
-        const T* p = xb + ((size_t)ay * W + ax) * Cin + cbase + ci0 + k;
+        const bf16* p = xb + ((size_t)ay * W + ax) * Cin + cbase + ci0 + k;
         const size_t row = (size_t)W * Cin;
         v = 0.25f * ((to_f32(p[0]) + to_f32(p[Cin])) +
                      (to_f32(p[row]) + to_f32(p[row + Cin])));
@@ -193,7 +196,7 @@ adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     //    output channel's 8 contiguous input channels, the lanes along the
     //    output channels, so that the shared-memory writes do not conflict
     const int taps = branch == 0 ? 9 : 1;
-    const T* wsrc = (branch == 0 ? w1 : w2) + (size_t)(ci0 / 16) * blk +
+    const bf16* wsrc = (branch == 0 ? w1 : w2) + (size_t)(ci0 / 16) * blk +
                     (co0 / 8) * 128;
     for (int it = tid; it < taps * 128; it += kThreads) {
       const int nr = it % 8, grp = (it / 8) % 8, kh = (it / 64) % 2;
@@ -257,7 +260,7 @@ adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 
   // epilogue: bias + SiLU (raw: neither), into channels [branch*Co + co]
-  const T* bias = branch == 0 ? b1 : b2;
+  const bf16* bias = branch == 0 ? b1 : b2;
   const int oy = oy0 + pr;
   if (oy >= Ho) return;
 #pragma unroll
@@ -270,7 +273,7 @@ adown_kernel(const T* __restrict__ x, const T* __restrict__ w1,
       const int ox = ox0 + pc0 + i;
       if (ox >= Wo) continue;
       y[(((size_t)b * Ho + oy) * Wo + ox) * Cout + branch * Co + co] =
-          from_f32<T>(raw ? acc[i][j] : silu(acc[i][j] + bj));
+          from_f32<bf16>(raw ? acc[i][j] : silu(acc[i][j] + bj));
     }
   }
 }
@@ -859,25 +862,32 @@ adown_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1p,
                                             total);
 }
 
-template <int kN, int kSlots, int kXStages, int kBuildWarps, bool kRaw>
-cudaError_t launch_n(const void* x, const void* w1p, const void* b1,
-                     const void* w2p, const void* b2, void* y, Geo g,
-                     cudaStream_t stream) {
-  static PerDeviceSmem smem;
-  constexpr int bytes = smem_bytes<kN, kSlots, kXStages>();
-  constexpr int kThreads = threads<kBuildWarps>();
-  auto kernel = adown_wgmma_kernel<kN, kSlots, kXStages, kBuildWarps, kRaw>;
-  cudaError_t e = smem.opt_in((const void*)kernel, bytes);
-  if (e != cudaSuccess) return e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    kThreads, bytes);
-  if (e != cudaSuccess) return e;
-  const int ctas = per_sm * sm_count();
+// The geometry of a call; the tile fields are set by plan()
+Geo geometry(int B, int H, int W, int Cin, int Cout) {
+  Geo g{};
+  g.B = B;
+  g.H = H;
+  g.W = W;
+  g.Cin = Cin;
+  g.Cout = Cout;
+  g.Ch = Cin / 2;
+  g.Co = Cout / 2;
+  g.Ho = H / 2;
+  g.Wo = W / 2;
+  g.KS = ceil_div(g.Ch, 16);
+  g.Np = packed_n(g.Co);
+  return g;
+}
+
+// Tasks of one tile and one n-block of kN output channels, the n-blocks
+// of a tile neighbours: takes the tile shape of `tiles` that needs the
+// fewest rounds of `ctas` resident CTAs, then the fewest tasks
+template <int kNT>
+cudaError_t plan(Geo& g, int kN, int ctas, const TileShape (&tiles)[kNT]) {
   if (ctas < 1) return cudaErrorInvalidConfiguration;
-  g.nblocks = g.Np / kN;
+  g.nblocks = ceil_div(g.Co, kN);
   long best_rounds = -1, best_tasks = 0;
-  for (const TileShape& s : kTiles) {
+  for (const TileShape& s : tiles) {
     const long tasks = (long)g.B * ceil_div(g.Ho, s.rows) *
                        ceil_div(g.Wo, s.cols) * g.nblocks;
     const long rounds = (tasks + ctas - 1) / ctas;
@@ -898,6 +908,26 @@ cudaError_t launch_n(const void* x, const void* w1p, const void* b1,
   g.inv_xpc = 1.0f / g.XPC;
   g.inv_apc = 1.0f / g.APC;
   g.inv_tc = 1.0f / g.TC;
+  return cudaSuccess;
+}
+
+template <int kN, int kSlots, int kXStages, int kBuildWarps, bool kRaw>
+cudaError_t launch_n(const void* x, const void* w1p, const void* b1,
+                     const void* w2p, const void* b2, void* y, Geo g,
+                     cudaStream_t stream) {
+  static PerDeviceSmem smem;
+  constexpr int bytes = smem_bytes<kN, kSlots, kXStages>();
+  constexpr int kThreads = threads<kBuildWarps>();
+  auto kernel = adown_wgmma_kernel<kN, kSlots, kXStages, kBuildWarps, kRaw>;
+  cudaError_t e = smem.opt_in((const void*)kernel, bytes);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, bytes);
+  if (e != cudaSuccess) return e;
+  const int ctas = per_sm * sm_count();
+  e = plan(g, kN, ctas, kTiles);
+  if (e != cudaSuccess) return e;
   const int grid = g.n_tasks < ctas ? g.n_tasks : ctas;
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1p),
@@ -909,18 +939,7 @@ cudaError_t launch_n(const void* x, const void* w1p, const void* b1,
 cudaError_t launch(const void* x, const void* w1p, const void* b1,
                    const void* w2p, const void* b2, void* y, int B, int H,
                    int W, int Cin, int Cout, int raw, cudaStream_t stream) {
-  Geo g{};
-  g.B = B;
-  g.H = H;
-  g.W = W;
-  g.Cin = Cin;
-  g.Cout = Cout;
-  g.Ch = Cin / 2;
-  g.Co = Cout / 2;
-  g.Ho = H / 2;
-  g.Wo = W / 2;
-  g.KS = ceil_div(g.Ch, 16);
-  g.Np = packed_n(g.Co);
+  const Geo g = geometry(B, H, W, Cin, Cout);
   // (N, slots, x stages, builder warps): see threads() and smem_bytes()
   if (g.Co <= 128)
     return raw ? launch_n<128, 3, 3, 7, true>(x, w1p, b1, w2p, b2, y, g,
@@ -934,21 +953,659 @@ cudaError_t launch(const void* x, const void* w1p, const void* b1,
 
 }  // namespace tc
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// f32 tensor-core variant (3xTF32 on wgmma; any even Cin, Cout)
+// ---------------------------------------------------------------------------
+
+// A persistent, warp-specialized kernel. A task is one of tc's (tc::plan:
+// an output tile of up to 128 pixels, one n-block of 128 output
+// channels), both branches: branch 1's chunks of 8 input channels (one
+// TF32 k-step), then branch 2's. The n-blocks of a tile are neighbours in
+// the grid, so the second reads its x from L2. Each CTA walks tasks
+// blockIdx.x, + gridDim.x, ..., and the chunk counter runs on across its
+// tasks.
+// - Warpgroups 0 and 1 (the consumers) take the task's pixels 0-63 and
+//   64-127 by all 128 channels: per chunk, 9 taps (A at the tap's shift
+//   in the avg patch) or one, each three m64n128k8 TF32 wgmma (lo_a hi_b,
+//   hi_a lo_b, hi_a hi_b) with A split into hi and lo in registers as it
+//   loads. A segment (the products summed apart, in an accumulator that
+//   its first product overwrites) is two chunks of a branch, or its last
+//   one; it is then added into the output accumulators by FADD. The next
+//   tap's A loads while a tap's products run. After a branch's last chunk
+//   its outputs leave from the accumulators: bias and accurate SiLU (raw:
+//   neither), a quad transpose, and 32-byte stores of a lane's 8
+//   consecutive channels.
+// - Warps 8-11 (the producers) prepare each chunk in one of two slots
+//   while the consumers run the chunk before: they copy its weights by
+//   cp.async into the wgmma B layout, load its x patch (the tile's
+//   (2R+2) x (2C+2) pixels, zero outside the image and past Ch; the next
+//   chunk's is loaded while this one's weights land), build its A operand
+//   from the x patch (branch 1 the (2R+1) x (2C+1) avg patch, 0 outside
+//   the avg domain; branch 2 the 3 x 3 max of the avg at each tile pixel,
+//   0 for a pixel outside the output), and write the weights' lo half.
+// Named barriers hand the slots over (FULL: prepared, EMPTY: the
+// consumers' products on it are done).
+// Why so (H100; scratch builds timed one stage at a time, clock64() per
+// phase and microbenchmarks, none kept): mma.sync m16n8k8 TF32 tops out
+// well below TF32 wgmma, and loops of it stalled well below that; wgmma in
+// this kernel's issue pattern alone runs near the data sheet's TF32 rate.
+// A block of 9 to 12 warps gets at most 168 registers a thread, which two
+// 64-float accumulators and the A fragments fill: more producer warps, or
+// the consumers doing more than their products, spilled, and spilled wgmma
+// registers serialize wgmma. 8 warps alone (no producers) left the loads
+// and builds exposed. Splitting the weights (every task re-splits them)
+// was the largest share of the consumers' time until it moved to the
+// producers as a cut (one write).
+namespace f32 {
+
+using namespace sm90;
+using tc::Geo;
+using tc::Task;
+using tc::div_small;
+using tc::bar_sync;
+using tc::bar_arrive;
+
+constexpr int kConsumers = 256;   // 2 warpgroups of 64 pixels
+constexpr int kProducers = 128;   // 4 warps
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kM = tc::kM;        // tile pixels (128)
+constexpr int kN = 128;           // output channels of an n-block
+constexpr int kCK = 8;            // input channels of a chunk (one k-step)
+// named barriers (0 is __syncthreads): FULL and EMPTY per slot, and the
+// producers' own
+constexpr int kFullBar = 1, kEmptyBar = 3, kProdBar = 5;
+
+// a slot's weights: hi, then lo, each 9 taps of [co / 8][ci / 4][co % 8]
+// [ci % 4] (the B layout of hopper.cuh: core matrices of 8 output channels
+// by 4 input channels, the next along K 128 bytes on, along N 256)
+constexpr int kTapBytes = kN * kCK * 4;                   // 4,096
+constexpr int kLoOffset = 9 * kTapBytes;                  // 36,864
+constexpr int kBBytes = 2 * kLoOffset;                    // 73,728
+// a slot's A operand: avg patch pixel p (branch 2: tile pixel m) as its 8
+// channels in the order 0, 4, 1, 5, 2, 6, 3, 7, so that a lane's two
+// columns t and t + 4 are one 8-byte load; avg pixels 12 floats apart
+// (two rows at the conv's stride of 2 pixels then meet different banks),
+// max tile rows 8
+constexpr int kAStride = 12, kMStride = 8;
+constexpr int kABytes = tc::kAPix * kAStride * 4;         // 26,928
+constexpr int kXBytes = tc::kXPix * kCK * 4;              // 19,584
+// 220,896 bytes; a block may have 232,448
+constexpr int kSmemBytes = 2 * kBBytes + 2 * kABytes + kXBytes;
+static_assert(kM * kMStride * 4 <= kABytes, "the max tile fits");
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 max4(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z),
+                     fmaxf(a.w, b.w));
+}
+
+// channels 0-3 (lo4) and 4-7 (hi4) of one pixel, in the operand's order
+__device__ __forceinline__ void store_pixel(float* dst, float4 lo4,
+                                            float4 hi4) {
+  *reinterpret_cast<float4*>(dst) = make_float4(lo4.x, hi4.x, lo4.y, hi4.y);
+  *reinterpret_cast<float4*>(dst + 4) =
+      make_float4(lo4.z, hi4.z, lo4.w, hi4.w);
+}
+
+// A position in a role's walk: chunk j (of 2 KC) of task ti, decoded as t
+struct Cursor {
+  int ti, j;
+  Task t;
+  __device__ __forceinline__ void next(const Geo& g, int per_task) {
+    if (++j == per_task) {
+      j = 0;
+      ti += gridDim.x;
+      t = tc::task_of(ti, g);
+    }
+  }
+};
+
+// A producer's 16-byte copies of a task's x patches (E = 4): copy
+// e = pt + kProducers i is x patch pixel e / 2, channels 4 (e % 2) on;
+// its offset in the image (floats, before the chunk's channels), or -1
+// where the pixel is outside the image or the copy is past the patch
+constexpr int kXCopies = (tc::kXPix * 2 + kProducers - 1) / kProducers;
+struct XCopies {
+  int off[kXCopies];
+  __device__ void set(const Geo& g, Task t, int pt) {
+    const int n = (2 * g.TR + 2) * g.XPC * 2;
+    const int y0 = 2 * t.oy0 - 1, x0 = 2 * t.ox0 - 1;
+#pragma unroll
+    for (int i = 0; i < kXCopies; ++i) {
+      const int e = pt + i * kProducers, q = e >> 1;
+      const int qr = div_small(q, g.inv_xpc);
+      const int iy = y0 + qr, ix = x0 + q - qr * g.XPC;
+      off[i] = e < n && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W
+                   ? (iy * g.W + ix) * g.Cin + 4 * (e & 1)
+                   : -1;
+    }
+  }
+};
+
+// chunk k's x patch (E = 4, from the task's copies): branch 1's chunk
+// k.j or, for k.j >= KC, branch 2's chunk k.j - KC (input channels
+// 8 (k.j - KC) on of the second half of x); zero past Ch (Ch % 4 == 0)
+__device__ __forceinline__ void load_x4(uint32_t xs, const float* x,
+                                        const Geo& g, const Cursor& k,
+                                        int KC, const XCopies& xc, int pt) {
+  const bool pool = k.j >= KC;
+  const int ck = pool ? k.j - KC : k.j;
+  const int n = (2 * g.TR + 2) * g.XPC * 2;
+  const float* xb = x + (size_t)k.t.b * g.H * g.W * g.Cin +
+                    (pool ? g.Ch : 0) + kCK * ck;
+#pragma unroll
+  for (int i = 0; i < kXCopies; ++i) {
+    const int e = pt + i * kProducers;
+    if (e >= n) break;
+    const bool ok = xc.off[i] >= 0 && kCK * ck + 4 * (e & 1) < g.Ch;
+    cp_async16(xs + 16 * e, ok ? xb + xc.off[i] : x, ok);
+  }
+}
+
+// the same by 4-byte copies (E = 1: any even Cin), copy e is x patch
+// pixel e / 8, channel e % 8
+__device__ __forceinline__ void load_x1(uint32_t xs, const float* x,
+                                        const Geo& g, const Cursor& k,
+                                        int KC, int pt) {
+  const bool pool = k.j >= KC;
+  const int ck = pool ? k.j - KC : k.j;
+  const int n = (2 * g.TR + 2) * g.XPC * kCK;
+  const int y0 = 2 * k.t.oy0 - 1, x0 = 2 * k.t.ox0 - 1;
+  const float* xb = x + (size_t)k.t.b * g.H * g.W * g.Cin +
+                    (pool ? g.Ch : 0) + kCK * ck;
+  for (int e = pt; e < n; e += kProducers) {
+    const int q = e / kCK, u = e % kCK;
+    const int qr = div_small(q, g.inv_xpc);
+    const int iy = y0 + qr, ix = x0 + q - qr * g.XPC;
+    const bool ok = iy >= 0 && iy < g.H && ix >= 0 && ix < g.W &&
+                    kCK * ck + u < g.Ch;
+    cp_async4(xs + 4 * e, ok ? xb + ((size_t)iy * g.W + ix) * g.Cin + u : x,
+              ok);
+  }
+}
+
+// A producer's two 16-byte units of every tap's weights: unit v (pt and
+// pt + 128) is output channel co = v / 2, input channels 4 h on
+// (h = v % 2), which the packed image's block (tap, k-step) keeps
+// contiguous (8 input channels of one half of the k-step per output
+// channel); offsets in the slot (bytes) and in the block (floats)
+struct WUnits {
+  int dst[2], src[2];
+  __device__ explicit WUnits(int pt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = pt + i * kProducers, co = v >> 1, h = v & 1;
+      dst[i] = (co / 8) * 256 + h * 128 + (co % 8) * 16;
+      src[i] = (co / 8) * 128 + (co % 8) * 8 + 4 * h;
+    }
+  }
+};
+static_assert(2 * kN == 2 * kProducers, "two weight units a producer a tap");
+
+// chunk k's weights into the slot's hi half
+__device__ __forceinline__ void load_w(uint32_t bs, const float* w1p,
+                                       const float* w2p, const Geo& g,
+                                       const Cursor& k, int KC,
+                                       const WUnits& wu) {
+  const bool pool = k.j >= KC;
+  const int ck = pool ? k.j - KC : k.j;
+  const size_t tap_stride = (size_t)g.KS * 16 * g.Np;
+  const float* wb = (pool ? w2p : w1p) + (size_t)(ck / 2) * 16 * g.Np +
+                    k.t.nb * 16 * kN + (ck % 2) * 64;
+  for (int tap = 0; tap < (pool ? 1 : 9); ++tap)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      cp_async16(bs + tap * kTapBytes + wu.dst[i],
+                 wb + tap * tap_stride + wu.src[i], true);
+}
+
+// b - (b cut to TF32): exact in f32
+__device__ __forceinline__ float cut_rest(float b) {
+  return b - __uint_as_float(__float_as_uint(b) & 0xffffe000u);
+}
+
+// The slot's weights split for the products: the tensor cores read a TF32
+// operand's top 19 bits (its low 13 are ignored), so the f32 weights serve
+// as hi = b cut to TF32 as they are, and lo = b - hi is written kLoOffset
+// on (the tensor cores cut it in turn). Cutting instead of rounding
+// (split_tf32, as A is split) leaves lo below 2^-10 |b|, and the products
+// within about 2^-20 of f32 ones: one write instead of two for the split.
+__device__ __forceinline__ void split_w(unsigned char* bs, int taps, int pt) {
+  for (int u = pt; u < taps * 2 * kN; u += kProducers) {
+    const float4 v = *reinterpret_cast<const float4*>(bs + 16 * u);
+    *reinterpret_cast<float4*>(bs + kLoOffset + 16 * u) = make_float4(
+        cut_rest(v.x), cut_rest(v.y), cut_rest(v.z), cut_rest(v.w));
+  }
+}
+
+// branch 1's A operand: avg patch pixel (ar, ac) reads x patch pixels
+// (ar, ac) .. (ar + 1, ac + 1), 0.25 * ((x00 + x01) + (x10 + x11)) in f32;
+// 0 outside the avg domain. An item is two avg pixels, rows ar = 2i and
+// ar + 1 of one column, which share x row ar + 1's pair sums.
+__device__ __forceinline__ void build_avg(const float* xs, float* as,
+                                          const Geo& g, Task t, int pt) {
+  const int rows = 2 * g.TR + 1, n = (g.TR + 1) * g.APC;
+  const int xrow = g.XPC * kCK;
+  for (int it = pt; it < n; it += kProducers) {
+    const int pr = div_small(it, g.inv_apc), ac = it - pr * g.APC;
+    const int ar = 2 * pr;
+    const int ay = 2 * t.oy0 - 1 + ar, ax = 2 * t.ox0 - 1 + ac;
+    const bool col = ax >= 0 && ax <= g.W - 2;
+    const bool in0 = col && ay >= 0 && ay <= g.H - 2;
+    const bool in1 = col && ay + 1 >= 0 && ay + 1 <= g.H - 2 &&
+                     ar + 1 < rows;
+    const float* q = xs + (ar * g.XPC + ac) * kCK;
+    float4 v0[2], v1[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float4 s0 = zero, s1 = zero, s2 = zero;
+      if (in0 || in1) {
+        s1 = add4(ld4(q + xrow + 4 * h), ld4(q + xrow + kCK + 4 * h));
+        if (in0) s0 = add4(ld4(q + 4 * h), ld4(q + kCK + 4 * h));
+        if (in1)
+          s2 = add4(ld4(q + 2 * xrow + 4 * h), ld4(q + 2 * xrow + kCK + 4 * h));
+      }
+      const float4 a0 = add4(s0, s1), a1 = add4(s1, s2);
+      v0[h] = in0 ? make_float4(0.25f * a0.x, 0.25f * a0.y, 0.25f * a0.z,
+                                0.25f * a0.w)
+                  : zero;
+      v1[h] = in1 ? make_float4(0.25f * a1.x, 0.25f * a1.y, 0.25f * a1.z,
+                                0.25f * a1.w)
+                  : zero;
+    }
+    store_pixel(as + (ar * g.APC + ac) * kAStride, v0[0], v0[1]);
+    if (ar + 1 < rows)
+      store_pixel(as + ((ar + 1) * g.APC + ac) * kAStride, v1[0], v1[1]);
+  }
+}
+
+// branch 2's A operand: row m is maxpool(3, 2, 1) of the avg at tile
+// pixel m (-inf outside the avg domain), 0 for a pixel outside the
+// output. The window's 4 x 4 x pixels are read a row at a time: the pair
+// sums of x rows k - 1 and k give avg row k - 1's window sums, in branch
+// 1's order; 0.25 x their max (exact) is the max of the avgs.
+__device__ __forceinline__ void build_max(const float* xs, float* as,
+                                          const Geo& g, Task t, int pt) {
+  for (int m = pt; m < kM; m += kProducers) {
+    const int r = div_small(m, g.inv_tc), c = m - r * g.TC;
+    float4 v[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f),
+                   make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+    if (m < g.TR * g.TC && t.oy0 + r < g.Ho && t.ox0 + c < g.Wo) {
+      const int ay0 = 2 * (t.oy0 + r) - 1, ax0 = 2 * (t.ox0 + c) - 1;
+      const float inf = CUDART_INF_F;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4 mx = make_float4(-inf, -inf, -inf, -inf), hp[3];
+        const float* q = xs + ((2 * r) * g.XPC + 2 * c) * kCK + 4 * h;
+#pragma unroll
+        for (int k = 0; k < 4; ++k, q += g.XPC * kCK) {
+          float4 f[4], cur[3];
+#pragma unroll
+          for (int px = 0; px < 4; ++px) f[px] = ld4(q + px * kCK);
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) cur[dx] = add4(f[dx], f[dx + 1]);
+          const int ay = ay0 + k - 1;     // avg row of x rows k - 1, k
+          if (k > 0 && ay >= 0 && ay <= g.H - 2) {
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const int ax = ax0 + dx;
+              if (ax >= 0 && ax <= g.W - 2)
+                mx = max4(mx, add4(hp[dx], cur[dx]));
+            }
+          }
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) hp[dx] = cur[dx];
+        }
+        v[h] = make_float4(0.25f * mx.x, 0.25f * mx.y, 0.25f * mx.z,
+                           0.25f * mx.w);
+      }
+    }
+    store_pixel(as + m * kMStride, v[0], v[1]);
+  }
+}
+
+// The producers walk the CTA's chunks. For chunk c, in slot c % 2: once
+// the consumers are done with chunk c - 2 (from c = 2 on), its weights'
+// copies start; the x patch (loaded during chunk c - 1) becomes its A
+// operand; the next chunk's x patch starts; the weights, once in, get
+// their lo half (split_w) and are fenced for wgmma's async proxy; then the
+// slot is marked full. The commit groups go X_0, then
+// W_c, X_{c+1} per chunk, so waiting for all but the newest group gives
+// X_c after W_c's commit and W_c after X_{c+1}'s.
+template <int E>
+__device__ __forceinline__ void producers(unsigned char* smem, const float* x,
+                                          const float* w1p, const float* w2p,
+                                          const Geo& g, int KC, int total) {
+  constexpr int kSync = kConsumers + kProducers;
+  unsigned char* const x_s = smem + 2 * kBBytes + 2 * kABytes;
+  const int pt = threadIdx.x - kConsumers, per_task = 2 * KC;
+  Cursor k{(int)blockIdx.x, 0, tc::task_of(blockIdx.x, g)}, kx = k;
+  const WUnits wu(pt);
+  XCopies xc;
+  // the x patch of chunk kx (E = 4: from the task's copies)
+  auto copy_x = [&]() {
+    if constexpr (E == 4) {
+      if (kx.j == 0) xc.set(g, kx.t, pt);
+      load_x4(smem_u32(x_s), x, g, kx, KC, xc, pt);
+    } else {
+      load_x1(smem_u32(x_s), x, g, kx, KC, pt);
+    }
+  };
+  copy_x();
+  kx.next(g, per_task);
+  cp_async_commit();
+#pragma unroll 1
+  for (int c = 0; c < total; ++c) {
+    const int slot = c & 1;
+    unsigned char* const bs = smem + slot * kBBytes;
+    float* const as = reinterpret_cast<float*>(smem + 2 * kBBytes +
+                                               slot * kABytes);
+    const bool pool = k.j >= KC;
+    if (c >= 2) bar_sync(kEmptyBar + slot, kSync);
+    load_w(smem_u32(bs), w1p, w2p, g, k, KC, wu);
+    cp_async_commit();
+    cp_async_wait<1>();                   // X_c
+    bar_sync(kProdBar, kProducers);
+    if (pool)
+      build_max(reinterpret_cast<const float*>(x_s), as, g, k.t, pt);
+    else
+      build_avg(reinterpret_cast<const float*>(x_s), as, g, k.t, pt);
+    bar_sync(kProdBar, kProducers);       // the x patch is free
+    if (c + 1 < total) copy_x();
+    kx.next(g, per_task);
+    cp_async_commit();
+    cp_async_wait<1>();                   // W_c
+    bar_sync(kProdBar, kProducers);
+    split_w(bs, pool ? 1 : 9, pt);
+    // the weights (hi), written through the generic proxy, are read by
+    // wgmma through the async proxy
+    fence_proxy_async();
+    bar_arrive(kFullBar + slot, kSync);
+    k.next(g, per_task);
+  }
+  cp_async_wait_all();
+}
+
+// the outputs of a branch from the accumulators: a lane holds rows
+// r0 = 64 wg + 16 warp + lane / 4 and r0 + 8, channels 8j + 2q, + 1 of
+// each group j of 8 (acc[4j + 2 rh], + 1 for row half rh); a quad
+// transpose of groups 4gr .. 4gr + 3 gives lane q channels 32gr + 8q ..
+// + 7
+template <int E, bool kRaw>
+__device__ __forceinline__ void epilogue(const float (&acc)[64], float* y,
+                                         const float* bias, const Geo& g,
+                                         Task t, int pool, int r0, int q) {
+  const int c0 = t.nb * kN;               // the n-block's first channel
+  const int cmax = g.Co - c0;             // its channels in the branch
+  float* dst[2];
+  bool ok[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int m = r0 + 8 * rh;
+    const int tr = div_small(m, g.inv_tc), tcol = m - tr * g.TC;
+    const int oy = t.oy0 + tr, ox = t.ox0 + tcol;
+    ok[rh] = m < g.TR * g.TC && oy < g.Ho && ox < g.Wo;
+    dst[rh] = y + (((size_t)t.b * g.Ho + oy) * g.Wo + ox) * g.Cout +
+              pool * g.Co + c0;
+  }
+#pragma unroll
+  for (int gr = 0; gr < 4; ++gr) {
+    float bl[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int ch = E == 4 ? 32 * gr + 8 * q + i
+                            : 32 * gr + 8 * (i / 2) + 2 * q + i % 2;
+      bl[i] = !kRaw && ch < cmax ? __ldg(bias + c0 + ch) : 0.0f;
+    }
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float f[8];
+      if constexpr (E == 4) {
+        uint32_t ex[4], ey[4], ox4[4], oy4[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          ex[jj] = __float_as_uint(acc[4 * (4 * gr + jj) + 2 * rh]);
+          ey[jj] = __float_as_uint(acc[4 * (4 * gr + jj) + 2 * rh + 1]);
+        }
+        quad_transpose(ex, ox4, q);
+        quad_transpose(ey, oy4, q);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          f[2 * jj] = __uint_as_float(ox4[jj]);
+          f[2 * jj + 1] = __uint_as_float(oy4[jj]);
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          f[2 * jj] = acc[4 * (4 * gr + jj) + 2 * rh];
+          f[2 * jj + 1] = acc[4 * (4 * gr + jj) + 2 * rh + 1];
+        }
+      }
+      if (!kRaw) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = silu(f[i] + bl[i]);
+      }
+      if (!ok[rh]) continue;
+      if constexpr (E == 4) {
+        // Co % 4 == 0: a lane's two 16-byte halves are in or out whole
+        const int ch = 32 * gr + 8 * q;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          if (ch + 4 * hh < cmax)
+            *reinterpret_cast<float4*>(dst[rh] + ch + 4 * hh) =
+                make_float4(f[4 * hh], f[4 * hh + 1], f[4 * hh + 2],
+                            f[4 * hh + 3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int ch = 32 * gr + 8 * (i / 2) + 2 * q + i % 2;
+          if (ch < cmax) dst[rh][ch] = f[i];
+        }
+      }
+    }
+  }
+}
+
+// A of one tap: rows r0, r0 + 8 at pixels p0 and p1 of the operand,
+// columns q and q + 4 (channels q and q + 4: one 8-byte load a row),
+// split into hi and lo
+__device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                       const float* as, int p0, int p1,
+                                       int q) {
+  const float2 v0 = *reinterpret_cast<const float2*>(as + p0 + 2 * q);
+  const float2 v1 = *reinterpret_cast<const float2*>(as + p1 + 2 * q);
+  split_tf32(v0.x, ah[0], al[0]);
+  split_tf32(v1.x, ah[1], al[1]);
+  split_tf32(v0.y, ah[2], al[2]);
+  split_tf32(v1.y, ah[3], al[3]);
+}
+
+// One chunk's products: kTaps taps, tap t's A in register set (P + t) % 2
+// (tap 0's loaded by the caller), B at bs + t * kTapBytes. The three
+// products of a tap are one commit group; tap t + 1's A loads once tap
+// t - 1's group is done. `fresh`: the chunk's first product overwrites the
+// segment. `release` >= 0: the chunk before, whose slot is released (once
+// total allows a later chunk on it) as soon as this chunk's first group is
+// issued and its own are done.
+template <int kTaps, int P>
+__device__ __forceinline__ void chunk_products(
+    float (&seg)[64], uint32_t (&ah)[2][4], uint32_t (&al)[2][4],
+    uint32_t bs, const float* as, int p0, int p1, int apc, int q, bool fresh,
+    int release, int total) {
+#pragma unroll
+  for (int tap = 0; tap < kTaps; ++tap) {
+    const int s = (P + tap) & 1;
+    const uint32_t bt = bs + tap * kTapBytes;
+    wgmma_fence();
+    wgmma_m64n128k8_tf32(seg, al[s], make_desc(bt), tap > 0 || !fresh);
+    wgmma_m64n128k8_tf32(seg, ah[s], make_desc(bt + kLoOffset), 1);
+    wgmma_m64n128k8_tf32(seg, ah[s], make_desc(bt), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (tap == 0 && release >= 0 && release + 2 < total)
+      bar_arrive(kEmptyBar + (release & 1), kConsumers + kProducers);
+    if (tap + 1 < kTaps) {
+      const int off = ((tap + 1) / 3 * apc + (tap + 1) % 3) * kAStride;
+      load_a(ah[s ^ 1], al[s ^ 1], as, p0 + off, p1 + off, q);
+    }
+  }
+}
+
+// The consumers walk the same chunks: wait until slot c % 2 is full and
+// run the chunk's products. A segment (the products summed apart before
+// FADD into the output accumulators) is two chunks of a branch, or its
+// last one, so that only a segment's end waits for the tensor cores to
+// drain; the products of the next chunk follow those of a chunk without a
+// drain. Every chunk has an odd number of taps, so chunk c's first tap
+// takes register set c % 2.
+template <int E, bool kRaw>
+__device__ __forceinline__ void consumers(unsigned char* smem, const float* b1,
+                                          const float* b2, float* y,
+                                          const Geo& g, int KC, int total) {
+  constexpr int kSync = kConsumers + kProducers;
+  const int tid = threadIdx.x, lane = tid % 32, q = lane % 4;
+  const int r0 = 64 * (tid / 128) + 16 * ((tid / 32) % 4) + lane / 4;
+  // this lane's rows' avg patch pixel at tap (0, 0), in floats (a row past
+  // the tile reads pixel 0)
+  int pa[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int m = r0 + 8 * rh;
+    const int tr = div_small(m, g.inv_tc), tcol = m - tr * g.TC;
+    pa[rh] = m < g.TR * g.TC ? (2 * tr * g.APC + 2 * tcol) * kAStride : 0;
+  }
+  Cursor k{(int)blockIdx.x, 0, tc::task_of(blockIdx.x, g)};
+  float acc[64], seg[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = seg[i] = 0.0f;
+  uint32_t ah[2][4], al[2][4];
+  bool held = false;                      // chunk c - 1's slot not released
+#pragma unroll 1
+  for (int c = 0; c < total; ++c) {
+    const int slot = c & 1;
+    const uint32_t bs = smem_u32(smem + slot * kBBytes);
+    const float* as =
+        reinterpret_cast<const float*>(smem + 2 * kBBytes + slot * kABytes);
+    const bool pool = k.j >= KC;
+    const int jb = pool ? k.j - KC : k.j;   // the chunk in its branch
+    bar_sync(kFullBar + slot, kSync);
+    wgmma_wait<1>();                      // the group that used set c % 2
+    const int p0 = pool ? r0 * kMStride : pa[0];
+    const int p1 = pool ? (r0 + 8) * kMStride : pa[1];
+    const bool fresh = jb % 2 == 0;
+    const int release = held ? c - 1 : -1;
+    if (slot) {
+      load_a(ah[1], al[1], as, p0, p1, q);
+      if (pool)
+        chunk_products<1, 1>(seg, ah, al, bs, as, p0, p1, g.APC, q, fresh,
+                             release, total);
+      else
+        chunk_products<9, 1>(seg, ah, al, bs, as, p0, p1, g.APC, q, fresh,
+                             release, total);
+    } else {
+      load_a(ah[0], al[0], as, p0, p1, q);
+      if (pool)
+        chunk_products<1, 0>(seg, ah, al, bs, as, p0, p1, g.APC, q, fresh,
+                             release, total);
+      else
+        chunk_products<9, 0>(seg, ah, al, bs, as, p0, p1, g.APC, q, fresh,
+                             release, total);
+    }
+    held = true;
+    if (jb % 2 == 1 || jb == KC - 1) {
+      wgmma_wait<0>();
+      if (c + 2 < total) bar_arrive(kEmptyBar + slot, kSync);
+      held = false;
+      tc::fence_acc<kN>(seg);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += seg[i];
+      if (jb == KC - 1) {
+        epilogue<E, kRaw>(acc, y, pool ? b2 : b1, g, k.t, pool, r0, q);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+      }
+    }
+    k.next(g, 2 * KC);
+  }
+}
+
+// E = 4: Cin and Cout multiples of 8 (16-byte copies and stores); E = 1
+// any even Cin, Cout
+template <int E, bool kRaw>
+__global__ void __launch_bounds__(kThreads, 1)
+adown_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w1p,
+                  const float* __restrict__ b1, const float* __restrict__ w2p,
+                  const float* __restrict__ b2, float* __restrict__ y,
+                  const Geo g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int KC = ceil_div(g.Ch, kCK);
+  const int total =
+      ((g.n_tasks - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * 2 * KC;
+  if (threadIdx.x >= kConsumers)
+    producers<E>(smem, x, w1p, w2p, g, KC, total);
+  else
+    consumers<E, kRaw>(smem, b1, b2, y, g, KC, total);
+}
+
+template <int E, bool kRaw>
+cudaError_t launch_k(const void* x, const void* w1p, const void* b1,
+                     const void* w2p, const void* b2, void* y, Geo g,
+                     cudaStream_t stream) {
+  static PerDeviceSmem smem;
+  auto kernel = adown_tf32_kernel<E, kRaw>;
+  cudaError_t e = smem.opt_in((const void*)kernel, kSmemBytes);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const int ctas = per_sm * sm_count();
+  e = tc::plan(g, kN, ctas, tc::kTiles);
+  if (e != cudaSuccess) return e;
+  kernel<<<g.n_tasks < ctas ? g.n_tasks : ctas, kThreads, kSmemBytes,
+           stream>>>(static_cast<const float*>(x),
+                     static_cast<const float*>(w1p),
+                     static_cast<const float*>(b1),
+                     static_cast<const float*>(w2p),
+                     static_cast<const float*>(b2), static_cast<float*>(y), g);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* x, const void* w1p, const void* b1,
+                   const void* w2p, const void* b2, void* y, int B, int H,
+                   int W, int Cin, int Cout, int raw, cudaStream_t stream) {
+  const Geo g = tc::geometry(B, H, W, Cin, Cout);
+  if (Cin % 8 == 0 && Cout % 8 == 0)
+    return raw ? launch_k<4, true>(x, w1p, b1, w2p, b2, y, g, stream)
+               : launch_k<4, false>(x, w1p, b1, w2p, b2, y, g, stream);
+  return raw ? launch_k<1, true>(x, w1p, b1, w2p, b2, y, g, stream)
+             : launch_k<1, false>(x, w1p, b1, w2p, b2, y, g, stream);
+}
+
+}  // namespace f32
+
 cudaError_t launch(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* y, int B, int H,
                    int W, int Cin, int Cout, int raw, cudaStream_t stream) {
   static PerDeviceSmem smem;
-  cudaError_t e = smem.opt_in((const void*)adown_kernel<T>, (int)kSmemBytes);
+  cudaError_t e = smem.opt_in((const void*)adown_kernel, (int)kSmemBytes);
   if (e != cudaSuccess) return e;
   const int Ho = H / 2, Wo = W / 2;
   const int tiles_w = ceil_div(Wo, kTile), tiles_h = ceil_div(Ho, kTile);
   const int co_tiles = ceil_div(Cout / 2, kCoT);
   dim3 grid(tiles_w * tiles_h, 2 * co_tiles, B);
-  adown_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(y), H, W, Cin, Cout, Ho,
+  adown_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(b2), static_cast<bf16*>(y), H, W, Cin, Cout, Ho,
       Wo, tiles_w, co_tiles, raw);
   return cudaGetLastError();
 }
@@ -960,9 +1617,8 @@ cudaError_t dispatch(const void* x, const void* w1, const void* b1,
   if (dtype == kBFloat16 && Cin % 16 == 0 && Cout % 16 == 0)
     return tc::launch(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, raw, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout,
-                                 raw, s);
-  return launch<float>(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, raw, s);
+    return launch(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, raw, s);
+  return f32::launch(x, w1, b1, w2, b2, y, B, H, W, Cin, Cout, raw, s);
 }
 
 // The packed images of both branches from OIHW weights, cast to the

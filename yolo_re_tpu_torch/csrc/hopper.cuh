@@ -3,7 +3,8 @@
 // ldmatrix, warp matrix multiply (mma.sync: bf16, and TF32 with the
 // 3xTF32 split that gives the f32 kernels f32 accuracy), and warpgroup
 // matrix multiply (wgmma, N = 32 to 256) with A in registers and B in
-// shared memory.
+// shared memory, in bf16 and (m64n128k8) in TF32. A TF32 B has core
+// matrices of 8 rows of 4 elements (16 bytes), the same byte strides.
 //
 // B operand layout ("core matrices", no swizzle): the weights of one
 // k-step (16 input channels) for N output channels are N/8 groups of 8
@@ -122,10 +123,11 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4],
 }
 
 // f32-accurate products on the tensor cores (3xTF32), used by the f32
-// kernels of csp_chain.cu, stem_wgrad.cu and adown_bwd.cu. TF32 keeps 10 mantissa bits,
-// too few for the f32 tolerances, so each f32 operand is split into
-// hi = a rounded to TF32 (to nearest, ties away from zero: the value of
-// cvt.rna.tf32.f32) and lo = a - hi (exact in f32) cut to TF32, and a * b
+// kernels of csp_chain.cu, stem_wgrad.cu, adown_bwd.cu and adown.cu. TF32
+// keeps 10 mantissa bits, too few for the f32 tolerances, so each f32
+// operand is split into hi = a rounded to TF32 (to nearest, ties away from
+// zero: the value of cvt.rna.tf32.f32) and lo = a - hi (exact in f32) cut
+// to TF32 (adown.cu cuts its weights instead: split_w), and a * b
 // is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b, the small terms first.
 // The dropped lo_a lo_b and the cut of lo are below 2^-21 of |a b|. The
 // split is integer arithmetic (4 instructions a value): cvt.rna.tf32.f32
@@ -317,6 +319,42 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+// d (64 x 128, f32) += a (64 x 8, tf32, registers) * b (8 x 128, tf32,
+// shared memory by descriptor: K-major core matrices of 8 rows of 4 tf32,
+// the next along K kLboBytes on, along N kSboBytes on); scale_d == 0
+// overwrites d. A lane's a holds A[g][t], A[g + 8][t], A[g][t + 4],
+// A[g + 8][t + 4] of its warp's 16 rows (g = lane / 4, t = lane % 4), as
+// mma_m16n8k8_tf32's a.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(scale_d));
 }
