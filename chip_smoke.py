@@ -55,12 +55,12 @@ non-zero (no phase is caught):
 
 `bound_ms` in the kernels line is the least time the card could take for
 the work: the larger of the bytes each function must move (inputs read
-once, outputs written once) over 3.35 TB/s, and its operations at the rate
-of the arithmetic the kernel issues (`ops_rate`): 989 TFLOP/s (bf16 tensor
-cores), three TF32 products per operation at 495 TFLOP/s (3xTF32: the f32
-chain, the f32 stem weight gradient, the f32 ADown forward and raw
-forward, and the f32 ADown backward's products) or 67 TFLOP/s (the other
-f32 kernels and NMS, on the CUDA cores), the H100 SXM data sheet's rates,
+once, outputs written once) over 3.35 TB/s, and its operations at the
+card's fastest rate for them (`ops_rate`): 989 TFLOP/s for bf16 products
+(tensor cores), three TF32 products per operation at 495 TFLOP/s for f32
+products (3xTF32, the card's fastest f32-accurate products, whether a
+kernel runs them so or on the CUDA cores) and 67 TFLOP/s for NMS (f32
+comparisons, no products: CUDA cores), the H100 SXM data sheet's rates,
 computed from this run's inputs; `bound_fraction` is bound_ms / ms. Each
 kernel's entry holds its bf16 numbers and, under "f32", its f32 ones (NMS
 runs in f32 only: the same numbers); the stage1 kernels, the stem weight
@@ -128,8 +128,6 @@ WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # per operation at 495 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "3xtf32": 495e12 / 3}
-# the f32 kernels whose products run in 3xTF32 on the tensor cores
-F32_3XTF32 = ("csp_chain", "stem_wgrad", "adown", "adown_raw", "adown_bwd")
 
 
 def nbytes(*tensors) -> int:
@@ -146,9 +144,11 @@ def bound(n_bytes: float, ops: float, peak: str = "bf16") -> dict:
                 "ops_rate": peak}
 
 
-def rate(kernel: str, tag: str) -> str:
-    """The arithmetic a kernel issues in a dtype (a PEAK_OPS key)."""
-    return "3xtf32" if tag == "f32" and kernel in F32_3XTF32 else tag
+def rate(tag: str) -> str:
+    """The PEAK_OPS key that bounds a dtype's products: f32-accurate
+    products run fastest in 3xTF32 on the tensor cores, whichever unit a
+    kernel runs them on."""
+    return "3xtf32" if tag == "f32" else tag
 
 
 def add_bounds(parts: list[dict]) -> dict:
@@ -220,14 +220,14 @@ def adown_composite(x, w1, b1, w2, b2):
 def adown_site(name: str, tag: str, x: torch.Tensor, y: torch.Tensor,
                ms: float, plain_ms: float, raw: bool, args) -> dict:
     """One ADown site's numbers: its bound (x, the weights and y once; the
-    3x3 and the 1x1 conv, each writing half of y's channels, at the rate
-    of the arithmetic the kernel issues), its cuDNN composite's time, and
-    the printed line."""
+    3x3 and the 1x1 conv, each writing half of y's channels, at the
+    dtype's product rate), its cuDNN composite's time, and the printed
+    line."""
     cin = x.shape[1]
     ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
     kernel = "adown_raw" if raw else "adown"
     r = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-         **bound(nbytes(x, *args, y), ops, rate(kernel, tag))}
+         **bound(nbytes(x, *args, y), ops, rate(tag))}
     comp = (lambda: adown_composite(x, args[0], None, args[1], None)) \
         if raw else (lambda: adown_composite(x, *args))
     r["composite_ms"] = cuda_ms(comp, 5)
@@ -264,7 +264,8 @@ def phase_kernels(dev) -> dict:
               f"F.conv2d {lib_ms:.4f} ms")
         res["stem"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                             "library_ms": lib_ms, **bound(
-                                nbytes(x, w, b, y), conv_flops(x, y, 3), tag)}
+                                nbytes(x, w, b, y), conv_flops(x, y, 3),
+                                rate(tag))}
         del x, y
 
         tot = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": [],
@@ -320,7 +321,7 @@ def phase_kernels(dev) -> dict:
                 "err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms,
                 **bound(nbytes(m, *args, y), 2 * n * conv_flops(m, y, 3),
-                        rate("csp_chain", tag))}
+                        rate(tag))}
             del m, y
 
         for hw in CONV3_HW:
@@ -340,7 +341,8 @@ def phase_kernels(dev) -> dict:
             res["conv3"][(hw, tag)] = {
                 "err": err, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms,
-                **bound(nbytes(x, w, b, y), conv_flops(x, y, 3), tag)}
+                **bound(nbytes(x, w, b, y), conv_flops(x, y, 3),
+                        rate(tag))}
             del x, y
 
     for k in NMS_SHAPES:
@@ -413,7 +415,8 @@ def phase_train_kernels(dev) -> dict:
               f"ms, F.conv2d {lib_ms:.4f} ms")
         res["stem_raw"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                 "library_ms": lib_ms, **bound(
-                                    nbytes(x, w, y), conv_flops(x, y, 3), tag)}
+                                    nbytes(x, w, y), conv_flops(x, y, 3),
+                                    rate(tag))}
         del y
         # bf16 also at a quarter of the batch: fewer rows per CTA of the
         # persistent grid
@@ -432,7 +435,7 @@ def phase_train_kernels(dev) -> dict:
             r = {"err": err, "ms": ms, "plain_ms": plain_ms,
                  "library_ms": lib_ms, **bound(
                      nbytes(xb, gy, dw), conv_flops(xb, gy, 3),
-                     rate("stem_wgrad", tag))}
+                     rate(tag))}
             print(f"  stem_wgrad {tag} {tuple(xb.shape)}: kernel {ms:.4f} "
                   f"ms, plain {plain_ms:.4f} ms, conv2d_weight "
                   f"{lib_ms:.4f} ms; bound {r['bound_ms']:.4f} ms "
@@ -479,7 +482,7 @@ def phase_train_kernels(dev) -> dict:
             # the input and the weight gradients of both convs: twice the
             # forward's products
             bwd_bound = bound(nbytes(x, gy, w1, w2, dx, dw1, dw2), 2 * ops,
-                              rate("adown_bwd", tag))
+                              rate(tag))
             del dx, dw1, dw2, rdx, rdw1, rdw2
             ms = cuda_ms(lambda: adown.adown_bwd(x, gy, w1, w2), 5)
             plain_ms = cuda_ms(lambda: adown.adown_bwd_plain(x, gy, w1, w2),

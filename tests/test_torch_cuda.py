@@ -9,6 +9,7 @@ jax):
 chip_smoke.py makes the same comparisons at the main path's full shapes.
 """
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -149,17 +150,28 @@ def test_adown_pack_kernel_matches_plain(cuda, dtypes, ch, co):
 
 
 def _cuda_kernels(fn) -> list[str]:
-    """Names of the CUDA kernels fn() runs, by torch.profiler."""
+    """Names of the CUDA kernels fn() runs, by torch.profiler. The traced
+    call runs 50 ms inside the trace, and a trace that holds no device
+    activity at all is taken again, up to three times: the profiler drops
+    the device activity it dates outside its capture window, and late in
+    a long test process it dropped a traced call's first launch or all of
+    its launches. A call that launches nothing still gives []."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def test_fused_adown_makes_one_launch(cuda):
@@ -172,17 +184,26 @@ def test_fused_adown_makes_one_launch(cuda):
     g = torch.Generator().manual_seed(12)
     mod = fuse_model(ADown(256, 256).eval()).to(cuda, torch.bfloat16)
     x = _rand(g, 2, 256, 40, 40, dtype=torch.bfloat16, cl=True).to(cuda)
-    before = adown.launches
     with torch.no_grad():
         names = _cuda_kernels(lambda: mod(x))
-    assert len(names) == 1 and "adown" in names[0], names
-    assert adown.launches == before + 2
+        before = adown.launches
+        mod(x)
+    assert len(names) == 1 and "adown" in names[0], \
+        f"fused ADown: one adown kernel per call, got {names}"
+    assert adown.launches == before + 1, \
+        f"fused ADown: adown.launches {before} -> {adown.launches} " \
+        f"over one call"
     w1 = _rand(g, 128, 128, 3, 3, scale=0.05).to(cuda)
     w2 = _rand(g, 128, 128, 1, 1, scale=0.1).to(cuda)
     names = _cuda_kernels(lambda: adown.adown_raw(x, w1, w2))
-    assert len(names) == 2, names
-    assert torch.equal(adown.adown_raw(x, w1, w2),
-                       adown.adown_raw(x, w1.bfloat16(), w2.bfloat16()))
+    assert len(names) == 2, \
+        f"adown_raw: two kernels per call (pack, adown), got {names}"
+    y32, y16 = (adown.adown_raw(x, w1, w2),
+                adown.adown_raw(x, w1.bfloat16(), w2.bfloat16()))
+    assert torch.equal(y32, y16), \
+        f"adown_raw: f32 weights (cast by the pack) and bf16 weights " \
+        f"differ: max |diff| {float((y32.float() - y16.float()).abs().max())}" \
+        f" at {int((y32 != y16).sum())} of {y32.numel()} outputs"
 
 
 @pytest.mark.parametrize("k", [100, 512, 8400])
@@ -459,7 +480,11 @@ def test_stem_wgrad_f32_kernel_matches_plain(cuda, c, bsz):
                                                ((3, 256, 66, 70), 256, True),
                                                ((4, 256, 96, 96), 256, False),
                                                ((2, 512, 40, 40), 512, True),
-                                               ((1, 12, 9, 11), 10, False)])
+                                               ((1, 12, 9, 11), 10, False),
+                                               ((2, 16, 12, 14), 16, False),
+                                               ((1, 32, 10, 12), 48, False),
+                                               ((2, 64, 130, 98), 64, True),
+                                               ((2, 128, 24, 20), 512, True)])
 def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
     """Channel counts 32 and 48 are TINY_YAML's (48: 24 input channels a
     branch, half a k-step of zero padding in the tensor-core forward), 256
@@ -475,8 +500,14 @@ def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
     at 1/sqrt(fan-in) (`_w_scales`); then the f32 backward's tensor-core
     products over several blocks: (4, 256, 96, 96) 9216 output pixels in 3
     slabs, (2, 512, 40, 40) 256 channels a branch (two channel tiles of
-    each product); last, branch channels (6 in, 5 out) that are not
-    multiples of 4, so those products stage by 4-byte copies. Inputs are
+    each product); then branch channels (6 in, 5 out) that are not
+    multiples of 4, so those products stage by 4-byte copies; last, the
+    edges of the bf16 products (multiples of 8): Ch = Co = 8 (one k16 step
+    of the dM product, a partial n8 block of every tile), Ch = 16 with Co
+    = 24, 6370 output pixels (f32: 2 slabs of 3185; bf16 on an H100: 26
+    of 245; neither a whole number of 64-pixel chunks), and Co = 256 a
+    branch with Ch = 64 (two output-channel tiles of dW, a partial
+    input-channel tile). Inputs are
     quantized to halves so that maxpool ties are common."""
     g0 = torch.Generator().manual_seed(4)
     cin = shape[1]
@@ -522,6 +553,27 @@ def test_adown_bwd_f32_runs_the_tensor_core_products(cuda):
                       ("dw_tf32", 1), ("dw_reduce", 1)):
         assert sum(kernel in name for name in names) == n, names
     assert not any("gemm_" in name for name in names), names
+
+
+def test_adown_bwd_bf16_runs_the_tensor_core_products(cuda):
+    """One bf16 backward call with branch channels multiples of 8: the two
+    passes, the three bf16 mma.sync products and the slab sum, six
+    launches, none of the CUDA-core product kernels (gemm_dm, gemm_da1,
+    gemm_dw) and no wmma kernel."""
+    g0 = torch.Generator().manual_seed(15)
+    bf = torch.bfloat16
+    x = _rand(g0, 2, 64, 20, 24, dtype=bf, cl=True).to(cuda)
+    g = _rand(g0, 2, 64, 10, 12, dtype=bf, cl=True).to(cuda)
+    w1 = _rand(g0, 32, 32, 3, 3, scale=0.05, dtype=bf).to(cuda)
+    w2 = _rand(g0, 32, 32, 1, 1, scale=0.1, dtype=bf).to(cuda)
+    names = [n for n in _cuda_kernels(lambda: adown.adown_bwd(x, g, w1, w2))
+             if "yolo" in n]
+    assert len(names) == 6, names
+    for kernel, n in (("pool_avg", 1), ("dgrad_bf16", 2), ("dx_strips", 1),
+                      ("dw_bf16", 1), ("dw_reduce", 1)):
+        assert sum(kernel in name for name in names) == n, names
+    assert not any("gemm_" in name or "wmma" in name for name in names), \
+        names
 
 
 @pytest.mark.parametrize("shape,cout", [((2, 64, 20, 24), 64),

@@ -60,21 +60,25 @@ PASSES = {"dx": ("dx_strips", "adown_dx"),
 
 def launch_times(fn) -> list[tuple[float, int, str]]:
     """(ms per call, launches per call, kernel name) of each kernel that
-    `fn` launches, from REPS traced calls after three warm-up calls."""
-    from torch.profiler import ProfilerActivity, profile
+    `fn` launches, from REPS recorded calls after a warm-up step of three
+    calls, traced and dropped (a trace that starts with the calls can miss
+    their first launches); the step's device-side range, "ProfilerStep*",
+    is left out."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for calls in (3, REPS):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     rows = [(ev.device_time_total / REPS / 1e3, ev.count // REPS, ev.key)
             for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.device_time_total > 0]
+            and ev.device_time_total > 0
+            and not ev.key.startswith("ProfilerStep")]
     return sorted(rows, reverse=True)
 
 
@@ -88,13 +92,13 @@ def report(title: str, rows: list[tuple[float, int, str]]) -> None:
 def pass_bytes(cin: int, h: int, w: int, elem: int) -> dict[str, int]:
     """Bytes each memory-bound pass of the ADown backward must move, x in
     `elem`-byte elements: the dx pass reads dA1, dM (f32) and idx (uint8)
-    and writes dx (like x); the pool/avg pass reads x and writes M (f32),
-    idx and the branch-1 avg (like x)."""
+    and writes dx (like x); the pool/avg pass reads x and writes M and the
+    branch-1 avg (like x) and idx."""
     ch, n = cin // 2, BATCH * (h // 2) * (w // 2) * (cin // 2)
     x = BATCH * h * w * cin * elem
     avg = BATCH * (h - 1) * (w - 1) * ch
     return {"dx": avg * 4 + n * 4 + n + x,
-            "pool/avg": x + n * 4 + n + avg * elem}
+            "pool/avg": x + n * elem + n + avg * elem}
 
 
 def pass_ms(rows: list[tuple[float, int, str]]) -> dict[str, float]:

@@ -17,9 +17,10 @@
 // VMEM from step to step; its (row parity x column parity) dS planes avoid
 // scatters on the TPU. Here the same function is six launches on one
 // stream, none with atomics, so the result is the same on every run:
-//   1. pool_avg: the branch-2 window max M and its first-max tap idx, and
-//      for the products that read it (every f32 call; bf16 with Ch and Co
-//      multiples of 8) the branch-1 avg avg1 in x's dtype;
+//   1. pool_avg: the branch-2 window max M (in x's dtype) and its
+//      first-max tap idx, and for the products that read it (every f32
+//      call; bf16 with Ch and Co multiples of 8) the branch-1 avg avg1 in
+//      x's dtype;
 //   2. dM = g2 . w2^T, the gradient at M (tiled product);
 //   3. dA1 = the transposed 3x3 stride-2 conv of g1, the gradient at the
 //      branch-1 avg. Blocks take one (row, column) parity class of avg
@@ -40,17 +41,19 @@
 // the rest ~13 GFLOP: operations, not bytes. Where the products run:
 //   - f32: all three on the tensor cores in 3xTF32 on mma.sync (namespace
 //     f32: dgrad_tf32 for 2 and 3, dw_tf32 for 5), any Ch and Co;
-//   - bf16, Ch and Co multiples of 8: 3 and 5 on the tensor cores with
-//     nvcuda::wmma bf16 fragments and 16-byte staging (namespace tc), 2 on
-//     the CUDA cores (gemm_dm);
+//   - bf16, Ch and Co multiples of 8 (every gelan-c and TINY_YAML site):
+//     all three on the tensor cores in bf16 on mma.sync, on the f32
+//     kernels' walks (namespace bf16: dgrad_bf16 for 2 and 3, dw_bf16 for
+//     5);
 //   - bf16, other Ch or Co: all three on the CUDA cores (gemm_dm,
 //     gemm_da1, gemm_dw: 64 x 64 output tiles, a 4 x 4 register tile per
-//     thread, 16-deep chunks in shared memory).
+//     thread, 16-deep chunks in shared memory). The shape picks the path
+//     before any launch.
 // wgmma and TMA for them are later work.
 // Passes 1 and 4 do almost no arithmetic: bytes bound them. At down1 the
 // dx pass must read dA1, dM (f32) and idx and write dx, 964.7 MB; the
-// pool/avg pass must read x and write M, idx and avg1, 757.6 MB (0.288
-// and 0.226 ms at 3.35 TB/s, bf16). Their design (the section "memory-bound
+// pool/avg pass must read x and write M, idx and avg1, 705.2 MB (0.288
+// and 0.211 ms at 3.35 TB/s, bf16). Their design (the section "memory-bound
 // passes" below): a thread owns 8 channels of one column (16-byte loads
 // and stores), walks down a strip of rows and carries in registers what
 // the next row shares with this one (dx: the pair v[y-1, x-1] + v[y-1, x]
@@ -58,9 +61,6 @@
 // 2oy + 1 and x row 2oy + 2), so each input row leaves device memory once
 // a strip; 32-bit offsets advanced by row strides, no division in the
 // row loop; a persistent grid of as many CTAs as fit on the device.
-#include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -195,7 +195,7 @@ __device__ __forceinline__ void take_max(float (&m)[V],
 //     window's first and is carried, and so is x row 2oy + 2.
 template <typename T, int V>
 __device__ __forceinline__ void pool_strip(const T* __restrict__ x,
-                                           float* __restrict__ M,
+                                           T* __restrict__ M,
                                            unsigned char* __restrict__ idx,
                                            int b, int H, int W, int Cin,
                                            int Ho, int Wo, int ox, int c,
@@ -219,6 +219,7 @@ __device__ __forceinline__ void pool_strip(const T* __restrict__ x,
   int om = ((b * Ho + o0) * Wo + ox) * Ch + c;
   for (int oy = o0; oy < o1; ++oy, om += Wo * Ch, ox_off += 2 * row) {
     alignas(16) float m[V];
+    alignas(16) T mx[V];
     alignas(16) unsigned char arg[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -234,7 +235,9 @@ __device__ __forceinline__ void pool_strip(const T* __restrict__ x,
       avg_cols(a0, x1, x0);
       take_max(m, arg, a0, 2, avg_ok);
     }
-    vstore(M + om, m);
+#pragma unroll
+    for (int j = 0; j < V; ++j) mx[j] = from_f32<T>(m[j]);
+    vstore(M + om, mx);
     vstore(idx + om, arg);
   }
 }
@@ -279,13 +282,14 @@ __device__ __forceinline__ void avg_strip(const T* __restrict__ x,
   }
 }
 
-// 1. M (B, Ho, Wo, Ch) f32 and idx (tap 3 ky + kx of the first max), and
-//    for the tensor-core products (avg1 not null) the branch-1 avg
-//    avg1 (B, H-1, W-1, Ch). Tasks: (b, branch, strip of R output rows, run
-//    of kThreads lanes of the Wo * Ch / V of a row), the run fastest.
+// 1. M (B, Ho, Wo, Ch) in x's dtype (the f32 max, rounded once) and idx
+//    (tap 3 ky + kx of the first max), and for the tensor-core products
+//    (avg1 not null) the branch-1 avg avg1 (B, H-1, W-1, Ch). Tasks: (b,
+//    branch, strip of R output rows, run of kThreads lanes of the Wo * Ch /
+//    V of a row), the run fastest.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-pool_avg(const T* __restrict__ x, float* __restrict__ M,
+pool_avg(const T* __restrict__ x, T* __restrict__ M,
          unsigned char* __restrict__ idx, T* __restrict__ avg1, int B, int H,
          int W, int Cin, int Ho, int Wo, int R, int strips, int runs) {
   const int G = Cin / 2 / V, lanes = Wo * G;
@@ -620,7 +624,7 @@ gemm_da1(const T* __restrict__ g, const float* __restrict__ w1t,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gemm_dw(const T* __restrict__ x, const T* __restrict__ g,
-        const float* __restrict__ M, float* __restrict__ part, int H, int W,
+        const T* __restrict__ M, float* __restrict__ part, int H, int W,
         int Cin, int Ho, int Wo, int Co, long long N, long long slab,
         int co_tiles) {
   __shared__ __align__(16) float As[kK * kLd];
@@ -643,7 +647,7 @@ gemm_dw(const T* __restrict__ x, const T* __restrict__ g,
       float v = 0.0f;
       if (live && ci0 + m < Ch) {
         if (q == 9) {
-          v = M[(size_t)p * Ch + ci0 + m];
+          v = to_f32(M[(size_t)p * Ch + ci0 + m]);
         } else {
           const int ox = (int)(p % Wo);
           const long long t = p / Wo;
@@ -692,199 +696,6 @@ dw_reduce(const float* __restrict__ part, float* __restrict__ dw1,
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 inputs: products 3 and 5 on the tensor cores
-// ---------------------------------------------------------------------------
-//
-// Taken when x is bf16 and Ch, Co are multiples of 8. The same tiles as
-// above (64 x 64 outputs per block), with bf16 operands in shared memory,
-// 32-deep reduction chunks and nvcuda::wmma 16x16x16 bf16 fragments with
-// f32 accumulators: warp w of 8 owns rows 16*(w/2) and two fragments of
-// columns at 32*(w%2). Every operand tile is staged with one 16-byte load
-// (8 channels) per thread per chunk: g, the weights (two float4 loads,
-// rounded to bf16: exact, the forward used bf16 weights), and for dW the
-// branch-1 avg that pool_avg writes once in bf16 (the forward kernel also
-// multiplies a bf16 avg) and the max M, rounded to bf16. The accumulators
-// go through shared memory to the same f32 outputs as the CUDA-core
-// kernels. (v2 staged with scalar loads and recomputed the avg from x for
-// every tap; the staging, not the products, set its time.)
-namespace tc {
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int kKC = 32;           // reduction chunk: two wmma K steps
-constexpr int kALd = kKC + 8;     // [m][k] bf16 rows (gemm_da1 A)
-constexpr int kBLd = kT + 8;      // [k][n] / [k][m] bf16 rows
-constexpr int kCLd = kT + 4;      // f32 staging rows
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ void stage_acc(Acc (&acc)[2], float* stage,
-                                          int warp) {
-  const int wr = 16 * (warp / 2), wc = 32 * (warp % 2);
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-    wmma::store_matrix_sync(stage + wr * kCLd + wc + 16 * f, acc[f], kCLd,
-                            wmma::mem_row_major);
-}
-
-// 8 consecutive f32 (32-byte aligned) -> 8 bf16 as one uint4
-__device__ __forceinline__ uint4 f32x8_to_bf16(const float* p) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  __align__(16) __nv_bfloat162 h[4] = {
-      __floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
-      __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
-  return *reinterpret_cast<const uint4*>(h);
-}
-
-// product 3 (dA1) on the tensor cores; see gemm_da1
-__global__ void __launch_bounds__(kThreads)
-gemm_da1_wmma(const bf16* __restrict__ g, const float* __restrict__ w1t,
-              float* __restrict__ dA1, int Ho, int Wo, int HA, int WA, int Co,
-              int Ch, int tiles_j, int ci_tiles) {
-  __shared__ __align__(32) bf16 As[kT * kALd];      // [pixel][co]
-  __shared__ __align__(32) bf16 Bs[kKC * kBLd];     // [co][ci]
-  __shared__ __align__(32) float stage[kT * kCLd];  // [pixel][ci]
-  const int cls = blockIdx.y / ci_tiles;
-  const int ci0 = (blockIdx.y % ci_tiles) * kT;
-  const int py = cls >> 1, px = cls & 1;
-  const int ti = blockIdx.x / tiles_j, tj = blockIdx.x % tiles_j;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = 16 * (warp / 2), wc = 32 * (warp % 2);
-  const int Cout = 2 * Co;
-  const bf16* gb = g + (size_t)b * Ho * Wo * Cout;
-  // this thread's staging items: A row m, 8 channels at 8*va; B row kk,
-  // 8 channels at 8*vb
-  const int m = tid / 4, va = tid % 4;
-  const int kk = tid / 8, vb = tid % 8;
-  const int ay = 2 * (8 * ti + m / 8) + py;
-  const int ax = 2 * (8 * tj + m % 8) + px;
-  const bool b_ok = ci0 + 8 * vb < Ch;
-  Acc acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  for (int ty = 0; ty < (py ? 2 : 1); ++ty) {
-    for (int tx = 0; tx < (px ? 2 : 1); ++tx) {
-      const int ky = py ? 2 * ty : 1, kx = px ? 2 * tx : 1;
-      const int tap = 3 * ky + kx;
-      const int oy = (ay + 1 - ky) / 2, ox = (ax + 1 - kx) / 2;
-      const bool a_pix = ay < HA && ax < WA && oy < Ho && ox < Wo;
-      for (int co0 = 0; co0 < Co; co0 += kKC) {
-        uint4 av = make_uint4(0, 0, 0, 0);
-        if (a_pix && co0 + 8 * va < Co)
-          av = *reinterpret_cast<const uint4*>(
-              gb + ((size_t)oy * Wo + ox) * Cout + co0 + 8 * va);
-        *reinterpret_cast<uint4*>(As + m * kALd + 8 * va) = av;
-        uint4 bv = make_uint4(0, 0, 0, 0);
-        if (b_ok && co0 + kk < Co)
-          bv = f32x8_to_bf16(w1t + ((size_t)tap * Co + co0 + kk) * Ch + ci0 +
-                             8 * vb);
-        *reinterpret_cast<uint4*>(Bs + kk * kBLd + 8 * vb) = bv;
-        __syncthreads();
-#pragma unroll
-        for (int ks = 0; ks < kKC; ks += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, As + wr * kALd + ks, kALd);
-#pragma unroll
-          for (int f = 0; f < 2; ++f) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                bm;
-            wmma::load_matrix_sync(bm, Bs + ks * kBLd + wc + 16 * f, kBLd);
-            wmma::mma_sync(acc[f], a, bm, acc[f]);
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
-  stage_acc(acc, stage, warp);
-  __syncthreads();
-  for (int e = tid; e < kT * kT; e += kThreads) {
-    const int mm = e / kT, n = e % kT;
-    const int y = 2 * (8 * ti + mm / 8) + py;
-    const int x = 2 * (8 * tj + mm % 8) + px;
-    if (y < HA && x < WA && ci0 + n < Ch)
-      dA1[(((size_t)b * HA + y) * WA + x) * Ch + ci0 + n] =
-          stage[mm * kCLd + n];
-  }
-}
-
-// product 5 (partial dW1, dW2) on the tensor cores; see gemm_dw
-__global__ void __launch_bounds__(kThreads)
-gemm_dw_wmma(const bf16* __restrict__ avg1, const bf16* __restrict__ g,
-             const float* __restrict__ M, float* __restrict__ part, int H,
-             int W, int Cin, int Ho, int Wo, int Co, int N, int slab,
-             int co_tiles) {
-  __shared__ __align__(32) bf16 As[kKC * kBLd];     // [pixel][ci]
-  __shared__ __align__(32) bf16 Bs[kKC * kBLd];     // [pixel][co]
-  __shared__ __align__(32) float stage[kT * kCLd];  // [ci][co]
-  const int s = blockIdx.x, q = blockIdx.y;
-  const int ci0 = (blockIdx.z / co_tiles) * kT;
-  const int co0 = (blockIdx.z % co_tiles) * kT;
-  const int Ch = Cin / 2, Cout = 2 * Co, HA = H - 1, WA = W - 1;
-  const int ky = q / 3, kx = q % 3;
-  const int goff = q == 9 ? Co : 0;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = 16 * (warp / 2), wc = 32 * (warp % 2);
-  const int p_begin = s * slab;
-  const int p_end = p_begin + slab < N ? p_begin + slab : N;
-  // this thread's staging item: pixel k of the chunk, 8 channels at 8*v
-  const int k = tid / 8, v = tid % 8;
-  const bool a_ch = ci0 + 8 * v < Ch, b_ch = co0 + 8 * v < Co;
-  Acc acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-  for (int pk = p_begin; pk < p_end; pk += kKC) {
-    const int p = pk + k;
-    uint4 av = make_uint4(0, 0, 0, 0), bv = make_uint4(0, 0, 0, 0);
-    if (p < p_end) {
-      if (a_ch) {
-        if (q == 9) {
-          av = f32x8_to_bf16(M + (size_t)p * Ch + ci0 + 8 * v);
-        } else {
-          const int ox = p % Wo, t = p / Wo;
-          const int oy = t % Ho, b = t / Ho;
-          const int ay = 2 * oy - 1 + ky, ax = 2 * ox - 1 + kx;
-          if (in_avg(ay, ax, H, W))
-            av = *reinterpret_cast<const uint4*>(
-                avg1 + (((size_t)b * HA + ay) * WA + ax) * Ch + ci0 + 8 * v);
-        }
-      }
-      if (b_ch)
-        bv = *reinterpret_cast<const uint4*>(
-            g + (size_t)p * Cout + goff + co0 + 8 * v);
-    }
-    *reinterpret_cast<uint4*>(As + k * kBLd + 8 * v) = av;
-    *reinterpret_cast<uint4*>(Bs + k * kBLd + 8 * v) = bv;
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kKC; ks += 16) {
-      // A(m = ci, k = pixel) is stored [pixel][ci]: column major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, As + ks * kBLd + wr, kBLd);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, Bs + ks * kBLd + wc + 16 * f, kBLd);
-        wmma::mma_sync(acc[f], a, bm, acc[f]);
-      }
-    }
-    __syncthreads();
-  }
-  stage_acc(acc, stage, warp);
-  __syncthreads();
-  float* out = part + ((size_t)s * 10 + q) * Ch * Co;
-  for (int e = tid; e < kT * kT; e += kThreads) {
-    const int mm = e / kT, n = e % kT;
-    if (ci0 + mm < Ch && co0 + n < Co)
-      out[(size_t)(ci0 + mm) * Co + co0 + n] = stage[mm * kCLd + n];
-  }
-}
-
-}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // f32 inputs: products 2, 3 and 5 on the tensor cores in 3xTF32
@@ -1280,6 +1091,384 @@ dgrad_tf32(const float* __restrict__ g, const float* __restrict__ wt,
 
 }  // namespace f32
 
+// ---------------------------------------------------------------------------
+// bf16 inputs, Ch and Co multiples of 8: products 2, 3 and 5 on bf16 mma.sync
+// ---------------------------------------------------------------------------
+//
+// The walks of namespace f32 (the dW grid with the 10 taps of a slab as
+// neighbours and pixels stepped without division, dA1 by parity class, a
+// 3-deep cp.async ring with zero fill past every edge, 16-byte output
+// stores) with bf16 operands: one mma.sync m16n8k16 (hopper.cuh:
+// mma_m16n8k16) where the f32 kernels issue three m16n8k8, fragments by
+// ldmatrix, 64-deep K chunks (four k16 steps a barrier). Every operand row
+// is bf16 in shared memory, staged by 16-byte cp.async (8 channels), in
+// rows padded by 8 elements so that the 8 rows an ldmatrix reads lie in
+// distinct bank groups. The operands are the values the TPU kernel
+// multiplies (adown_train_kernel.py: bf16 g, bf16 weights, the bf16
+// branch-1 avg and max): pool_avg writes avg1 and M in bf16 (M rounded
+// after the max: the same value as the max of the rounded avg, rounding
+// being monotone), and the wrapper hands the weights over tap-major in
+// bf16 (exact for the bf16 weights the forward used). The outputs are the
+// f32 planes and partials of the other paths, in 16-byte stores
+// (store_row16). Both kernels run blocks of 8 warps (2 x 4, 64 x 32
+// outputs a warp), two blocks an SM:
+//   dW (5):  128 input channels (M) by 128 output channels (N), K = the
+//            slab's output pixels; A is avg1 at the tap's pixels (M for q
+//            = 9) and B the g rows, both [pixel][channel] in shared
+//            memory, so both fragments come from ldmatrix.trans;
+//   dA1 (3), dM (2): 128 pixels (M) by 128 input channels (N); A the g
+//            rows ([pixel][co], ldmatrix), B wt[tap] ([co][ci],
+//            ldmatrix.trans); the blocks of a pixel tile's classes and
+//            channel tiles are grid neighbours, so they read its g rows
+//            together through L2.
+// Unlike the f32 kernels, the tensor cores keep the whole sum (a slab's
+// pixels for dW, Co x taps for dA1): bf16 operands carry 2^-9 of relative
+// error each, far above what f32 accumulation over a slab adds
+// (tests/test_torch_bf16_bwd.py), and summing each chunk apart would
+// double the accumulators' registers and leave room for one block an SM.
+// What set the design, from scratch builds timed at gelan-c's five sites
+// on an H100 (none kept): the f32 kernels' shapes with chunk sums (dgrad
+// 4 warps of 64 x 32, dW 16 warps of 32 x 32 at one block an SM) ran
+// clearly slower than these 8-warp blocks without them at two blocks an
+// SM; 32-deep chunks, 128-deep dW chunks, a 4-deep ring, dgrad blocks of
+// 64 pixels at four an SM, and a persistent dgrad grid streaming its
+// tiles' chunks through one ring (dA1's tiles are 2-8 chunks long) did
+// not help. dW's slab count fills the rounds of resident blocks
+// (ops/kernels/adown.py: _bwd_slabs).
+namespace bf16 {
+
+using namespace sm90;
+using bf = __nv_bfloat16;
+
+constexpr int kV = 8;             // channels a 16-byte copy
+constexpr int kMT = 4;            // m16 tiles a warp: 64 x 32 outputs
+// dW: 128 input channels (M) by 128 output channels (N), K chunks of
+// kWKc pixels; rows of 136 elements (272 bytes: 8 consecutive rows start
+// 4 banks apart)
+constexpr int kWM = 128, kWN = 128, kWKc = 64;
+constexpr int kWStages = 3, kWBlocks = 2;   // ring depth, blocks an SM
+constexpr int kWThreads = 32 * (kWM / (16 * kMT)) * (kWN / 32);
+constexpr int kWALd = kWM + 8, kWBLd = kWN + 8;
+constexpr int kWStage = kWKc * (kWALd + kWBLd);             // elements
+// dA1, dM: 128 pixels (M) by 128 input channels (N), K chunks of kDKc
+// channels; [pixel][co] rows of kDKc + 8 elements and [co][ci] rows of 136
+constexpr int kDM = 128, kDN = 128, kDKc = 64;
+constexpr int kDStages = 3, kDBlocks = 2;   // ring depth, blocks an SM
+constexpr int kDThreads = 32 * (kDM / (16 * kMT)) * (kDN / 32);
+constexpr int kDALd = kDKc + 8, kDBLd = kDN + 8;
+constexpr int kDStage = kDM * kDALd + kDKc * kDBLd;         // elements
+constexpr int kWSmem = kWStages * kWStage * 2;              // bytes
+constexpr int kDSmem = kDStages * kDStage * 2;
+
+// ldmatrix lane offsets (elements) in a stage, rows of ld elements: lane
+// l gives the address of row l % 8 of matrix l / 8.
+//  - k_major_a: A from [k][m] rows, transposed (dW): matrices (m 0-7, k
+//    0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15), the a0..a3
+//    of an m16n8k16 A fragment;
+//  - rows16: rows 0-15 at column 0, then at column 8. From [m][k] rows
+//    (dgrad's A) the a0..a3 of an A fragment; from [k][n] rows, transposed
+//    (every B), b0, b1 of n8 tile j, then of tile j + 1.
+__device__ __forceinline__ int k_major_a(int lane, int ld) {
+  return (8 * (lane / 16) + lane % 8) * ld + 8 * (lane / 8 % 2);
+}
+__device__ __forceinline__ int rows16(int lane, int ld) {
+  return (lane % 16) * ld + 8 * (lane / 16);
+}
+
+// d[mt][j] += a x n8 tile j of b (b[j / 2] holds tiles 2 (j / 2), + 1)
+__device__ __forceinline__ void mma_tiles(float (&d)[kMT][4][4],
+                                          const uint32_t (&a)[4], int mt,
+                                          const uint32_t (&b)[2][4]) {
+#pragma unroll
+  for (int jp = 0; jp < 2; ++jp) {
+    mma_m16n8k16(d[mt][2 * jp], a, b[jp][0], b[jp][1]);
+    mma_m16n8k16(d[mt][2 * jp + 1], a, b[jp][2], b[jp][3]);
+  }
+}
+
+// Row r (0: g, 1: g + 8) of a lane's m16 tile mt holds columns 8 j + 2 t
+// and + 1 (t = lane % 4) of the four n8 tiles j; it goes to `row` at
+// columns c.. (C columns, a multiple of 8) as two 16-byte stores: lanes t
+// and t ^ 1 trade a pair, so that an even lane stores columns 8 j + 2 t to
+// + 3 of tiles 0 and 2, an odd one 8 j + 2 t - 2 to + 1 of tiles 1 and 3.
+// Every lane takes part in the trade; only those with `ok` store.
+__device__ __forceinline__ void store_row16(float* row, int c, int C,
+                                            const float (&acc)[kMT][4][4],
+                                            int mt, int r, bool ok) {
+  const int t = threadIdx.x % 4;
+  const bool odd = t & 1;
+#pragma unroll
+  for (int j = 0; j < 4; j += 2) {
+    const float a0 = acc[mt][j][2 * r], a1 = acc[mt][j][2 * r + 1];
+    const float b0 = acc[mt][j + 1][2 * r], b1 = acc[mt][j + 1][2 * r + 1];
+    const float s0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+    const float s1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+    const int col = c + 8 * (j + odd) + 2 * (t & 2);
+    if (ok && col < C)
+      *reinterpret_cast<float4*>(row + col) =
+          odd ? make_float4(s0, s1, b0, b1) : make_float4(a0, a1, s0, s1);
+  }
+}
+
+// 5. part[s, q, ci, co] as gemm_dw: a block per (slab, tap, channel
+//    tiles), the 10 taps of a slab neighbours in the grid (they read the
+//    slab's g together through L2). A thread copies the same pixel rows of
+//    every chunk, whose output pixel it steps by kWKc a chunk (no
+//    division).
+__global__ void __launch_bounds__(kWThreads, kWBlocks)
+dw_bf16(const bf* __restrict__ avg1, const bf* __restrict__ g,
+        const bf* __restrict__ M, float* __restrict__ part, int H, int W,
+        int Ho, int Wo, int Ch, int Co, int N, int slab, int co_tiles) {
+  extern __shared__ __align__(16) unsigned char wsmem[];
+  const int q = blockIdx.x % 10, tile = blockIdx.x / 10, s = blockIdx.y;
+  const int ci0 = tile / co_tiles * kWM, co0 = tile % co_tiles * kWN;
+  const int HA = H - 1, WA = W - 1, Cout = 2 * Co;
+  const int ky = q / 3, kx = q % 3, goff = q == 9 ? Co : 0;
+  const int p_begin = s * slab, p_end = min(p_begin + slab, N);
+  const int chunks = p_end > p_begin ? ceil_div(p_end - p_begin, kWKc) : 0;
+  const uint32_t base = smem_u32(wsmem);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4;
+  const int wm = 16 * kMT * (warp / (kWN / 32));
+  const int wn = 32 * (warp % (kWN / 32));
+
+  // A copies: rows ka + i kAStep of a chunk, channels cia..cia + 7; (b,
+  // oy, ox) of row i's pixel in the next chunk to load
+  constexpr int av = kWM / kV, bv = kWN / kV;    // copies a pixel row
+  constexpr int kAN = kWKc * av / kWThreads, kAStep = kWThreads / av;
+  constexpr int kBN = kWKc * bv / kWThreads;      // B copies a thread
+  static_assert(kWKc * av % kWThreads == 0 && kWKc * bv % kWThreads == 0);
+  const int ka = tid / av, cia = ci0 + kV * (tid % av);
+  int pb[kAN], poy[kAN], pox[kAN];
+#pragma unroll
+  for (int i = 0; i < kAN; ++i) {
+    const int p = p_begin + ka + i * kAStep, t = p / Wo;
+    pox[i] = p - t * Wo;
+    pb[i] = t / Ho;
+    poy[i] = t - pb[i] * Ho;
+  }
+
+  auto load = [&](int c) {   // called for c = 0, 1, 2, ... in turn
+    const uint32_t a_s = base + (c % kWStages) * kWStage * 2;
+    const uint32_t b_s = a_s + kWKc * kWALd * 2;
+    const int pk = p_begin + c * kWKc;
+#pragma unroll
+    for (int i = 0; i < kAN; ++i) {
+      const int k = ka + i * kAStep, p = pk + k;
+      bool ok = p < p_end && cia < Ch;
+      const bf* src = M;
+      if (q == 9) {
+        if (ok) src = M + (size_t)p * Ch + cia;
+      } else {
+        const int ay = 2 * poy[i] - 1 + ky, ax = 2 * pox[i] - 1 + kx;
+        ok = ok && in_avg(ay, ax, H, W);
+        if (ok)
+          src = avg1 + (((size_t)pb[i] * HA + ay) * WA + ax) * Ch + cia;
+      }
+      cp_async16(a_s + 2 * (k * kWALd + cia - ci0), src, ok);
+      for (pox[i] += kWKc; pox[i] >= Wo;) {
+        pox[i] -= Wo;
+        if (++poy[i] == Ho) {
+          poy[i] = 0;
+          ++pb[i];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBN; ++i) {
+      const int e = tid + i * kWThreads;
+      const int k = e / bv, co = co0 + kV * (e % bv), p = pk + k;
+      const bool ok = p < p_end && co < Co;
+      cp_async16(b_s + 2 * (k * kWBLd + co - co0),
+                 ok ? g + (size_t)p * Cout + goff + co : g, ok);
+    }
+  };
+
+  const uint32_t a_lane = 2 * (k_major_a(lane, kWALd) + wm);
+  const uint32_t b_lane = 2 * (rows16(lane, kWBLd) + wn);
+  float acc[kMT][4][4] = {};
+  for (int c = 0; c < kWStages - 1; ++c) {
+    if (c < chunks) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kWStages - 2>();
+    __syncthreads();   // chunk c is in; every warp is done with c - 1
+    if (c + kWStages - 1 < chunks) load(c + kWStages - 1);
+    cp_async_commit();
+    const uint32_t a_s = base + (c % kWStages) * kWStage * 2 + a_lane;
+    const uint32_t b_s = base + (c % kWStages) * kWStage * 2 +
+                         kWKc * kWALd * 2 + b_lane;
+#pragma unroll
+    for (int ks = 0; ks < kWKc; ks += 16) {
+      uint32_t a[kMT][4], b[2][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        ldmatrix_x4_trans(a_s + 2 * (ks * kWALd + 16 * mt), a[mt]);
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp)
+        ldmatrix_x4_trans(b_s + 2 * (ks * kWBLd + 16 * jp), b[jp]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) mma_tiles(acc, a[mt], mt, b);
+    }
+  }
+  cp_async_wait_all();
+
+  // d[mt][j]: channels ci0 + wm + 16 mt + g (k 0, 1) and + 8 (k 2, 3),
+  // output channels co0 + wn + 8 j + 2 t (k even) and + 1 (k odd)
+  float* out = part + ((size_t)s * 10 + q) * Ch * Co;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int ci = ci0 + wm + 16 * mt + gq + 8 * r;
+      store_row16(out + (size_t)(ci < Ch ? ci : 0) * Co, co0 + wn, Co, acc,
+                  mt, r, ci < Ch);
+    }
+}
+
+// 2. and 3. dM (kDa1 false) as gemm_dm, dA1 (kDa1 true) as gemm_da1, on
+//    f32::dgrad_tf32's walk: K runs over the taps (dA1) and kDKc-channel
+//    chunks of Co; dM's rows are the output pixels in order, dA1's the
+//    avg pixels of one parity class (py, px) of every image in order, so
+//    every row of a block has the same 1, 2 or 4 taps.
+template <bool kDa1>
+__global__ void __launch_bounds__(kDThreads, kDBlocks)
+dgrad_bf16(const bf* __restrict__ g, const bf* __restrict__ wt,
+           float* __restrict__ out, int B, int Ho, int Wo, int HA, int WA,
+           int Co, int Ch, int N, int ci_tiles) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  // blocks (pixel tile, class, channel tile), the last fastest: the
+  // classes' and channel tiles' blocks of a pixel tile read the same g
+  // rows together (through L2)
+  const int classes = kDa1 ? 4 : 1;
+  const int ci0 = (int)(blockIdx.x % ci_tiles) * kDN;
+  const int cls = (int)(blockIdx.x / ci_tiles) % classes;
+  const int m0 = (int)(blockIdx.x / (ci_tiles * classes)) * kDM;
+  const int py = cls >> 1, px = cls & 1;
+  // the class's rows and columns of avg pixels
+  const int cr = (HA - py + 1) / 2, cc = (WA - px + 1) / 2;
+  const int rows = kDa1 ? B * cr * cc : N;
+  if (m0 >= rows) return;   // the classes with fewer pixels
+  const int Cout = 2 * Co, cchunks = ceil_div(Co, kDKc);
+  const int ntx = px ? 2 : 1;
+  const int chunks = (kDa1 ? (py ? 2 : 1) * ntx : 1) * cchunks;
+  const uint32_t base = smem_u32(dsmem);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4;
+  const int wm = 16 * kMT * (warp / (kDN / 32));
+  const int wn = 32 * (warp % (kDN / 32));
+
+  // block row m: dA1 the avg pixel (b, ay, ax), dM the output pixel p (in
+  // b)
+  auto pixel = [&](int m, int& b, int& ay, int& ax) {
+    const int n = m0 + m;
+    if constexpr (kDa1) {
+      const int t = n / cc;
+      ax = 2 * (n - t * cc) + px;
+      b = t / cr;
+      ay = 2 * (t - b * cr) + py;
+    } else {
+      b = n;
+      ay = ax = 0;
+    }
+  };
+
+  // A copies: rows ma + i kAStep, channels va..va + 7 of each chunk
+  constexpr int av = kDKc / kV, bv = kDN / kV;    // copies a row
+  constexpr int kAN = kDM * av / kDThreads, kAStep = kDThreads / av;
+  constexpr int kBN = kDKc * bv / kDThreads;      // B copies a thread
+  static_assert(kDM * av % kDThreads == 0 && kDKc * bv % kDThreads == 0);
+  const int ma = tid / av, va = kV * (tid % av);
+  int rb[kAN], ray[kAN], rax[kAN];
+#pragma unroll
+  for (int i = 0; i < kAN; ++i) {
+    pixel(ma + i * kAStep, rb[i], ray[i], rax[i]);
+    if (m0 + ma + i * kAStep >= rows) rb[i] = -1;
+  }
+
+  auto load = [&](int c) {
+    const uint32_t a_s = base + (c % kDStages) * kDStage * 2;
+    const uint32_t b_s = a_s + kDM * kDALd * 2;
+    const int t = c / cchunks, co0 = (c % cchunks) * kDKc;
+    // an even avg row is reached by ky = 1 only, an odd one by ky = 0 and
+    // 2 (gemm_da1's tap order)
+    const int ky = py ? 2 * (t / ntx) : 1, kx = px ? 2 * (t % ntx) : 1;
+    const int tap = kDa1 ? 3 * ky + kx : 0;
+    const int co = co0 + va;
+#pragma unroll
+    for (int i = 0; i < kAN; ++i) {
+      bool ok = rb[i] >= 0 && co < Co;
+      size_t off;
+      if constexpr (kDa1) {
+        const int oy = (ray[i] + 1 - ky) / 2, ox = (rax[i] + 1 - kx) / 2;
+        ok = ok && oy < Ho && ox < Wo;
+        off = (((size_t)rb[i] * Ho + oy) * Wo + ox) * Cout + co;
+      } else {
+        off = (size_t)rb[i] * Cout + Co + co;
+      }
+      cp_async16(a_s + 2 * ((ma + i * kAStep) * kDALd + va),
+                 ok ? g + off : g, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < kBN; ++j) {
+      const int e = tid + j * kDThreads;
+      const int k = e / bv, ci = ci0 + kV * (e % bv);
+      const bool ok = co0 + k < Co && ci < Ch;
+      cp_async16(b_s + 2 * (k * kDBLd + ci - ci0),
+                 ok ? wt + ((size_t)tap * Co + co0 + k) * Ch + ci : wt, ok);
+    }
+  };
+
+  const uint32_t a_lane = 2 * (rows16(lane, kDALd) + wm * kDALd);
+  const uint32_t b_lane = 2 * (rows16(lane, kDBLd) + wn);
+  float acc[kMT][4][4] = {};
+  for (int c = 0; c < kDStages - 1; ++c) {
+    if (c < chunks) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kDStages - 2>();
+    __syncthreads();
+    if (c + kDStages - 1 < chunks) load(c + kDStages - 1);
+    cp_async_commit();
+    const uint32_t a_s = base + (c % kDStages) * kDStage * 2 + a_lane;
+    const uint32_t b_s = base + (c % kDStages) * kDStage * 2 +
+                         kDM * kDALd * 2 + b_lane;
+#pragma unroll
+    for (int ks = 0; ks < kDKc; ks += 16) {
+      uint32_t b[2][4];
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp)
+        ldmatrix_x4_trans(b_s + 2 * (ks * kDBLd + 16 * jp), b[jp]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a_s + 2 * (16 * mt * kDALd + ks), a);
+        mma_tiles(acc, a, mt, b);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // d[mt][j]: rows wm + 16 mt + g (k 0, 1) and + 8 (k 2, 3), channels
+  // ci0 + wn + 8 j + 2 t (k even) and + 1 (k odd)
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = wm + 16 * mt + gq + 8 * r;
+      const bool ok = m0 + m < rows;
+      int b = 0, ay = 0, ax = 0;
+      if (ok) pixel(m, b, ay, ax);
+      const size_t row =
+          (kDa1 ? ((size_t)b * HA + ay) * WA + ax : (size_t)b) * Ch;
+      store_row16(out + row, ci0 + wn, Ch, acc, mt, r, ok);
+    }
+}
+
+}  // namespace bf16
+
 int grid_for(size_t total) {
   const size_t blocks = (total + kThreads - 1) / kThreads;
   return (int)(blocks < 132 * 64 ? (blocks ? blocks : 1) : 132 * 64);
@@ -1305,7 +1494,7 @@ cudaError_t resident_ctas(K kernel, int* ctas) {
 
 // pass 1 with V-channel lanes; avg1 null: M and idx only
 template <typename T, int V>
-cudaError_t launch_pool(const T* x, float* M, unsigned char* idx, T* avg1,
+cudaError_t launch_pool(const T* x, T* M, unsigned char* idx, T* avg1,
                         int B, int H, int W, int Cin, cudaStream_t stream) {
   const int Ho = H / 2, Wo = W / 2, branches = avg1 ? 2 : 1;
   const int runs = ceil_div(Wo * (Cin / 2 / V), kThreads);
@@ -1340,7 +1529,7 @@ cudaError_t launch_dx(const float* dA1, const float* dM,
 // 8-channel lanes where the branch width Ch allows them (every gelan-c
 // and TINY_YAML site), else lanes of one channel
 template <typename T>
-cudaError_t launch_pool(const T* x, float* M, unsigned char* idx, T* avg1,
+cudaError_t launch_pool(const T* x, T* M, unsigned char* idx, T* avg1,
                         int B, int H, int W, int Cin, cudaStream_t stream) {
   if (Cin / 2 % 8 == 0)
     return launch_pool<T, 8>(x, M, idx, avg1, B, H, W, Cin, stream);
@@ -1356,28 +1545,21 @@ cudaError_t launch_dx(const float* dA1, const float* dM,
   return launch_dx<T, 1>(dA1, dM, idx, dx, B, H, W, Cin, stream);
 }
 
-template <typename T>
-cudaError_t launch(const void* x_, const void* g_, const float* w1t,
-                   const float* w2t, void* dx_, float* dw1, float* dw2,
-                   float* M, unsigned char* idx, float* dM, float* dA1,
-                   void* avg1, float* part, int B, int H, int W, int Cin,
-                   int Cout, int S, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(x_);
-  const T* g = static_cast<const T*>(g_);
-  T* dx = static_cast<T*>(dx_);
+// The bf16 backward with Ch or Co not a multiple of 8: the products on the
+// CUDA cores (gemm_dm, gemm_da1, gemm_dw), f32 weights
+cudaError_t launch_cuda_cores(const bf16::bf* x, const bf16::bf* g,
+                              const float* w1t, const float* w2t,
+                              bf16::bf* dx, float* dw1, float* dw2,
+                              bf16::bf* M, unsigned char* idx, float* dM,
+                              float* dA1, float* part, int B, int H, int W,
+                              int Cin, int Cout, int S, cudaStream_t stream) {
+  using T = bf16::bf;
   const int Ch = Cin / 2, Co = Cout / 2;
   const int Ho = H / 2, Wo = W / 2, HA = H - 1, WA = W - 1;
   const long long N = (long long)B * Ho * Wo;
-  const bool tensor_cores = std::is_same<T, __nv_bfloat16>::value &&
-                            Ch % 8 == 0 && Co % 8 == 0;
-  const auto* gb = reinterpret_cast<const tc::bf16*>(g_);
-  auto* ab = static_cast<tc::bf16*>(avg1);
   cudaError_t err;
 
-  // the bf16 branch-1 avg only for the tensor-core dW products
-  err = launch_pool<T>(x, M, idx, tensor_cores ? static_cast<T*>(avg1)
-                                               : nullptr,
-                       B, H, W, Cin, stream);
+  err = launch_pool<T>(x, M, idx, nullptr, B, H, W, Cin, stream);
   if (err != cudaSuccess) return err;
 
   const int ci_tiles = ceil_div(Ch, kT), co_tiles = ceil_div(Co, kT);
@@ -1388,12 +1570,8 @@ cudaError_t launch(const void* x_, const void* g_, const float* w1t,
   const int tiles_i = ceil_div(ceil_div(HA, 2), 8);
   const int tiles_j = ceil_div(ceil_div(WA, 2), 8);
   dim3 g_da(tiles_i * tiles_j, 4 * ci_tiles, B);
-  if (tensor_cores)
-    tc::gemm_da1_wmma<<<g_da, kThreads, 0, stream>>>(
-        gb, w1t, dA1, Ho, Wo, HA, WA, Co, Ch, tiles_j, ci_tiles);
-  else
-    gemm_da1<T><<<g_da, kThreads, 0, stream>>>(g, w1t, dA1, Ho, Wo, HA, WA,
-                                               Co, Ch, tiles_j, ci_tiles);
+  gemm_da1<T><<<g_da, kThreads, 0, stream>>>(g, w1t, dA1, Ho, Wo, HA, WA,
+                                             Co, Ch, tiles_j, ci_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   if ((err = launch_dx<T>(dA1, dM, idx, dx, B, H, W, Cin, stream)) !=
@@ -1402,12 +1580,8 @@ cudaError_t launch(const void* x_, const void* g_, const float* w1t,
 
   const long long slab = (N + S - 1) / S;
   dim3 g_dw(S, 10, ci_tiles * co_tiles);
-  if (tensor_cores)
-    tc::gemm_dw_wmma<<<g_dw, kThreads, 0, stream>>>(
-        ab, gb, M, part, H, W, Cin, Ho, Wo, Co, (int)N, (int)slab, co_tiles);
-  else
-    gemm_dw<T><<<g_dw, kThreads, 0, stream>>>(x, g, M, part, H, W, Cin, Ho,
-                                              Wo, Co, N, slab, co_tiles);
+  gemm_dw<T><<<g_dw, kThreads, 0, stream>>>(x, g, M, part, H, W, Cin, Ho,
+                                            Wo, Co, N, slab, co_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   dw_reduce<<<grid_for((size_t)10 * Ch * Co), kThreads, 0, stream>>>(
@@ -1415,7 +1589,61 @@ cudaError_t launch(const void* x_, const void* g_, const float* w1t,
   return cudaGetLastError();
 }
 
-// The f32 backward: the passes and dw_reduce as for bf16, the products on
+// The bf16 backward with Ch and Co multiples of 8: the passes and
+// dw_reduce as above, the products on bf16 mma.sync (namespace bf16) with
+// bf16 tap-major weights
+cudaError_t launch_bf16(const bf16::bf* x, const bf16::bf* g,
+                        const bf16::bf* w1t, const bf16::bf* w2t,
+                        bf16::bf* dx, float* dw1, float* dw2, bf16::bf* M,
+                        unsigned char* idx, float* dM, float* dA1,
+                        bf16::bf* avg1, float* part, int B, int H, int W,
+                        int Cin, int Cout, int S, cudaStream_t stream) {
+  using namespace bf16;
+  static PerDeviceSmem smem_dm, smem_da1, smem_dw;
+  cudaError_t err;
+  if ((err = smem_dm.opt_in((const void*)dgrad_bf16<false>, kDSmem)) !=
+          cudaSuccess ||
+      (err = smem_da1.opt_in((const void*)dgrad_bf16<true>, kDSmem)) !=
+          cudaSuccess ||
+      (err = smem_dw.opt_in((const void*)dw_bf16, kWSmem)) != cudaSuccess)
+    return err;
+  const int Ch = Cin / 2, Co = Cout / 2;
+  const int Ho = H / 2, Wo = W / 2, HA = H - 1, WA = W - 1;
+  const int N = B * Ho * Wo;
+
+  if ((err = launch_pool<bf>(x, M, idx, avg1, B, H, W, Cin, stream)) !=
+      cudaSuccess)
+    return err;
+
+  const int ci_tiles = ceil_div(Ch, kDN);
+  dgrad_bf16<false><<<ceil_div(N, kDM) * ci_tiles, kDThreads, kDSmem,
+                      stream>>>(g, w2t, dM, B, Ho, Wo, HA, WA, Co, Ch, N,
+                                ci_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // pixel tiles for the largest class, (0, 0); the others' last ones return
+  const int class_px = B * ceil_div(HA, 2) * ceil_div(WA, 2);
+  dgrad_bf16<true><<<ceil_div(class_px, kDM) * 4 * ci_tiles, kDThreads,
+                     kDSmem, stream>>>(g, w1t, dA1, B, Ho, Wo, HA, WA, Co,
+                                       Ch, N, ci_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = launch_dx<bf>(dA1, dM, idx, dx, B, H, W, Cin, stream)) !=
+      cudaSuccess)
+    return err;
+
+  const int co_tiles = ceil_div(Co, kWN);
+  dw_bf16<<<dim3(10 * ceil_div(Ch, kWM) * co_tiles, S), kWThreads, kWSmem,
+            stream>>>(avg1, g, M, part, H, W, Ho, Wo, Ch, Co, N,
+                      ceil_div(N, S), co_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  dw_reduce<<<grid_for((size_t)10 * Ch * Co), kThreads, 0, stream>>>(
+      part, dw1, dw2, S, Ch, Co);
+  return cudaGetLastError();
+}
+
+// The f32 backward: the passes and dw_reduce as above, the products on
 // the tensor cores (namespace f32) with E-float copies
 template <int E>
 cudaError_t launch_f32(const float* x, const float* g, const float* w1t,
@@ -1472,12 +1700,13 @@ cudaError_t launch_f32(const float* x, const float* g, const float* w1t,
 }  // namespace yolo
 
 // x (B, H, W, Cin) and g (B, H/2, W/2, Cout) NHWC in one dtype; w1t
-// (9, Cout/2, Cin/2) and w2t (Cout/2, Cin/2) f32 (tap-major, as the wrapper
-// permutes them); dx like x; dw1 (Cout/2, Cin/2, 3, 3), dw2 (Cout/2, Cin/2)
-// f32. Scratch, all allocated by the wrapper: M and dM (B, H/2, W/2, Cin/2)
-// f32, idx the same in uint8, dA1 (B, H-1, W-1, Cin/2) f32, avg1 the
-// same in x's dtype, part
-// (S, 10, Cin/2, Cout/2) f32. Cin and Cout even, H and W >= 2,
+// (9, Cout/2, Cin/2) and w2t (Cout/2, Cin/2) tap-major, as the wrapper
+// permutes them: bf16 for a bf16 call with Cin/2 and Cout/2 multiples of 8
+// (the bf16 products), else f32; dx like x; dw1 (Cout/2, Cin/2, 3, 3), dw2
+// (Cout/2, Cin/2) f32. Scratch, all allocated by the wrapper: M (B, H/2,
+// W/2, Cin/2) in x's dtype, idx the same in uint8, dM the same in f32, dA1
+// (B, H-1, W-1, Cin/2) f32, avg1 the same in x's dtype, part (S, 10,
+// Cin/2, Cout/2) f32. Cin and Cout even, H and W >= 2,
 // 1 <= S <= B*(H/2)*(W/2) < 2^31, 16-byte aligned tensors (checked by the
 // Python wrapper).
 extern "C" int yolo_adown_bwd(const void* x, const void* g, const void* w1t,
@@ -1486,14 +1715,22 @@ extern "C" int yolo_adown_bwd(const void* x, const void* g, const void* w1t,
                               void* avg1, void* part, int B, int H, int W,
                               int Cin, int Cout, int S, int dtype,
                               void* stream) {
+  using yolo::bf16::bf;
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [](void* p) { return static_cast<float*>(p); };
   auto cf = [](const void* p) { return static_cast<const float*>(p); };
+  auto b = [](void* p) { return static_cast<bf*>(p); };
+  auto cb = [](const void* p) { return static_cast<const bf*>(p); };
   auto* i8 = static_cast<unsigned char*>(idx);
-  if (dtype == yolo::kBFloat16)
-    return yolo::launch<__nv_bfloat16>(x, g, cf(w1t), cf(w2t), dx, f(dw1),
-                                       f(dw2), f(M), i8, f(dM), f(dA1), avg1,
-                                       f(part), B, H, W, Cin, Cout, S, s);
+  if (dtype == yolo::kBFloat16) {
+    if (Cin / 2 % 8 == 0 && Cout / 2 % 8 == 0)
+      return yolo::launch_bf16(cb(x), cb(g), cb(w1t), cb(w2t), b(dx), f(dw1),
+                               f(dw2), b(M), i8, f(dM), f(dA1), b(avg1),
+                               f(part), B, H, W, Cin, Cout, S, s);
+    return yolo::launch_cuda_cores(cb(x), cb(g), cf(w1t), cf(w2t), b(dx),
+                                   f(dw1), f(dw2), b(M), i8, f(dM), f(dA1),
+                                   f(part), B, H, W, Cin, Cout, S, s);
+  }
   // 16-byte copies where every row of the f32 products' operands starts
   // 16-byte aligned
   const bool vec = Cin / 2 % 4 == 0 && Cout / 2 % 4 == 0;

@@ -40,6 +40,9 @@ pack_launches = 0   # pack_weights on a CUDA tensor (adown, adown_raw)
 # output-pixel slabs of the weight-gradient products in csrc/adown_bwd.cu
 BWD_SLAB_PIXELS = 4096
 BWD_MAX_SLABS = 64
+# the bf16 weight-gradient product (csrc/adown_bwd.cu: dw_bf16): channels
+# a block, pixels a K chunk, blocks an SM
+BWD_BF16_TILE, BWD_BF16_CHUNK, BWD_BF16_BLOCKS_PER_SM = 128, 64, 2
 
 
 def adown_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -262,13 +265,32 @@ def adown_raw(x: torch.Tensor, w1: torch.Tensor,
     return y
 
 
+def _bwd_slabs(n: int, ch: int, co: int, device: torch.device) -> int:
+    """Slabs of the bf16 weight-gradient product: as many as keep its
+    blocks (10 taps x channel tiles a slab) within the whole rounds of
+    resident blocks that slabs of BWD_SLAB_PIXELS pixels take, at most
+    BWD_MAX_SLABS and one K chunk a slab. On an H100 (264 resident
+    blocks): gelan-c's down3 6 slabs, 240 blocks (4 slabs, 160 blocks,
+    would leave 104 block slots idle), pan_down1 26 (not 13)."""
+    per_slab = 10 * -(-ch // BWD_BF16_TILE) * -(-co // BWD_BF16_TILE)
+    resident = BWD_BF16_BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        device).multi_processor_count
+    slabs = -(-n // BWD_SLAB_PIXELS)
+    rounds = -(-slabs * per_slab // resident)
+    return max(1, min(max(slabs, rounds * resident // per_slab),
+                      BWD_MAX_SLABS, -(-n // BWD_BF16_CHUNK)))
+
+
 def adown_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
               w2: torch.Tensor):
     """Backward of `adown_raw`: x (B, Cin, H, W) and the cotangent g
     (B, 2*Co, H//2, W//2), channels_last in one dtype (float32 or
     bfloat16); w1 (Co, Cin/2, 3, 3), w2 (Co, Cin/2, 1, 1) of any float
-    dtype (the kernel reads them as f32). Returns (dx like x, dW1 f32,
-    dW2 f32), summed in a fixed order (the same result on every run)."""
+    dtype. The kernels read them in bf16 for a bf16 call whose Cin/2 and
+    Co are multiples of 8 (products on bf16 mma.sync; exact for the bf16
+    weights the train forward used), else in f32. Returns (dx like x, dW1
+    f32, dW2 f32), summed in a fixed order (the same result on every
+    run)."""
     global bwd_launches
     _check_x(x, "adown_bwd")
     _check_weights(x, "adown_bwd", False, w1=w1, w2=w2)
@@ -289,12 +311,15 @@ def adown_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
         return adown_bwd_plain(x, g, w1, w2)
     common.check_cuda(x)
     ch, n = cin // 2, bsz * (h // 2) * (w // 2)
-    slabs = max(1, min(BWD_MAX_SLABS, -(-n // BWD_SLAB_PIXELS)))
+    bf16_products = x.dtype == torch.bfloat16 and ch % 8 == 0 and co % 8 == 0
+    slabs = _bwd_slabs(n, ch, co, x.device) if bf16_products else \
+        max(1, min(BWD_MAX_SLABS, -(-n // BWD_SLAB_PIXELS)))
     f32 = {"dtype": torch.float32, "device": x.device}
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     dw1 = torch.empty((co, ch, 3, 3), **f32)
     dw2 = torch.empty((co, ch, 1, 1), **f32)
-    pool_max = torch.empty((n, ch), **f32)
+    # the window max in x's dtype: the f32 max rounded once
+    pool_max = torch.empty((n, ch), dtype=x.dtype, device=x.device)
     pool_idx = torch.empty((n, ch), dtype=torch.uint8, device=x.device)
     d_max = torch.empty((n, ch), **f32)
     d_avg1 = torch.empty((bsz, h - 1, w - 1, ch), **f32)
@@ -303,9 +328,11 @@ def adown_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
     avg1 = torch.empty((bsz, h - 1, w - 1, ch), dtype=x.dtype,
                        device=x.device)
     part = torch.empty((slabs, 10, ch, co), **f32)
-    # tap-major f32 weights: (9, Co, Ch) and (Co, Ch)
-    w1t = w1.float().permute(2, 3, 0, 1).contiguous()
-    w2t = w2.float().reshape(co, ch).contiguous()
+    # tap-major weights, (9, Co, Ch) and (Co, Ch), in the dtype of the
+    # products (csrc/adown_bwd.cu: yolo_adown_bwd)
+    wdt = torch.bfloat16 if bf16_products else torch.float32
+    w1t = w1.to(wdt).permute(2, 3, 0, 1).contiguous()
+    w2t = w2.to(wdt).reshape(co, ch).contiguous()
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.yolo_adown_bwd(
