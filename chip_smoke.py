@@ -14,7 +14,7 @@ non-zero (no phase is caught):
    there is one (`library_ms`, bf16: F.conv2d with bias, no SiLU; for the
    chain one conv's call times the 2n convs); the stage1 kernels through
    the packed calls a fused model makes (weights packed outside the timed
-   calls, as `fuse()` packs them once), at
+   calls, as `fuse()` packs them once; conv3 equal across two calls), at
    m (32, 32, 160, 160) for n = 1 and 2 (gelan-c, gelan-c-d2) and
    x (32, 64, 160, 160) and (32, 64, 80, 80); ADown at gelan-c's five
    sites through `adown` (packs, then the kernel) and through the packed
@@ -65,7 +65,8 @@ computed from this run's inputs; `bound_fraction` is bound_ms / ms. Each
 kernel's entry holds its bf16 numbers and, under "f32", its f32 ones (NMS
 runs in f32 only: the same numbers); the stage1 kernels, the stem weight
 gradient and ADown (forward, raw forward and backward) carry their
-numbers at each shape phase 3 or 6 ran under `shapes`. The last three lines are the card's nvidia-smi line, a
+numbers at each shape phase 3 or 6 ran under `shapes` (NMS at K = 512 and
+8400). The last three lines are the card's nvidia-smi line, a
 JSON line with one entry per kernel, and {"ok": true, "device": {...}}.
 """
 
@@ -333,6 +334,8 @@ def phase_kernels(dev) -> dict:
             y = conv3.conv3_silu_packed(x, wp, b)
             err = check_close(f"conv3 {tag} {tuple(x.shape)}", y,
                               conv3.conv3_silu_plain(x, w, b), dtype)
+            if not torch.equal(y, conv3.conv3_silu_packed(x, wp, b)):
+                raise AssertionError(f"conv3 {tag} {hw}: two calls differ")
             ms = cuda_ms(lambda: conv3.conv3_silu_packed(x, wp, b))
             plain_ms = cuda_ms(lambda: conv3.conv3_silu_plain(x, w, b))
             lib_ms = cuda_ms(lambda: F.conv2d(x, w, b, padding=1))
@@ -364,7 +367,6 @@ def phase_kernels(dev) -> dict:
         ms = cuda_ms(lambda: nms.nms_select(boxes, scores, 0.45, 300))
         plain_ms = cuda_ms(
             lambda: nms.nms_select_plain(boxes, scores, 0.45, 300), 2)
-        print(f"  nms K={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         # this run's greedy steps: one per kept box, plus the step that
         # finds nothing live where fewer than max_det are kept; each step
         # ~16 f32 operations per candidate (IoU, compare, argmax)
@@ -374,6 +376,9 @@ def phase_kernels(dev) -> dict:
                          "library_ms": None, **bound(
                              nbytes(boxes, scores, idx), 16.0 * steps * k,
                              "f32")}
+        print(f"  nms K={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {res['nms'][k]['bound_ms']:.4f} ms "
+              f"({res['nms'][k]['bound_by']}, {steps} greedy steps)")
     return res
 
 
@@ -823,6 +828,7 @@ def kernels_line(res: dict, tres: dict, counts: dict,
                                  for n in CHAIN_DEPTHS},
             "conv3_silu": {f"{hw[0]}x{hw[1]}": res["conv3"][(hw, tag)]
                            for hw in CONV3_HW},
+            "nms_select": {f"K={k}": res["nms"][k] for k in NMS_SHAPES},
             "stem_wgrad": {f"{b}x3x{SIZE}x{SIZE}":
                            tres["stem_wgrad"][(b, tag)]
                            for b in WGRAD_BATCHES
@@ -903,8 +909,9 @@ def main() -> int:
           f"launch and the kernel, as the train forward calls it), each also "
           f"under 'shapes' with composite_ms, the time of its cuDNN "
           f"composite (a composite of library calls, not one call), nms is "
-          f"K=512, bottleneck_chain n=1 with library_ms two F.conv2d calls "
-          f"(one per conv; no SiLU, no residual), conv3_silu at 160x160 with "
+          f"K=512 (K=8400, all anchors, under 'shapes'), bottleneck_chain "
+          f"n=1 with library_ms two F.conv2d calls (one per conv; no SiLU, "
+          f"no residual), conv3_silu at 160x160 with "
           f"library_ms one F.conv2d with bias (no SiLU), both also under "
           f"'shapes' at each shape phase 3 ran (chain n=2: four F.conv2d "
           f"calls; conv3 80x80), stem_wgrad at x ({BATCH}, 3, {SIZE}, "

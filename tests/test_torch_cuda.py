@@ -286,13 +286,30 @@ def test_chain_kernel_matches_plain(cuda, dtype, n, shape):
     torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 160, 160), (1, 80, 80), (1, 20, 24)],
-                         ids=["many_tiles", "stage2", "fewer_tiles_than_sms"])
+# (name, shape, dtypes): the f32 kernel's walk also at H and W that no
+# tile side divides, a single pixel and gelan-c's 80 x 80 sites at batch
+# 32 (in bf16 those outputs reach 4-8, where one bf16 ulp exceeds ATOL)
+_BOTH, _F32 = (torch.float32, torch.bfloat16), (torch.float32,)
+CONV3_WALKS = [
+    (name, shape, dtype)
+    for name, shape, dtypes in (
+        ("many_tiles", (3, 160, 160), _BOTH), ("stage2", (1, 80, 80), _BOTH),
+        ("fewer_tiles_than_sms", (1, 20, 24), _BOTH),
+        ("ragged", (5, 97, 131), _F32), ("one_pixel", (1, 1, 1), _F32),
+        ("stage2_batch", (32, 80, 80), _F32))
+    for dtype in dtypes]
+
+
+@pytest.mark.parametrize(
+    "shape,dtype", [(s, d) for _, s, d in CONV3_WALKS],
+    ids=[f"{n}-dtype{int(d == torch.bfloat16)}" for n, _, d in CONV3_WALKS])
 def test_conv3_kernel_persistent_walk(cuda, dtype, shape):
-    """The persistent grid: 300 tiles over 132 CTAs (a ragged last round),
-    gelan-c's 80 x 80 sites, and 4 tiles (fewer CTAs than SMs), through
-    the packed call a fused Conv makes."""
+    """The persistent grid: more tiles than CTAs (a ragged last round),
+    gelan-c's 80 x 80 sites, fewer tiles than SMs, and in f32 also H and W
+    that no tile side divides (each CTA's range of tiles crossing column
+    strips and images), a single pixel and batch 32 at 80 x 80, through
+    the packed call a fused Conv makes; a second call gives the same
+    output, bit for bit."""
     g = torch.Generator().manual_seed(9)
     x = _rand(g, shape[0], 64, *shape[1:], dtype=dtype, cl=True).to(cuda)
     w = _rand(g, 64, 64, 3, 3, scale=0.05, dtype=dtype).to(cuda)
@@ -305,6 +322,21 @@ def test_conv3_kernel_persistent_walk(cuda, dtype, shape):
     torch.testing.assert_close(y.float(),
                                conv3.conv3_silu_plain(x, w, b).float(),
                                atol=ATOL[dtype], rtol=0)
+    assert torch.equal(conv3.conv3_silu_packed(x, wp, b), y)
+
+
+def test_conv3_f32_runs_the_tensor_core_kernel(cuda):
+    """An f32 packed call (a fused Conv's) launches one kernel, the 3xTF32
+    `conv3_tf32_kernel`, and not the CUDA-core `conv3_f32_kernel` it
+    replaced."""
+    g = torch.Generator().manual_seed(16)
+    x = _rand(g, 2, 64, 20, 24, cl=True).to(cuda)
+    wp = conv3.pack_weights(_rand(g, 64, 64, 3, 3, scale=0.05).to(cuda))
+    b = _rand(g, 64).to(cuda)
+    names = [n for n in _cuda_kernels(lambda: conv3.conv3_silu_packed(
+        x, wp, b)) if "yolo" in n]
+    assert len(names) == 1 and "conv3_tf32_kernel" in names[0], names
+    assert not any("conv3_f32_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -373,6 +373,7 @@ def test_profile_launches_needs_a_card(monkeypatch, capsys):
     from yolo_re_tpu_torch.cli import profile_launches
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in ([], ["train"], ["train", "f32"], ["other"]):
+    for argv in ([], ["train"], ["train", "f32"], ["eval"], ["eval", "bf16"],
+                 ["other"]):
         assert profile_launches.main(argv) == 2
     assert "ms" not in capsys.readouterr().out

@@ -10,13 +10,15 @@ operand (the avg, the max) so, and its weights by cutting (hi = the weight
 cut to TF32, as the tensor cores read an f32 operand's top bits). Here the
 split is emulated in torch with the kernels' integer arithmetic; a product
 of two TF32 values is exact in f32, as on the tensor cores, and the sums
-are f32. At the shapes and scales of the chain's convs, of the stem weight
-gradient, of the ADown backward's dW1 and dA1 and of the ADown forward's
-two convs, 3xTF32 meets the f32 tolerances of chip_smoke.py and
+are f32. At the shapes and scales of the chain's convs, of conv3, of the
+stem weight gradient, of the ADown backward's dW1 and dA1 and of the ADown
+forward's two convs, 3xTF32 meets the f32 tolerances of chip_smoke.py and
 tests/test_torch_cuda.py against an f64 reference, and one TF32 product
 does not.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -124,6 +126,49 @@ def test_3xtf32_chain_meets_the_f32_tolerance(n):
            for name, f in (("3x", three_tf32), ("1x", one_tf32))}
     assert err["3x"] <= tol / 10, err
     assert err["1x"] > tol, err
+
+
+def test_3xtf32_conv3_meets_the_f32_tolerance():
+    """conv3's f32 kernel (csrc/conv3.cu): 64 -> 64 channels, weights at
+    0.05 as chip_smoke.py's phase 3, an image cut small (40 x 40) for the
+    CPU. Each tap's 64-deep products in 3xTF32, summed apart, then added
+    in tap order; then bias and SiLU. Held against f64 and against JAX's
+    f32 conv + bias + SiLU at HIGHEST precision (as
+    tests/test_torch_csp.py holds conv3's plain version)."""
+    rng = np.random.default_rng(64)
+    x = rng.standard_normal((2, 40, 40, 64), dtype=np.float32)   # NHWC
+    w = rng.standard_normal((3, 3, 64, 64), dtype=np.float32) * 0.05  # HWIO
+    b = rng.standard_normal(64, dtype=np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
+    bt = torch.from_numpy(b).view(1, -1, 1, 1)
+
+    def conv3(f, x, w, b):
+        xp, h, wd = F.pad(x, (1, 1, 1, 1)), x.shape[2], x.shape[3]
+        acc = 0.0
+        for tap in range(9):
+            ky, kx = divmod(tap, 3)
+            acc = acc + f(F.conv2d, xp[:, :, ky:ky + h, kx:kx + wd],
+                          w[:, :, ky:ky + 1, kx:kx + 1])
+        return F.silu(acc + b)
+
+    def exact(op, a, v):
+        return op(a, v)
+
+    ref = conv3(exact, xt.double(), wt.double(), bt.double())
+    tol = OUT_REL * max(1.0, float(ref.abs().max()))
+    y = {name: conv3(f, xt, wt, bt)
+         for name, f in (("3x", three_tf32), ("1x", one_tf32))}
+    err = {name: float((v.double() - ref).abs().max())
+           for name, v in y.items()}
+    assert err["3x"] <= tol / 10, err
+    assert err["1x"] > tol, err
+    yj = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (1, 1), ((1, 1), (1, 1)),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=jax.lax.Precision.HIGHEST) + jnp.asarray(b)
+    yj = np.asarray(yj * jax.nn.sigmoid(yj)).transpose(0, 3, 1, 2)
+    assert float(np.abs(y["3x"].numpy() - yj).max()) <= tol
 
 
 @pytest.mark.parametrize("c", [64, 80])

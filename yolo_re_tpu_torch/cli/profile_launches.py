@@ -1,7 +1,8 @@
 """Device time of each launch inside one call of a train kernel's wrapper,
-and of one gelan-c train step.
+and of one gelan-c train step or eval batch.
 
-    python -m yolo_re_tpu_torch.cli.profile_launches [kernels|train [f32]]
+    python -m yolo_re_tpu_torch.cli.profile_launches \
+        [kernels|train [f32]|eval [bf16]]
 
 `kernels` (the default): a wrapper such as `adown_bwd` makes several
 launches from one C entry point; `chip_smoke.py` times the call as a
@@ -29,6 +30,16 @@ is printed), 640 px, random weights and synthetic batches (as
 chip_smoke.py's phase 8): after a warm-up step, the host clock over five
 steps, then the device time per step over five traced steps (after three
 more), in all and by kernel (the largest first).
+
+`eval`: gelan-c, fused, f32 (the Evaluator's default dtype; `eval bf16`:
+bf16), random weights from seed 0 with the class biases at 0 (as
+chip_smoke.py's phase 5, so that the all-anchor NMS keeps its full 300),
+one batch of 32 random uint8 images at 640 px, made on the card and
+handed over as the loader hands a batch (on the host), through
+`Evaluator._dispatch`: the copy to the card, the forward, all-anchor
+NMS and the copy of the padded detections back. It prints the device
+time per batch of the 15 largest kernels, of the package's own kernels
+and of all.
 
 Random inputs from a fixed seed. It needs a CUDA card and exits with 2
 without one; the first lines are the card's nvidia-smi name and power
@@ -248,10 +259,38 @@ def train_step(dtype: str) -> None:
     print(f"  all kernels {sum(r[0] for r in rows):.4f} ms per step")
 
 
+def eval_batch(dtype: str) -> None:
+    from pathlib import Path
+
+    from yolo_re_tpu_torch.eval.evaluator import Evaluator
+    from yolo_re_tpu_torch.models.yolo import YOLO
+    from yolo_re_tpu_torch.serving import inference_model
+
+    root = Path(__file__).resolve().parents[2]
+    model = YOLO.from_yaml(root / "configs" / "models" / "gelan-c.yaml")
+    model.init_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for seq in model.layers["detect"].cls_convs:
+            seq[2].bias.zero_()
+    ev = Evaluator(model, None, compute_dtype=dtype, device="cuda")
+    fused = inference_model(model, model.state_dict(), ev.device, ev.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"images": torch.randint(
+        0, 256, (BATCH, 640, 640, 3), generator=gen, device="cuda",
+        dtype=torch.uint8).cpu().numpy()}
+    rows = launch_times(lambda: ev._dispatch(fused, batch))
+    report(f"gelan-c {dtype} eval batch of {BATCH} at 640 px, device time "
+           f"by kernel (largest 15 of {len(rows)})", rows[:15])
+    own = sum(r[0] for r in rows if "yolo" in r[2])
+    print(f"  the package's kernels {own:.4f} ms, all kernels "
+          f"{sum(r[0] for r in rows):.4f} ms per batch")
+
+
 def main(argv: list[str] | None = None) -> int:
     what = (sys.argv[1:] if argv is None else argv) or ["kernels"]
-    if what not in (["kernels"], ["train"], ["train", "f32"]):
-        print("usage: profile_launches [kernels|train [f32]]",
+    if what not in (["kernels"], ["train"], ["train", "f32"], ["eval"],
+                    ["eval", "bf16"]):
+        print("usage: profile_launches [kernels|train [f32]|eval [bf16]]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -263,6 +302,9 @@ def main(argv: list[str] | None = None) -> int:
         check=True, timeout=60).stdout.strip())
     if what[0] == "train":
         train_step("float32" if what[1:] == ["f32"] else "bfloat16")
+        return 0
+    if what[0] == "eval":
+        eval_batch("bfloat16" if what[1:] == ["bf16"] else "float32")
         return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

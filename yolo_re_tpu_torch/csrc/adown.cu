@@ -675,12 +675,6 @@ __device__ __forceinline__ void issue(float (&acc)[kN / 2],
   wgmma_commit();
 }
 
-// SiLU in f32 by the fast exponential and division (two MUFU operations;
-// a few f32 ulps, far below the bf16 rounding that follows)
-__device__ __forceinline__ float silu_mufu(float y) {
-  return __fdividef(y, 1.0f + __expf(-y));
-}
-
 // rows m0 and m0 + 8 of the warp (m0 = 64 wg + 16 warp + lane / 4),
 // channels 8j + 2q4, +1 of each 8-channel group j: bias and SiLU in f32
 // (raw: neither), one rounding, 16-byte stores of 8 channels per lane. The

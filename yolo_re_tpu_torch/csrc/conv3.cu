@@ -35,9 +35,27 @@
 //   accumulator registers: bias and SiLU in f32, one rounding, bf16 pairs
 //   exchanged within each quad of lanes so that every lane stores 16
 //   contiguous bytes.
-// - f32: CUDA cores, an 8 x 16-pixel tile, chunks of 8 input channels and
-//   an 8-pixel x 4-channel f32 register tile per thread. The products are
-//   not rounded to TF32. It reads the same packed weights.
+// - f32: the same 60.4 GFLOP and twice the bytes (0.125 ms); on the CUDA
+//   cores (67 TFLOP/s) the products alone take 0.90 ms, so they go to the
+//   tensor cores in 3xTF32 (hopper.cuh: three TF32 products per f32
+//   product, 0.366 ms at 495 TFLOP/s) by mma.sync m16n8k8, on the f32
+//   bottleneck chain's skeleton (csp_chain.cu). Shared memory sets the
+//   shape: all 64 output channels' weights stay resident (147,456 B, staged
+//   once from the packed image into [tap][16 channels][co][16 channels]),
+//   which leaves room for 18 rows of an 18-pixel-wide frame (82,944 B) and
+//   not for two 18 x 18 frames. So a tile is 16 columns x 8 rows, and the
+//   18 rows are a ring: image row iy in slot iy mod 18. A persistent grid
+//   of one 8-warp CTA per SM takes a contiguous range of tiles in (image,
+//   column strip, row block) order; while a tile computes, the next tile
+//   of its strip gets its 8 new rows by cp.async (zero fill outside the
+//   image) into the slots the tile before freed, and only a new strip
+//   waits for a whole frame. A pixel is 256 bytes, an odd pixel's 16-byte
+//   chunks XOR-swizzled by 4 (pix_off). A warp takes two tile rows (two
+//   m16 tiles) for 32 output channels (four n8 tiles); every operand is
+//   split into hi and lo in registers as its fragment loads, and each
+//   tap's 64-deep products are summed apart, then added by FADD. Epilogue
+//   from the registers: bias and SiLU in f32, the lanes of each quad trade
+//   so that each stores 8 consecutive channels in two 16-byte stores.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -211,101 +229,233 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// f32 CUDA-core variant
+// f32 tensor-core variant (3xTF32, mma.sync)
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int kTR = 8;                  // output tile rows
-constexpr int kTC = 16;                 // output tile columns
-constexpr int kPR = kTR + 2, kPC = kTC + 2;
-constexpr int kCK = 8;                  // input channels per chunk
+using namespace sm90;
+
+constexpr int kTW = 16;                  // tile columns: one m16 tile
+constexpr int kTH = 8;                   // tile rows
+constexpr int kFW = kTW + 2;             // frame columns
+constexpr int kRing = 2 * kTH + 2;       // ring rows: a frame + the next 8
+constexpr int kPixBytes = kC * 4;        // 256
+constexpr int kRowBytes = kFW * kPixBytes;
+constexpr int kRingBytes = kRing * kRowBytes;         // 82,944
+constexpr int kWBytes = 9 * kC * kC * 4;              // 147,456
+constexpr int kSmemBytes = kWBytes + kRingBytes;      // 230,400
 constexpr int kThreads = 256;
+constexpr int kSteps = kC / 16;          // 16-channel steps of a tap
 
-__global__ void __launch_bounds__(kThreads)
-conv3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ y, int H,
-                 int W, int tiles_w) {
-  __shared__ __align__(16) float patch[kPR * kPC * kCK];   // [r][c][k]
-  __shared__ __align__(16) float w_s[9 * kCK * kC];        // [tap][k][co]
+// the ring slot of image row iy (>= -1)
+__device__ __forceinline__ int slot(int iy) { return (iy + kRing) % kRing; }
 
-  const int oy0 = (blockIdx.x / tiles_w) * kTR;
-  const int ox0 = (blockIdx.x % tiles_w) * kTC;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  // register tile: 8 pixels (one row, 8 adjacent columns) x 4 channels
-  const int cg = tid % 16, pg = tid / 16;
-  const int pr = pg / 2, pc0 = (pg % 2) * 8;
-  const float* xb = x + (size_t)b * H * W * kC;
+// byte offset of chunk c (4 channels) of ring pixel q (slot * kFW +
+// frame column): an odd pixel's chunks XOR-swizzled by 4, so that the two
+// pixels of an A load's 8-lane phase meet 8 bank groups
+__device__ __forceinline__ uint32_t pix_off(int q, int c) {
+  return q * kPixBytes + ((c ^ ((q & 1) << 2)) << 4);
+}
 
-  float acc[8][4];
+struct Tile {
+  int b, y0, x0;
+};
+
+// tiles in (image, column strip, row block) order
+__device__ __forceinline__ Tile tile_of(int t, int rblocks, int strips) {
+  const int s = t / rblocks;
+  return {s / strips, (t % rblocks) * kTH, (s % strips) * kTW};
+}
+
+// image rows [iy0, iy1) of the tile's frame columns into their ring
+// slots, zero outside the image
+__device__ __forceinline__ void load_rows(uint32_t ring, const float* x,
+                                          Tile t, int iy0, int iy1, int H,
+                                          int W) {
+  for (int e = threadIdx.x; e < (iy1 - iy0) * kFW * 16; e += kThreads) {
+    const int c = e % 16, col = (e / 16) % kFW, iy = iy0 + e / (16 * kFW);
+    const int ix = t.x0 - 1 + col;
+    const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+    const float* src =
+        ok ? x + (((size_t)t.b * H + iy) * W + ix) * kC + 4 * c : x;
+    cp_async16(ring + pix_off(slot(iy) * kFW + col, c), src, ok);
+  }
+}
+
+// The weights from the packed image into [tap][16-channel step h][co][16
+// input channels]: 16-byte chunk e = ((4 tap + h) * 64 + co) * 4 + cq
+// holds input channels 16 h + 4 cq .. + 3 of output channel co, which the
+// packed image keeps contiguous.
+__device__ __forceinline__ void load_weights(uint32_t w_s, const float* w) {
+  for (int e = threadIdx.x; e < kWBytes / 16; e += kThreads) {
+    const int cq = e & 3, co = (e >> 2) & 63, th = e >> 8;
+    cp_async16(w_s + 16 * e,
+               w + th * 16 * kC + (co / 8) * 128 + (cq / 2) * 64 +
+                   (co % 8) * 8 + (cq % 2) * 4,
+               true);
+  }
+}
+
+// A persistent grid; CTA i walks tiles [i T / G, (i + 1) T / G) of the T
+// tiles. Warp w takes tile rows 2 (w % 4) and + 1 (two m16 tiles) for the
+// 32 output channels 32 (w / 4) .. + 31 (four n8 tiles). In a k8 step
+// (tap, h, s) the column t of A and B stands for input channel
+// 16 h + 4 t + 2 s and column t + 4 for the next one, so a lane reads 4
+// contiguous channels (one 16-byte load) of its pixel for A and of its
+// output channel for B, for both steps s.
+__global__ void __launch_bounds__(kThreads, 1)
+conv3_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ y,
+                  int H, int W, int rblocks, int strips, int n_tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t w_s = smem_u32(smem), ring = w_s + kWBytes;
+  const unsigned char* const ws = smem;
+  const unsigned char* const rs = smem + kWBytes;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int pr = 2 * (warp % 4), n0 = 32 * (warp / 4);
+
+  const int t0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
+  const int t1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+  load_weights(w_s, w);
+  bool ready = false;   // the tile's frame is in, or in flight
+
+  float bc[4][2];       // biases of this lane's channels
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int e = 0; e < 2; ++e)
+      bc[j][e] = __ldg(bias + n0 + 8 * j + 2 * tq + e);
 
-  for (int ci0 = 0; ci0 < kC; ci0 += kCK) {
-    for (int e = tid; e < kPR * kPC * (kCK / 4); e += kThreads) {
-      const int q = e % 2, rc = e / 2;
-      const int iy = oy0 - 1 + rc / kPC, ix = ox0 - 1 + rc % kPC;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-        v = *reinterpret_cast<const float4*>(
-            xb + ((size_t)iy * W + ix) * kC + ci0 + 4 * q);
-      *reinterpret_cast<float4*>(patch + rc * kCK + 4 * q) = v;
+  for (int t = t0; t < t1; ++t) {
+    const Tile tl = tile_of(t, rblocks, strips);
+    if (!ready) {
+      __syncthreads();   // the last tile is done with the ring
+      load_rows(ring, x, tl, tl.y0 - 1, tl.y0 + kTH + 1, H, W);
+      cp_async_commit();
     }
-    // the chunk's weights, [tap][ci][co], from the packed image, where
-    // one output channel's 8 input channels of a chunk are contiguous
-    for (int e = tid; e < 9 * kC * 2; e += kThreads) {
-      const int half = e % 2, co = (e / 2) % kC, tap = e / (2 * kC);
-      const float4 v = *reinterpret_cast<const float4*>(
-          w + sm90::packed_index<kC>(co, ci0, tap) + 4 * half);
-      float* d = w_s + (tap * kCK + 4 * half) * kC + co;
-      d[0] = v.x; d[kC] = v.y; d[2 * kC] = v.z; d[3 * kC] = v.w;
-    }
+    cp_async_wait_all();
+    // the frame is in, and every warp is done with tile t - 1, whose
+    // first 8 rows are the slots of the next tile's 8 new rows
     __syncthreads();
+    ready = t + 1 < t1 && (t + 1) % rblocks != 0;
+    if (ready) {
+      load_rows(ring, x, tl, tl.y0 + kTH + 1, tl.y0 + 2 * kTH + 1, H, W);
+      cp_async_commit();
+    }
+
+    float acc[2][4][4];
 #pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const float* wt = w_s + (3 * ky + kx) * kCK * kC + 4 * cg;
-        const float* at = patch + ((pr + ky) * kPC + pc0 + kx) * kCK;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int k = 0; k < kCK; ++k) {
-          const float4 wv = *reinterpret_cast<const float4*>(wt + k * kC);
+        for (int k = 0; k < 4; ++k) acc[mt][j][k] = 0.0f;
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      // ring pixels of this lane's A rows gq and gq + 8 of each m16 tile
+      int q[2][2];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float a = at[i * kCK + k];
-            acc[i][0] += a * wv.x; acc[i][1] += a * wv.y;
-            acc[i][2] += a * wv.z; acc[i][3] += a * wv.w;
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          q[mt][r] = slot(tl.y0 + pr + mt + ky - 1) * kFW + gq + 8 * r + kx;
+      const unsigned char* const wt =
+          ws + (((4 * tap * kC + n0 + gq) << 6) + (tq << 4));
+      float part[2][4][4];   // this tap's products, added by FADD
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) part[mt][j][k] = 0.0f;
+#pragma unroll
+      for (int h = 0; h < kSteps; ++h) {
+        float4 av[2][2], bv[4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            av[mt][r] = *reinterpret_cast<const float4*>(
+                rs + pix_off(q[mt][r], 4 * h + tq));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(
+              wt + ((h * kC + 8 * j) << 6));
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          uint32_t ah[2][4], al[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const float4 &r0 = av[mt][0], &r1 = av[mt][1];
+            const float v[4] = {s ? r0.z : r0.x, s ? r1.z : r1.x,
+                                s ? r0.w : r0.y, s ? r1.w : r1.y};
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              split_tf32(v[k], ah[mt][k], al[mt][k]);
           }
+          uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            split_tf32(s ? bv[j].z : bv[j].x, bh[j][0], bl[j][0]);
+            split_tf32(s ? bv[j].w : bv[j].y, bh[j][1], bl[j][1]);
+          }
+          mma_3xtf32(part, ah, al, bh, bl);
         }
       }
-    }
-    __syncthreads();
-  }
-
-  const int oy = oy0 + pr;
-  if (oy >= H) return;
-  const float4 bv = *reinterpret_cast<const float4*>(bias + 4 * cg);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int ox = ox0 + pc0 + i;
-    if (ox >= W) continue;
-    *reinterpret_cast<float4*>(y + (((size_t)b * H + oy) * W + ox) * kC +
-                               4 * cg) =
-        make_float4(silu(acc[i][0] + bv.x), silu(acc[i][1] + bv.y),
-                    silu(acc[i][2] + bv.z), silu(acc[i][3] + bv.w));
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[mt][j][k] += part[mt][j][k];
+    }
+
+    // epilogue: pixel (row pr + mt, column gq + 8 r), channels n0 + 8 j +
+    // 2 tq, + 1; within each quad the lanes trade so that lane tq holds
+    // channels n0 + 8 tq .. + 7, two 16-byte stores
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t vx[4], vy[4], ox[4], oy[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          vx[j] = __float_as_uint(
+              silu_mufu(acc[mt][j][2 * r] + bc[j][0]));
+          vy[j] = __float_as_uint(
+              silu_mufu(acc[mt][j][2 * r + 1] + bc[j][1]));
+        }
+        quad_transpose(vx, ox, tq);
+        quad_transpose(vy, oy, tq);
+        const int iy = tl.y0 + pr + mt, ix = tl.x0 + gq + 8 * r;
+        if (iy < H && ix < W) {
+          float* dst =
+              y + (((size_t)tl.b * H + iy) * W + ix) * kC + n0 + 8 * tq;
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(ox[0], oy[0], ox[1], oy[1]);
+          *reinterpret_cast<uint4*>(dst + 4) =
+              make_uint4(ox[2], oy[2], ox[3], oy[3]);
+        }
+      }
   }
+  cp_async_wait_all();
 }
 
 cudaError_t launch(const void* x, const void* w, const void* b, void* y,
                    int B, int H, int W, cudaStream_t stream) {
-  const int tiles_w = ceil_div(W, kTC), tiles_h = ceil_div(H, kTR);
-  dim3 grid(tiles_w * tiles_h, B);
-  conv3_f32_kernel<<<grid, kThreads, 0, stream>>>(
+  static PerDeviceSmem smem;
+  cudaError_t e = smem.opt_in((const void*)conv3_tf32_kernel, kSmemBytes);
+  if (e != cudaSuccess) return e;
+  const int rblocks = ceil_div(H, kTH), strips = ceil_div(W, kTW);
+  const int n_tiles = B * strips * rblocks;
+  const int grid = n_tiles < sm_count() ? n_tiles : sm_count();
+  conv3_tf32_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(y), H, W, tiles_w);
+      static_cast<const float*>(b), static_cast<float*>(y), H, W, rblocks,
+      strips, n_tiles);
   return cudaGetLastError();
 }
 

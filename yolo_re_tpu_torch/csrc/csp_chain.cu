@@ -378,13 +378,6 @@ __host__ __device__ constexpr int smem_for(int n) {
   return frames_for(n) * frame_bytes(n) + 2 * kConvBytes;
 }
 
-// SiLU by the fast exponential and division (two MUFU operations), within
-// ~1e-6 relative of common.cuh's silu, whose IEEE division made the
-// epilogue a visible share of the kernel's time
-__device__ __forceinline__ float silu_mufu(float y) {
-  return __fdividef(y, 1.0f + __expf(-y));
-}
-
 // byte offset of chunk c (4 channels) of frame pixel q: the chunks XOR-
 // swizzled by q % 4 (0, 4, 2, 6), so that the two pixels of an A load's
 // 8-lane phase, and the four of an epilogue store's 16, meet 8 bank groups

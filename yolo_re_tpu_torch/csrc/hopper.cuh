@@ -365,6 +365,13 @@ __device__ __forceinline__ float silu_fast(float y) {
   return y * __frcp_rn(1.0f + __expf(-y));
 }
 
+// SiLU by the fast exponential and division (two MUFU operations), within
+// ~1e-6 relative of common.cuh's silu, whose IEEE division made the f32
+// chain's epilogue a visible share of its time (csp_chain.cu, conv3.cu)
+__device__ __forceinline__ float silu_mufu(float y) {
+  return __fdividef(y, 1.0f + __expf(-y));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
