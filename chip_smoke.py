@@ -9,10 +9,11 @@ non-zero (no phase is caught):
 2. build: nvcc compiles yolo_re_tpu_torch/csrc/*.cu (cached by source hash);
 3. every kernel of the serving and eval path against its plain PyTorch
    version on the card, at gelan-c's shapes at 640 px and batch 32, in
-   bf16 and f32: max abs difference (against the tolerance stated below),
-   time, and the time of one PyTorch call computing the same function where
-   there is one (`library_ms`, bf16: F.conv2d with bias, no SiLU; for the
-   chain one conv's call times the 2n convs); the stage1 kernels through
+   bf16 and f32: max abs difference (against the tolerance stated below;
+   bf16 also in ulps of |ref| where |ref| >= 1), time, and the time of
+   one PyTorch call computing the same function where there is one
+   (`library_ms`, bf16: F.conv2d with bias, no SiLU; for the chain one
+   conv's call times the 2n convs); the stage1 kernels through
    the packed calls a fused model makes (weights packed outside the timed
    calls, as `fuse()` packs them once; conv3 equal across two calls), at
    m (32, 32, 160, 160) for n = 1 and 2 (gelan-c, gelan-c-d2) and
@@ -21,9 +22,13 @@ non-zero (no phase is caught):
    call a fused ADown makes (timed), each site's time beside its bound and
    beside the time of its cuDNN composite (avg_pool2d, the two F.conv2d
    with bias, max_pool2d, silu, cat, TF32 off: a composite of library
-   calls, not one call, so not the kernel's `library_ms`);
+   calls, not one call, so not the kernel's `library_ms`); the stem
+   (like conv3) equal across two calls;
 4. the trained tiny fixture (assets/dryrun_tiny.npz, TINY_YAML, 160 px)
    served on cuda and on the CPU (plain versions) in f32: equal detections;
+   phases 4, 7 and 9 (a) run with PyTorch's default TF32 flags, so that
+   they fail if an entry point leaves TF32 on for its f32 work (every
+   other phase runs with TF32 off: full f32 plain references);
 5. gelan-c at full width: random weights from seed 0, fused, bf16, four
    requests of 32 frames of 720x1280 uint8 through Detector, with the
    kernels' launch counters held to the path's layout; first the fused
@@ -34,9 +39,10 @@ non-zero (no phase is caught):
    8, with its fraction of the bound and its bytes/s; ADown raw, which
    packs its weights on every call, per site beside its bound and its
    cuDNN composite without bias and SiLU; the ADown backward per site
-   beside its bound): outputs and dx within `tolerance`, weight gradients within a relative L2 of 1e-5
-   (f32) / 2e-2 (bf16), the stem weight gradient and the ADown backward
-   equal across two calls, and times;
+   beside its bound): outputs and dx within `tolerance`, weight gradients
+   within a relative L2 of 1e-5 (f32) / 2e-2 (bf16), the raw stem, the
+   stem weight gradient and the ADown backward equal across two calls,
+   and times;
 7. TINY_YAML, f32: 12 Trainer steps on cuda (kernels) and on the CPU
    (plain versions) from the same init; the loss curves must track within
    the bounds of scripts/validate_loss_curve.py (2% relative for the first
@@ -72,6 +78,7 @@ JSON line with one entry per kernel, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -194,12 +201,28 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bf16_ulps(y: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |y - ref| in bf16 ulps of |ref| over the outputs with
+    |ref| >= 1 (one ulp there, at least 2^-7, lies far above the f32 sums'
+    order); 0 if there are none."""
+    r = ref.float()
+    big = r.abs() >= 1
+    if not big.any():
+        return 0.0
+    _, e = torch.frexp(r[big])              # |r| = f 2^e, f in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(r[big]), e - 8)
+    return float(((y.float()[big] - r[big]).abs() / ulp).max())
+
+
 def check_close(name: str, y: torch.Tensor, ref: torch.Tensor,
                 dtype: torch.dtype) -> float:
     err = float((y.float() - ref.float()).abs().max())
     tol = tolerance(dtype, ref)
     status = "ok" if err <= tol else "FAIL"
-    print(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.3e}) {status}")
+    ulps = (f", {bf16_ulps(y, ref):.3f} bf16 ulps of |ref| >= 1"
+            if dtype == torch.bfloat16 else "")
+    print(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.3e}{ulps}) "
+          f"{status}")
     if err > tol or not torch.isfinite(y).all():
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version ({err} > {tol})")
@@ -258,6 +281,8 @@ def phase_kernels(dev) -> dict:
         y = stem.stem_conv(x, w, b)
         err = check_close(f"stem {tag} {tuple(x.shape)}->64", y,
                           stem.stem_conv_plain(x, w, b), dtype)
+        if not torch.equal(y, stem.stem_conv(x, w, b)):
+            raise AssertionError(f"stem {tag}: two calls differ")
         ms = cuda_ms(lambda: stem.stem_conv(x, w, b))
         plain_ms = cuda_ms(lambda: stem.stem_conv_plain(x, w, b))
         lib_ms = cuda_ms(lambda: F.conv2d(x, w, b, stride=2, padding=1))
@@ -413,6 +438,8 @@ def phase_train_kernels(dev) -> dict:
         y = stem.stem_conv_raw(x, w)
         err = check_close(f"stem_raw {tag} {tuple(x.shape)}->64", y,
                           stem.stem_conv_raw_plain(x, w), dtype)
+        if not torch.equal(y, stem.stem_conv_raw(x, w)):
+            raise AssertionError(f"stem_raw {tag}: two calls differ")
         ms = cuda_ms(lambda: stem.stem_conv_raw(x, w))
         plain_ms = cuda_ms(lambda: stem.stem_conv_raw_plain(x, w))
         lib_ms = cuda_ms(lambda: F.conv2d(x, w, None, stride=2, padding=1))
@@ -723,18 +750,21 @@ def phase_gelan_c(dev) -> tuple[dict, YOLO, dict]:
     return counts, model, sites
 
 
-def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict) -> dict:
-    """(a) the trained tiny fixture, cuda against the CPU; (b) gelan-c
-    eval at 640 px. Returns (b)'s launch counts."""
+def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict,
+               defaults: tuple[bool, bool]) -> dict:
+    """(a) the trained tiny fixture, cuda against the CPU, under the TF32
+    flags `defaults`; (b) gelan-c eval at 640 px. Returns (b)'s launch
+    counts."""
     path = tmp / "tiny.yaml"
     path.write_text(TINY_YAML)
     val = write_dataset(str(tmp / "tiny"), "val", 16, seed=1)
     data = DataConfig(val_path=val, num_classes=4, img_size=160,
                       batch_size=8, workers=4)
     weights = load_weights(str(ROOT / "assets" / "dryrun_tiny.npz"))
-    gpu, cpu = (Evaluator(YOLO.from_yaml(path),
-                          create_dataloader(val, data, "val"), device=d)
-                .evaluate(weights) for d in (dev, torch.device("cpu")))
+    with tf32_flags(defaults):
+        gpu, cpu = (Evaluator(YOLO.from_yaml(path),
+                              create_dataloader(val, data, "val"), device=d)
+                    .evaluate(weights) for d in (dev, torch.device("cpu")))
     gap = {k: abs(gpu[k] - cpu[k]) for k in ("map50", "map")}
     print(f"  tiny fixture, 160 px f32, 16 images: cuda mAP50 "
           f"{gpu['map50']:.4f} mAP {gpu['map']:.4f}; cpu mAP50 "
@@ -855,11 +885,30 @@ def kernels_line(res: dict, tres: dict, counts: dict,
     return kernels
 
 
+@contextlib.contextmanager
+def tf32_flags(flags: tuple[bool, bool]):
+    """Run the block with (cudnn.allow_tf32, cuda.matmul.allow_tf32) set to
+    `flags`, then turn both off again (the kernel phases' setting)."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    cudnn.allow_tf32, matmul.allow_tf32 = flags
+    print(f"  (cudnn.allow_tf32 {flags[0]}, cuda.matmul.allow_tf32 "
+          f"{flags[1]}: PyTorch's defaults; the entry points turn TF32 off)")
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # PyTorch's defaults, for the phases that compare an entry point's f32
+    # work on cuda with the CPU (4, 7, 9 (a)); the others run with TF32 off,
+    # so that the plain references of phases 3 and 6 are full f32
+    defaults = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi()
@@ -882,7 +931,7 @@ def main() -> int:
     res = phase_kernels(dev)
 
     print("phase 4: trained tiny fixture, cuda against cpu")
-    with tempfile.TemporaryDirectory() as td:
+    with tempfile.TemporaryDirectory() as td, tf32_flags(defaults):
         phase_tiny_fixture(dev, Path(td))
 
     print("phase 5: gelan-c serving")
@@ -893,13 +942,14 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as td:
         print("phase 7: TINY_YAML training, cuda against cpu")
-        phase_tiny_train(dev, Path(td))
+        with tf32_flags(defaults):
+            phase_tiny_train(dev, Path(td))
         print("phase 8: gelan-c training")
         tcounts = phase_gelan_c_train(dev, Path(td))
 
     with tempfile.TemporaryDirectory() as td:
         print("phase 9: eval")
-        ecounts = phase_eval(dev, Path(td), gelan_c, sites)
+        ecounts = phase_eval(dev, Path(td), gelan_c, sites, defaults)
 
     kernels = kernels_line(res, tres, counts, tcounts)
     print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "

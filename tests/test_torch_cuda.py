@@ -32,9 +32,13 @@ pytestmark = pytest.mark.cuda
 
 FIXTURE = Path(__file__).resolve().parent.parent / "assets" / \
     "dryrun_tiny.npz"
-# f32: the kernels sum in another order than cuDNN; bf16: one rounding of
-# the f32 result on each side, so at most about one bf16 ulp
+# f32: the kernels sum in another order than cuDNN. bf16: each side
+# rounds its f32 sum once, so the two may sit one bf16 ulp apart. 2^-7 of
+# |ref| bounds one ulp of any output; 3e-2 alone did not above 4, where
+# one ulp is 2^-5 (the kernels' measured errors are at most one ulp of
+# |ref|: test_bf16_kernels_within_one_ulp)
 ATOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 
 
 @pytest.fixture
@@ -51,20 +55,44 @@ def _rand(g, *shape, scale=1.0, dtype=torch.float32, cl=False):
     return t.contiguous(memory_format=torch.channels_last) if cl else t
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,c", [((2, 3, 32, 48), 64),
-                                     ((1, 3, 25, 31), 16)])
-def test_stem_kernel_matches_plain(cuda, dtype, shape, c):
+# (x shape, C): odd H and W (input rows that are not 16-byte aligned, the
+# conv's zero column on the right, a ragged last tile), 2 x 2 (one output
+# pixel), C = 80 (gelan-e's stem: two warp ranges of 40 channels) and the
+# main path's batch 32 at 640 px
+STEM_SHAPES = [((2, 3, 32, 48), 64), ((1, 3, 25, 31), 16),
+               ((3, 3, 37, 53), 64), ((1, 3, 2, 2), 16),
+               ((4, 3, 160, 160), 80), ((32, 3, 640, 640), 64)]
+
+
+def _stem_case(dev, shape, c, dtype, raw):
+    """(kernel call, plain call, launch counter name) on one case's
+    inputs: x ~ N(0, 1), w ~ 0.3 N(0, 1), b ~ N(0, 1) (outputs reach 4-8)."""
     g = torch.Generator().manual_seed(0)
-    x = _rand(g, *shape, dtype=dtype, cl=True).to(cuda)
-    w = _rand(g, c, 3, 3, 3, scale=0.3, dtype=dtype).to(cuda)
-    b = _rand(g, c, dtype=dtype).to(cuda)
-    before = stem.launches
-    y = stem.stem_conv(x, w, b)
+    x = _rand(g, *shape, dtype=dtype, cl=True).to(dev)
+    w = _rand(g, c, 3, 3, 3, scale=0.3, dtype=dtype).to(dev)
+    b = _rand(g, c, dtype=dtype).to(dev)
+    if raw:
+        return (lambda: stem.stem_conv_raw(x, w),
+                lambda: stem.stem_conv_raw_plain(x, w), "raw_launches")
+    return (lambda: stem.stem_conv(x, w, b),
+            lambda: stem.stem_conv_plain(x, w, b), "launches")
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["folded", "raw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,c", STEM_SHAPES)
+def test_stem_kernel_matches_plain(cuda, dtype, shape, c, raw):
+    """Both modes, one launch a call, within the tolerance, and a second
+    call equal bit for bit."""
+    fn, plain, counter = _stem_case(cuda, shape, c, dtype, raw)
+    before = getattr(stem, counter)
+    y = fn()
     torch.cuda.synchronize()
-    assert stem.launches == before + 1
-    torch.testing.assert_close(y.float(), stem.stem_conv_plain(x, w, b).float(),
-                               atol=ATOL[dtype], rtol=0)
+    assert getattr(stem, counter) == before + 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y.float(), plain().float(),
+                               atol=ATOL[dtype], rtol=RTOL[dtype])
+    assert torch.equal(fn(), y)
 
 
 # (x shape, Cout, weights at 1/sqrt(fan-in)): TINY_YAML's widths (32; 48
@@ -87,14 +115,14 @@ def _w_scales(ch: int, fan_in: bool) -> tuple[float, float]:
     return (1 / (9 * ch) ** 0.5, 1 / ch ** 0.5) if fan_in else (0.05, 0.1)
 
 
-def _adown_atol(dtype: torch.dtype, ref: torch.Tensor,
-                fan_in: bool) -> float:
-    """ATOL, which is about one bf16 ulp for outputs below 4; the wide
-    cases' outputs reach 4-8, where one bf16 ulp is 2^-5, and are held to
-    4 ulps of their largest output instead (chip_smoke.py's tolerance)."""
+def _adown_tol(dtype: torch.dtype, ref: torch.Tensor,
+               fan_in: bool) -> tuple[float, float]:
+    """(atol, rtol): ATOL and RTOL, one bf16 ulp of |ref|; the wide cases
+    are held to 4 ulps of their largest output (chip_smoke.py's
+    tolerance)."""
     if fan_in and dtype == torch.bfloat16:
-        return 2.0 ** -6 * max(1.0, float(ref.abs().max()))
-    return ATOL[dtype]
+        return 2.0 ** -6 * max(1.0, float(ref.abs().max())), 0.0
+    return ATOL[dtype], RTOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -120,8 +148,8 @@ def test_adown_kernel_matches_plain(cuda, dtype, shape, cout, fan_in):
     assert (adown.launches, adown.pack_launches) == \
         (before[0] + 1, before[1] + 1)
     ref = adown.adown_plain(x, *args)
-    torch.testing.assert_close(y.float(), ref.float(),
-                               atol=_adown_atol(dtype, ref, fan_in), rtol=0)
+    atol, rtol = _adown_tol(dtype, ref, fan_in)
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=rtol)
     w1p, w2p = adown.pack_weights_plain(args[0], args[2])
     assert torch.equal(adown.adown_packed(x, w1p, args[1], w2p, args[3]), y)
 
@@ -259,7 +287,7 @@ def test_conv3_kernel_matches_plain(cuda, dtype, shape):
     assert y.is_contiguous(memory_format=torch.channels_last)
     torch.testing.assert_close(y.float(),
                                conv3.conv3_silu_plain(x, w, b).float(),
-                               atol=ATOL[dtype], rtol=0)
+                               atol=ATOL[dtype], rtol=RTOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -283,21 +311,19 @@ def test_chain_kernel_matches_plain(cuda, dtype, n, shape):
     ref = csp_chain.bottleneck_chain_plain(m, *args)
     # bf16: each of the 2n convs may round its output one ulp apart
     atol = ATOL[dtype] * (n if dtype == torch.bfloat16 else 1)
-    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol,
+                               rtol=RTOL[dtype])
 
 
-# (name, shape, dtypes): the f32 kernel's walk also at H and W that no
-# tile side divides, a single pixel and gelan-c's 80 x 80 sites at batch
-# 32 (in bf16 those outputs reach 4-8, where one bf16 ulp exceeds ATOL)
-_BOTH, _F32 = (torch.float32, torch.bfloat16), (torch.float32,)
+# (name, shape): the walk at H and W that no tile side divides, a single
+# pixel and gelan-c's 80 x 80 sites at batch 32, in both dtypes
 CONV3_WALKS = [
     (name, shape, dtype)
-    for name, shape, dtypes in (
-        ("many_tiles", (3, 160, 160), _BOTH), ("stage2", (1, 80, 80), _BOTH),
-        ("fewer_tiles_than_sms", (1, 20, 24), _BOTH),
-        ("ragged", (5, 97, 131), _F32), ("one_pixel", (1, 1, 1), _F32),
-        ("stage2_batch", (32, 80, 80), _F32))
-    for dtype in dtypes]
+    for name, shape in (
+        ("many_tiles", (3, 160, 160)), ("stage2", (1, 80, 80)),
+        ("fewer_tiles_than_sms", (1, 20, 24)), ("ragged", (5, 97, 131)),
+        ("one_pixel", (1, 1, 1)), ("stage2_batch", (32, 80, 80)))
+    for dtype in (torch.float32, torch.bfloat16)]
 
 
 @pytest.mark.parametrize(
@@ -305,11 +331,11 @@ CONV3_WALKS = [
     ids=[f"{n}-dtype{int(d == torch.bfloat16)}" for n, _, d in CONV3_WALKS])
 def test_conv3_kernel_persistent_walk(cuda, dtype, shape):
     """The persistent grid: more tiles than CTAs (a ragged last round),
-    gelan-c's 80 x 80 sites, fewer tiles than SMs, and in f32 also H and W
-    that no tile side divides (each CTA's range of tiles crossing column
-    strips and images), a single pixel and batch 32 at 80 x 80, through
-    the packed call a fused Conv makes; a second call gives the same
-    output, bit for bit."""
+    gelan-c's 80 x 80 sites, fewer tiles than SMs, H and W that no tile
+    side divides (each CTA's range of tiles crossing column strips and
+    images), a single pixel and batch 32 at 80 x 80, through the packed
+    call a fused Conv makes; a second call gives the same output, bit for
+    bit."""
     g = torch.Generator().manual_seed(9)
     x = _rand(g, shape[0], 64, *shape[1:], dtype=dtype, cl=True).to(cuda)
     w = _rand(g, 64, 64, 3, 3, scale=0.05, dtype=dtype).to(cuda)
@@ -321,7 +347,7 @@ def test_conv3_kernel_persistent_walk(cuda, dtype, shape):
     assert conv3.launches == before + 1
     torch.testing.assert_close(y.float(),
                                conv3.conv3_silu_plain(x, w, b).float(),
-                               atol=ATOL[dtype], rtol=0)
+                               atol=ATOL[dtype], rtol=RTOL[dtype])
     assert torch.equal(conv3.conv3_silu_packed(x, wp, b), y)
 
 
@@ -473,7 +499,7 @@ def test_stem_train_kernels_match_plain(cuda, dtype, shape, c):
         (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(y.float(),
                                stem.stem_conv_raw_plain(x, w).float(),
-                               atol=ATOL[dtype], rtol=0)
+                               atol=ATOL[dtype], rtol=RTOL[dtype])
     assert dw.dtype == torch.float32 and dw.shape == (c, 3, 3, 3)
     assert _rel_l2(dw, stem.stem_wgrad_plain(x, g)) <= WGRAD_REL[dtype]
     assert torch.equal(dw, stem.stem_wgrad(x, g))      # fixed-order sums
@@ -557,12 +583,12 @@ def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
         (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(y.float(),
                                adown.adown_raw_plain(x, w1, w2).float(),
-                               atol=ATOL[dtype], rtol=0)
+                               atol=ATOL[dtype], rtol=RTOL[dtype])
     rdx, rdw1, rdw2 = adown.adown_bwd_plain(x, g, w1, w2)
     assert dx.dtype == dtype and dx.is_contiguous(
         memory_format=torch.channels_last)
     torch.testing.assert_close(dx.float(), rdx.float(), atol=ATOL[dtype],
-                               rtol=0)
+                               rtol=RTOL[dtype])
     assert _rel_l2(dw1, rdw1) <= WGRAD_REL[dtype]
     assert _rel_l2(dw2, rdw2) <= WGRAD_REL[dtype]
     again = adown.adown_bwd(x, g, w1, w2)                # fixed-order sums
@@ -700,3 +726,127 @@ def test_tiny_train_step_cuda_matches_cpu(cuda, tmp_path):
     assert abs(loss_c - loss_h) <= 1e-4 * abs(loss_h)
     for k in p_h:
         torch.testing.assert_close(p_c[k], p_h[k], atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# F5: the entry points' f32 work in full f32 under PyTorch's TF32 defaults
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_tf32_defaults():
+    """A card with PyTorch's default TF32 flags (cuDNN may run f32 convs in
+    TF32, cuBLAS f32 matmuls not), restored to what they were after the
+    test: the entry points must turn TF32 off themselves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    yield torch.device("cuda")
+    cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def test_f32_entry_points_match_cpu_under_default_tf32(cuda_tf32_defaults,
+                                                       tmp_path):
+    """An f32 Evaluator batch (`_dispatch`: the copy, the fused forward,
+    all-anchor NMS) of the trained tiny fixture and one f32 TINY_YAML train
+    step, cuda against the CPU, to the f32 tolerances of
+    test_detector_cuda_matches_cpu and test_tiny_train_step_cuda_matches_cpu;
+    the flags are the caller's again afterwards."""
+    from yolo_re_tpu_torch.serving import inference_model
+
+    cuda = cuda_tf32_defaults
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    model = YOLO.from_yaml(path)
+    weights = load_weights(str(FIXTURE))
+    batch = make_eval_batch(4, 160, 0)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        ev = Evaluator(model, None, device=dev)
+        fused = inference_model(model, weights, ev.device, ev.dtype)
+        out, event = ev._dispatch(fused, batch)
+        if event is not None:
+            event.synchronize()
+        outs.append(out)
+    (a, b) = outs
+    for k in ("valid", "classes"):
+        assert torch.equal(a[k], b[k])
+    torch.testing.assert_close(a["boxes"], b["boxes"], atol=1e-2, rtol=0)
+    torch.testing.assert_close(a["scores"], b["scores"], atol=1e-4, rtol=0)
+    assert int(a["valid"].sum()) > 0
+
+    train = make_eval_batch(4, 96, 5)
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg = TrainConfig(data_parallel=False, output_dir=str(tmp_path))
+        tr = Trainer(YOLO.from_yaml(path), config=cfg, train_loader=[train],
+                     device=dev)
+        loss, _, _ = tr.train_step(train["images"], train["targets"])
+        res.append((float(loss), {k: v.detach().cpu()
+                                  for k, v in tr.params.items()}))
+    (loss_c, p_c), (loss_h, p_h) = res
+    assert abs(loss_c - loss_h) <= 1e-4 * abs(loss_h)
+    for k in p_h:
+        torch.testing.assert_close(p_c[k], p_h[k], atol=1e-5, rtol=1e-4)
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == (True, False)
+
+
+# ---------------------------------------------------------------------------
+# F6: the bf16 kernels' errors in bf16 ulps of the reference
+# ---------------------------------------------------------------------------
+
+def _bf16_ulps(y: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |y - ref| in bf16 ulps of |ref| over the outputs with
+    |ref| >= 1, where one ulp (at least 2^-7) lies far above the f32 sums'
+    order (~1e-6); below 1, ATOL holds. 0 if there are none."""
+    r = ref.float()
+    big = r.abs() >= 1
+    if not big.any():
+        return 0.0
+    _, e = torch.frexp(r[big])              # |r| = f 2^e, f in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(r[big]), e - 8)
+    return float(((y.float()[big] - r[big]).abs() / ulp).max())
+
+
+def _conv3_case(dev, shape):
+    g = torch.Generator().manual_seed(9)
+    x = _rand(g, shape[0], 64, *shape[1:], dtype=torch.bfloat16,
+              cl=True).to(dev)
+    w = _rand(g, 64, 64, 3, 3, scale=0.05, dtype=torch.bfloat16).to(dev)
+    b = _rand(g, 64, dtype=torch.bfloat16).to(dev)
+    return (lambda: conv3.conv3_silu(x, w, b),
+            lambda: conv3.conv3_silu_plain(x, w, b))
+
+
+BF16_ULP_CASES = (
+    [(f"conv3-{n}", "conv3", s, None, False) for n, s in (
+        ("stage2_batch", (32, 80, 80)), ("ragged", (5, 97, 131)))] +
+    [(f"stem-{'x'.join(map(str, s))}-{c}-{m}", "stem", s, c, m == "raw")
+     for s, c in STEM_SHAPES for m in ("folded", "raw")])
+
+
+@pytest.mark.parametrize("kernel,shape,c,raw",
+                         [case[1:] for case in BF16_ULP_CASES],
+                         ids=[case[0] for case in BF16_ULP_CASES])
+def test_bf16_kernels_within_one_ulp(cuda, kernel, shape, c, raw, capsys):
+    """conv3 at gelan-c's 80 x 80 sites at batch 32 (whose outputs reach
+    4-8) and at a ragged shape, and the stem at its card cases in both
+    modes: at most one bf16 ulp of |ref| where |ref| >= 1, and within
+    ATOL + RTOL everywhere. Prints each case's error."""
+    if kernel == "conv3":
+        fn, plain = _conv3_case(cuda, shape)
+    else:
+        fn, plain, _ = _stem_case(cuda, shape, c, torch.bfloat16, raw)
+    y, ref = fn(), plain()
+    ulps = _bf16_ulps(y, ref)
+    err = float((y.float() - ref.float()).abs().max())
+    with capsys.disabled():
+        print(f"\n  bf16 {kernel} {shape} C={c} raw={raw}: max |err| "
+              f"{err:.4e}, max |ref| {float(ref.float().abs().max()):.3f}, "
+              f"{ulps:.3f} ulps of |ref| (|ref| >= 1)")
+    assert ulps <= 1.0
+    torch.testing.assert_close(y.float(), ref.float(),
+                               atol=ATOL[torch.bfloat16],
+                               rtol=RTOL[torch.bfloat16])

@@ -374,6 +374,6 @@ def test_profile_launches_needs_a_card(monkeypatch, capsys):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in ([], ["train"], ["train", "f32"], ["eval"], ["eval", "bf16"],
-                 ["other"]):
+                 ["roof"], ["other"]):
         assert profile_launches.main(argv) == 2
     assert "ms" not in capsys.readouterr().out

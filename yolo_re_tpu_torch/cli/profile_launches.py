@@ -2,7 +2,7 @@
 and of one gelan-c train step or eval batch.
 
     python -m yolo_re_tpu_torch.cli.profile_launches \
-        [kernels|train [f32]|eval [bf16]]
+        [kernels|train [f32]|eval [bf16]|roof]
 
 `kernels` (the default): a wrapper such as `adown_bwd` makes several
 launches from one C entry point; `chip_smoke.py` times the call as a
@@ -40,6 +40,16 @@ handed over as the loader hands a batch (on the host), through
 NMS and the copy of the padded detections back. It prints the device
 time per batch of the 15 largest kernels, of the package's own kernels
 and of all.
+
+`roof`: the memory rate the card reaches on the stem's output at 640 px,
+batch 32 ((32, 64, 320, 320), bf16 and f32): `fill_` (writes only) and
+`copy_` (a read and a write), CUDA events over 20 calls after a warm-up,
+as bytes/s beside the data sheet's 3.35 TB/s: the roof a memory-bound
+kernel such as the stem can reach.
+
+`train` and `eval` time the entry points' own calls (`Trainer.train_step`,
+`Evaluator._dispatch`), so their f32 library convs run as the entry
+points run them: with TF32 off (`utils/precision.full_f32`).
 
 Random inputs from a fixed seed. It needs a CUDA card and exits with 2
 without one; the first lines are the card's nvidia-smi name and power
@@ -286,12 +296,35 @@ def eval_batch(dtype: str) -> None:
           f"{sum(r[0] for r in rows):.4f} ms per batch")
 
 
+def memory_roof() -> None:
+    for dtype in (torch.bfloat16, torch.float32):
+        y = torch.empty(BATCH, 64, 320, 320, dtype=dtype, device="cuda")
+        src = torch.empty_like(y)
+        nb = y.numel() * y.element_size()
+        for name, fn, moved in (("fill_", lambda: y.fill_(1.0), nb),
+                                ("copy_", lambda: y.copy_(src), 2 * nb)):
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 20
+            print(f"{name} {dtype} {tuple(y.shape)}: {ms:.4f} ms, "
+                  f"{moved / ms / 1e9:.3f} TB/s moved "
+                  f"({moved / ms / 1e9 / (HBM_BYTES_PER_S / 1e12):.3f} of "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f})")
+        del y, src
+
+
 def main(argv: list[str] | None = None) -> int:
     what = (sys.argv[1:] if argv is None else argv) or ["kernels"]
     if what not in (["kernels"], ["train"], ["train", "f32"], ["eval"],
-                    ["eval", "bf16"]):
-        print("usage: profile_launches [kernels|train [f32]|eval [bf16]]",
-              file=sys.stderr)
+                    ["eval", "bf16"], ["roof"]):
+        print("usage: profile_launches [kernels|train [f32]|eval [bf16]|"
+              "roof]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("profile_launches: no CUDA device", file=sys.stderr)
@@ -305,6 +338,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if what[0] == "eval":
         eval_batch("bfloat16" if what[1:] == ["bf16"] else "float32")
+        return 0
+    if what[0] == "roof":
+        memory_roof()
         return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

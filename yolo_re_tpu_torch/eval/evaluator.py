@@ -26,6 +26,7 @@ from yolo_re_tpu_torch.eval.metrics import compute_map
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.nms import nms_to_list, non_max_suppression
 from yolo_re_tpu_torch.serving import DTYPES, inference_model
+from yolo_re_tpu_torch.utils.precision import full_f32
 
 log = logging.getLogger(__name__)
 # batches in flight while the host matches older ones
@@ -73,9 +74,12 @@ class Evaluator:
         self.fuse = fuse
 
     @torch.inference_mode()
+    @full_f32()
     def _dispatch(self, model: YOLO, batch) -> tuple[dict, Any]:
         """Enqueue one batch; returns (padded NMS output on the host, the
-        CUDA event that marks its arrival or None)."""
+        CUDA event that marks its arrival or None). Runs with TF32 off
+        (`utils.precision.full_f32`): the JAX package's f32 convs run at
+        HIGHEST precision."""
         images = torch.as_tensor(np.asarray(batch["images"]))
         x = images.to(self.device, non_blocking=True)
         x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \

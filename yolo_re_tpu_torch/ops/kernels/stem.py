@@ -10,9 +10,10 @@ Counterparts of the TPU kernels in `yolo_re_tpu/ops/pallas/stem_kernel.py`:
   cotangent g (`stem_wgrad_packed`); `csrc/stem_wgrad.cu`.
 
 They take NCHW tensors in `torch.channels_last` memory (the kernels read
-NHWC memory) and OIHW weights. A CUDA tensor launches the hand-written
-kernel; a CPU tensor takes the `*_plain` version, plain PyTorch. Each
-kernel has its own launch counter.
+NHWC memory; x 16-byte aligned on a card, as a fresh tensor is) and OIHW
+weights. A CUDA tensor launches the hand-written kernel; a CPU tensor
+takes the `*_plain` version, plain PyTorch. Each kernel has its own
+launch counter.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 
 from yolo_re_tpu_torch.ops.kernels import build, common
 
-MAX_C = 256   # csrc/stem.cu keeps the 27 x C weights in shared memory
+MAX_C = 256   # csrc/stem.cu: at most four warp ranges of 64 channels
 # partial sums of csrc/stem_wgrad.cu, fixed for a device so that the sums
 # run in the same order on every call: a persistent grid of this many CTAs
 # per SM (at most one per output row)
@@ -98,6 +99,7 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return stem_conv_plain(x, w, b)
     common.check_cuda(x)
+    common.check_aligned(x, "x")
     bsz, _, h, wd = x.shape
     c = w.shape[0]
     y = torch.empty((bsz, c, (h + 1) // 2, (wd + 1) // 2), dtype=x.dtype,
@@ -123,6 +125,7 @@ def stem_conv_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return stem_conv_raw_plain(x, w)
     common.check_cuda(x)
+    common.check_aligned(x, "x")
     bsz, _, h, wd = x.shape
     c = w.shape[0]
     y = torch.empty(_out_shape(x, c), dtype=x.dtype, device=x.device,

@@ -23,6 +23,7 @@ from yolo_re_tpu_torch.convert import load_weights, state_dict_from_jax
 from yolo_re_tpu_torch.data.device_pipeline import batched_letterbox
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.nms import nms_to_list, non_max_suppression
+from yolo_re_tpu_torch.utils.precision import full_f32
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -81,13 +82,15 @@ class Detector:
         return cls(model, load_weights(path), **kwargs)
 
     @torch.inference_mode()
+    @full_f32()
     def __call__(self, images_u8: np.ndarray | torch.Tensor
                  ) -> dict[str, torch.Tensor]:
         """images_u8: (B, H, W, 3) uint8 RGB, uniform size per call.
 
         Returns padded tensors on the detector's device: boxes
         (B, max_det, 4) xyxy in letterbox-canvas pixels, scores, classes,
-        valid."""
+        valid. Runs with TF32 off (`utils.precision.full_f32`), so an f32
+        detector's library convs compute in full f32."""
         frames = torch.as_tensor(images_u8).to(self.device)
         x = batched_letterbox(frames, self.img_size, dtype=self.dtype)
         decoded, _ = self.model(x.permute(0, 3, 1, 2))

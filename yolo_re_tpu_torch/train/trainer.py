@@ -48,6 +48,7 @@ from yolo_re_tpu_torch.train.optimizer import (
     sgd_step,
 )
 from yolo_re_tpu_torch.train.schedule import WarmupCosineSchedule
+from yolo_re_tpu_torch.utils.precision import full_f32
 
 log = logging.getLogger(__name__)
 
@@ -170,9 +171,12 @@ class Trainer:
         t = torch.as_tensor(targets, dtype=torch.float32).to(self.device)
         return x.permute(0, 3, 1, 2), t
 
+    @full_f32()
     def train_step(self, images, targets):
         """One optimizer step on a host batch. Returns (loss, items (3,),
-        grad norm) as device tensors (no host sync)."""
+        grad norm) as device tensors (no host sync). The forward, the TAL
+        loss and the backward run with TF32 off
+        (`utils.precision.full_f32`)."""
         cfg = self.config
         x, t = self._batch(images, targets)
         total, items = self.loss_fn(self.model(x), t)
