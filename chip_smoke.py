@@ -23,7 +23,11 @@ non-zero (no phase is caught):
    beside the time of its cuDNN composite (avg_pool2d, the two F.conv2d
    with bias, max_pool2d, silu, cat, TF32 off: a composite of library
    calls, not one call, so not the kernel's `library_ms`); the stem
-   (like conv3) equal across two calls;
+   (like conv3) equal across two calls; greedy NMS at K = 512 and 8400 in
+   random order (iou 0.45) and at K = 8400 in the Evaluator's order (by
+   score, the zeros last; iou 0.6), indices equal to the plain version's,
+   each with the cluster size the wrapper picks, the greedy steps of the
+   image with the most, the time a step and the time beside its bound;
 4. the trained tiny fixture (assets/dryrun_tiny.npz, TINY_YAML, 160 px)
    served on cuda and on the CPU (plain versions) in f32: equal detections;
    phases 4, 7 and 9 (a) run with PyTorch's default TF32 flags, so that
@@ -72,7 +76,8 @@ kernel's entry holds its bf16 numbers and, under "f32", its f32 ones (NMS
 runs in f32 only: the same numbers); the stage1 kernels, the stem weight
 gradient and ADown (forward, raw forward and backward) carry their
 numbers at each shape phase 3 or 6 ran under `shapes` (NMS at K = 512 and
-8400). The last three lines are the card's nvidia-smi line, a
+8400, and 8400 in the Evaluator's order, with the cluster size and the
+time a greedy step). The last three lines are the card's nvidia-smi line, a
 JSON line with one entry per kernel, and {"ok": true, "device": {...}}.
 """
 
@@ -121,7 +126,9 @@ BATCH, SIZE, FRAME_HW, REQUESTS = 32, 640, (720, 1280), 4
 ADOWN_SHAPES = {"down1": (256, 160, 160, 256), "down2": (512, 80, 80, 512),
                 "down3": (512, 40, 40, 512), "pan_down1": (256, 80, 80, 256),
                 "pan_down2": (512, 40, 40, 512)}
-NMS_SHAPES = (512, 8400)   # serving candidates; all anchors at 640 px
+# (K, sorted, iou): serving candidates; all anchors at 640 px; all anchors
+# in the Evaluator's order (by score, the zeros last) at its iou 0.6
+NMS_CASES = ((512, False, 0.45), (8400, False, 0.45), (8400, True, 0.6))
 STAGE1_HW = (160, 160)     # stage1 at 640 px: the chain (32 ch), conv3 (64)
 CONV3_HW = (STAGE1_HW, (80, 80))   # conv3 also runs stage2's bottlenecks
 CHAIN_DEPTHS = (1, 2)      # gelan-c, gelan-c-d2
@@ -373,7 +380,8 @@ def phase_kernels(dev) -> dict:
                         rate(tag))}
             del x, y
 
-    for k in NMS_SHAPES:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for k, sort, iou in NMS_CASES:
         xy = torch.rand(BATCH, k, 2, generator=g, device=dev) * 600
         wh = torch.rand(BATCH, k, 2, generator=g, device=dev) * 60 + 5
         cls = torch.randint(0, 80, (BATCH, k, 1), generator=g,
@@ -382,28 +390,41 @@ def phase_kernels(dev) -> dict:
         scores = torch.rand(BATCH, k, generator=g, device=dev)
         # bf16-rounded scores, so equal scores (ties) are common
         scores = torch.where(scores > 0.2, scores, 0.0).bfloat16().float()
-        idx = nms.nms_select(boxes, scores, 0.45, 300)
-        ref = nms.nms_select_plain(boxes, scores, 0.45, 300)
+        if sort:
+            # the Evaluator's order: by score, descending, the zeros last
+            scores, order = torch.sort(scores, dim=1, descending=True,
+                                       stable=True)
+            boxes = torch.gather(boxes, 1, order[..., None].expand(
+                -1, -1, 4)).contiguous()
+        name = f"K={k}" + (f" sorted, iou {iou}" if sort else "")
+        idx = nms.nms_select(boxes, scores, iou, 300)
+        ref = nms.nms_select_plain(boxes, scores, iou, 300)
         equal = torch.equal(idx, ref)
-        print(f"  nms ({BATCH}, {k}) max_det 300: indices equal {equal}, "
-              f"{int((idx >= 0).sum())} kept")
+        print(f"  nms ({BATCH}, {k}) {name} max_det 300: indices equal "
+              f"{equal}, {int((idx >= 0).sum())} kept")
         if not equal:
-            raise AssertionError(f"nms K={k}: kernel indices differ")
-        ms = cuda_ms(lambda: nms.nms_select(boxes, scores, 0.45, 300))
+            raise AssertionError(f"nms {name}: kernel indices differ")
+        ms = cuda_ms(lambda: nms.nms_select(boxes, scores, iou, 300))
         plain_ms = cuda_ms(
-            lambda: nms.nms_select_plain(boxes, scores, 0.45, 300), 2)
+            lambda: nms.nms_select_plain(boxes, scores, iou, 300), 2)
         # this run's greedy steps: one per kept box, plus the step that
         # finds nothing live where fewer than max_det are kept; each step
-        # ~16 f32 operations per candidate (IoU, compare, argmax)
+        # ~16 f32 operations per candidate (IoU, compare, argmax). The
+        # images run side by side, so the one with the most steps sets
+        # the kernel's time: us_per_step is that time over its steps.
         kept = (idx >= 0).sum(1)
-        steps = int(kept.sum() + (kept < 300).sum())
-        res["nms"][k] = {"err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": None, **bound(
-                             nbytes(boxes, scores, idx), 16.0 * steps * k,
-                             "f32")}
-        print(f"  nms K={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {res['nms'][k]['bound_ms']:.4f} ms "
-              f"({res['nms'][k]['bound_by']}, {steps} greedy steps)")
+        steps = kept + (kept < 300)
+        c = nms.cluster_size(BATCH, k, sms)
+        res["nms"][name] = r = {
+            "err": 0.0, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "cluster": c, "us_per_step": 1e3 * ms / int(steps.max()),
+            **bound(nbytes(boxes, scores, idx), 16.0 * int(steps.sum()) * k,
+                    "f32")}
+        print(f"  nms {name}: {c} CTA(s) an image, kernel {ms:.4f} ms over "
+              f"{int(steps.max())} greedy steps ({r['us_per_step']:.3f} us a"
+              f" step), bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{int(steps.sum())} greedy steps), fraction "
+              f"{r['bound_ms'] / ms:.4f}; plain {plain_ms:.4f} ms")
     return res
 
 
@@ -818,7 +839,7 @@ def kernels_line(res: dict, tres: dict, counts: dict,
         ("adown", "adown.cu", "adown_kernel.py:233", counts["adown"],
          res["adown"]),
         ("nms_select", "nms.cu", "nms_kernel.py:98", counts["nms"],
-         {"bf16": res["nms"][512], "f32": res["nms"][512]}),
+         {"bf16": res["nms"]["K=512"], "f32": res["nms"]["K=512"]}),
         ("stem_conv_raw", "stem.cu", "stem_kernel.py:265",
          tcounts["stem_raw"], tres["stem_raw"]),
         ("stem_wgrad", "stem_wgrad.cu", "stem_kernel.py:331",
@@ -858,7 +879,7 @@ def kernels_line(res: dict, tres: dict, counts: dict,
                                  for n in CHAIN_DEPTHS},
             "conv3_silu": {f"{hw[0]}x{hw[1]}": res["conv3"][(hw, tag)]
                            for hw in CONV3_HW},
-            "nms_select": {f"K={k}": res["nms"][k] for k in NMS_SHAPES},
+            "nms_select": res["nms"],
             "stem_wgrad": {f"{b}x3x{SIZE}x{SIZE}":
                            tres["stem_wgrad"][(b, tag)]
                            for b in WGRAD_BATCHES
@@ -874,7 +895,8 @@ def kernels_line(res: dict, tres: dict, counts: dict,
                 (k if tag == "bf16" else k["f32"])["shapes"] = {
                     shape: {key: r[key] for key in (
                         "ms", "library_ms", "bound_ms", "bound_by",
-                        "ops_rate", "composite_ms") if key in r}
+                        "ops_rate", "composite_ms", "cluster",
+                        "us_per_step") if key in r}
                     for shape, r in shapes[k["name"]].items()}
         print(f"fraction of the bound (bound_ms / ms, {tag}): " + ", ".join(
             f"{k['name']} "
@@ -959,7 +981,9 @@ def main() -> int:
           f"launch and the kernel, as the train forward calls it), each also "
           f"under 'shapes' with composite_ms, the time of its cuDNN "
           f"composite (a composite of library calls, not one call), nms is "
-          f"K=512 (K=8400, all anchors, under 'shapes'), bottleneck_chain "
+          f"K=512 (K=8400, all anchors, in random and in the Evaluator's "
+          f"order, under 'shapes' with the cluster size and us a greedy "
+          f"step), bottleneck_chain "
           f"n=1 with library_ms two F.conv2d calls (one per conv; no SiLU, "
           f"no residual), conv3_silu at 160x160 with "
           f"library_ms one F.conv2d with bias (no SiLU), both also under "

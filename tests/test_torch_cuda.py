@@ -177,28 +177,35 @@ def test_adown_pack_kernel_matches_plain(cuda, dtypes, ch, co):
                for a, b in zip(got, want))
 
 
-def _cuda_kernels(fn) -> list[str]:
+def _cuda_kernels(fn, expect: str = "yolo") -> list[str]:
     """Names of the CUDA kernels fn() runs, by torch.profiler. The traced
     call runs 50 ms inside the trace, and a trace that holds no device
     activity at all is taken again, up to three times: the profiler drops
     the device activity it dates outside its capture window, and late in
     a long test process it dropped a traced call's first launch or all of
-    its launches. A call that launches nothing still gives []."""
+    its launches (F4). If no CUDA kernel's name holds `expect`, it fails
+    there and prints the evidence: the number of traces taken and the
+    last trace's events unfiltered, (device type, name) each."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for traces in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(0.05)
             fn()
             torch.cuda.synchronize()
             time.sleep(0.05)
-        names = [e.name for e in prof.events()
+        events = prof.events()
+        names = [e.name for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if names:
             break
+    assert any(expect in n for n in names), (
+        f"no CUDA kernel named *{expect}* after {traces} trace(s); the "
+        f"last trace's events: "
+        f"{[(str(e.device_type), e.name) for e in events]}")
     return names
 
 
@@ -213,7 +220,7 @@ def test_fused_adown_makes_one_launch(cuda):
     mod = fuse_model(ADown(256, 256).eval()).to(cuda, torch.bfloat16)
     x = _rand(g, 2, 256, 40, 40, dtype=torch.bfloat16, cl=True).to(cuda)
     with torch.no_grad():
-        names = _cuda_kernels(lambda: mod(x))
+        names = _cuda_kernels(lambda: mod(x), "adown")
         before = adown.launches
         mod(x)
     assert len(names) == 1 and "adown" in names[0], \
@@ -223,7 +230,7 @@ def test_fused_adown_makes_one_launch(cuda):
         f"over one call"
     w1 = _rand(g, 128, 128, 3, 3, scale=0.05).to(cuda)
     w2 = _rand(g, 128, 128, 1, 1, scale=0.1).to(cuda)
-    names = _cuda_kernels(lambda: adown.adown_raw(x, w1, w2))
+    names = _cuda_kernels(lambda: adown.adown_raw(x, w1, w2), "adown")
     assert len(names) == 2, \
         f"adown_raw: two kernels per call (pack, adown), got {names}"
     y32, y16 = (adown.adown_raw(x, w1, w2),
@@ -234,21 +241,90 @@ def test_fused_adown_makes_one_launch(cuda):
         f" at {int((y32 != y16).sum())} of {y32.numel()} outputs"
 
 
-@pytest.mark.parametrize("k", [100, 512, 8400])
-def test_nms_kernel_matches_plain(cuda, k):
-    g = torch.Generator().manual_seed(2)
-    xy = torch.rand(3, k, 2, generator=g) * 600
-    wh = torch.rand(3, k, 2, generator=g) * 60 + 5
-    cls = torch.randint(0, 3, (3, k, 1), generator=g).float()
-    boxes = (torch.cat([xy, xy + wh], -1) + cls * 7680).to(cuda)
-    scores = torch.rand(3, k, generator=g)
+def _nms_inputs(g, b, k, degenerate=False):
+    """(B, K) random class-offset boxes (3 classes) and bf16-rounded
+    scores (many ties, 30% zero), in random order. degenerate: also
+    zero-width, zero-height and point boxes, coincident copies (two
+    zero-area copies give a 0 / 0 NaN IoU) and infinite boxes (area
+    inf - inf = NaN)."""
+    xy = torch.rand(b, k, 2, generator=g) * 600
+    wh = torch.rand(b, k, 2, generator=g) * 60 + 5
+    cls = torch.randint(0, 3, (b, k, 1), generator=g).float()
+    boxes = torch.cat([xy, xy + wh], -1) + cls * 7680
+    scores = torch.rand(b, k, generator=g)
     scores = torch.where(scores > 0.3, scores, 0.0).bfloat16().float()
-    scores = scores.to(cuda)                  # bf16-rounded: many ties
+    if degenerate:
+        kind = torch.randint(0, 5, (b, k), generator=g)
+        boxes[kind == 1, 2] = boxes[kind == 1, 0]
+        boxes[kind == 2, 3] = boxes[kind == 2, 1]
+        boxes[kind == 3, 2:] = boxes[kind == 3, :2]
+        boxes[:, 1::7] = boxes[:, 0::7][:, :boxes[:, 1::7].shape[1]]
+        boxes[:, 3::61, 0::2] = float("inf")
+    return boxes, scores
+
+
+def _nms_check(dev, boxes, scores, iou_thres, max_det=300):
+    """The kernel's indices equal the plain version's, two calls are bit
+    for bit equal, and a call is one launch (counter and trace)."""
+    boxes, scores = boxes.to(dev).contiguous(), scores.to(dev).contiguous()
+
+    def call():
+        return nms.nms_select(boxes, scores, iou_thres, max_det)
+
     before = nms.launches
-    idx = nms.nms_select(boxes, scores, 0.45, 300)
+    idx = call()
     torch.cuda.synchronize()
     assert nms.launches == before + 1
-    assert torch.equal(idx, nms.nms_select_plain(boxes, scores, 0.45, 300))
+    want = nms.nms_select_plain(boxes, scores, iou_thres, max_det)
+    assert torch.equal(idx, want), \
+        f"{int((idx != want).sum())} of {idx.numel()} indices differ"
+    assert torch.equal(call(), idx)
+    names = _cuda_kernels(call, "nms_cluster_kernel")
+    assert len(names) == 1 and "nms_cluster_kernel" in names[0], names
+    return idx
+
+
+@pytest.mark.parametrize("k", [1, 100, 512, 8400, nms.MAX_K])
+@pytest.mark.parametrize("b", [1, 3, 32, 64, 67])
+def test_nms_kernel_matches_plain(cuda, b, k):
+    """Random order, bf16 ties, iou 0.45, at batch sizes that take each
+    cluster size the rule picks on an H100 (K = 8400: 8, 8, 8, 4, 2; K =
+    512: 2; K <= 100: 1) and K from one candidate to MAX_K (slices that
+    need c >= 2; at batch 67 in two waves)."""
+    g = torch.Generator().manual_seed(2)
+    _nms_check(cuda, *_nms_inputs(g, b, k), 0.45)
+
+
+@pytest.mark.parametrize("b", [3, 32])
+def test_nms_kernel_evaluator_order(cuda, b):
+    """The Evaluator's call: K = 8400 candidates sorted by score,
+    descending, the tail zero (under the threshold), at iou 0.6."""
+    g = torch.Generator().manual_seed(3)
+    boxes, scores = _nms_inputs(g, b, 8400)
+    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    idx = _nms_check(cuda, boxes, scores, 0.6)
+    assert (idx >= 0).sum(1).min() >= 100
+
+
+@pytest.mark.parametrize("iou_thres", [0.45, 0.0, -0.25])
+@pytest.mark.parametrize("b,k", [(3, 517), (32, 8400)])
+def test_nms_kernel_degenerate_boxes(cuda, b, k, iou_thres):
+    """Zero-area, coincident and infinite boxes (NaN IoUs, which never
+    suppress), and a zero and a negative threshold, where a zero
+    intersection suppresses unless its union is 0 or NaN."""
+    g = torch.Generator().manual_seed(4)
+    _nms_check(cuda, *_nms_inputs(g, b, k, degenerate=True), iou_thres)
+
+
+def test_nms_kernel_runs_in_waves(cuda):
+    """More clusters than fit on the card at once: K = MAX_K needs c = 2
+    to fit a CTA's shared memory, at a batch above the SM count."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator().manual_seed(5)
+    b = sms + 8
+    assert nms.cluster_size(b, nms.MAX_K, sms) == 2
+    _nms_check(cuda, *_nms_inputs(g, b, nms.MAX_K), 0.45, 100)
 
 
 def test_detector_cuda_matches_cpu(cuda, tmp_path):
@@ -360,7 +436,7 @@ def test_conv3_f32_runs_the_tensor_core_kernel(cuda):
     wp = conv3.pack_weights(_rand(g, 64, 64, 3, 3, scale=0.05).to(cuda))
     b = _rand(g, 64).to(cuda)
     names = [n for n in _cuda_kernels(lambda: conv3.conv3_silu_packed(
-        x, wp, b)) if "yolo" in n]
+        x, wp, b), "conv3_tf32_kernel") if "yolo" in n]
     assert len(names) == 1 and "conv3_tf32_kernel" in names[0], names
     assert not any("conv3_f32_kernel" in n for n in names), names
 
@@ -653,7 +729,8 @@ def test_adown_f32_runs_the_tensor_core_kernel(cuda, shape, cout):
     for fn, launches in (
             (lambda: adown.adown_packed(x, w1p, b1, w2p, b2), 1),
             (lambda: adown.adown_raw(x, w1, w2), 2)):
-        names = [n for n in _cuda_kernels(fn) if "yolo" in n]
+        names = [n for n in _cuda_kernels(fn, "adown_tf32_kernel")
+                 if "yolo" in n]
         assert len(names) == launches, names
         assert sum("adown_tf32_kernel" in n for n in names) == 1, names
         assert not any("adown_kernel" in n for n in names), names

@@ -39,7 +39,7 @@ handed over as the loader hands a batch (on the host), through
 `Evaluator._dispatch`: the copy to the card, the forward, all-anchor
 NMS and the copy of the padded detections back. It prints the device
 time per batch of the 15 largest kernels, of the package's own kernels
-and of all.
+and of all, and the NMS kernel's time and share of all.
 
 `roof`: the memory rate the card reaches on the stem's output at 640 px,
 batch 32 ((32, 64, 320, 320), bf16 and f32): `fill_` (writes only) and
@@ -292,8 +292,11 @@ def eval_batch(dtype: str) -> None:
     report(f"gelan-c {dtype} eval batch of {BATCH} at 640 px, device time "
            f"by kernel (largest 15 of {len(rows)})", rows[:15])
     own = sum(r[0] for r in rows if "yolo" in r[2])
+    total = sum(r[0] for r in rows)
+    nms_ms = sum(r[0] for r in rows if "yolo" in r[2] and "nms" in r[2])
     print(f"  the package's kernels {own:.4f} ms, all kernels "
-          f"{sum(r[0] for r in rows):.4f} ms per batch")
+          f"{total:.4f} ms per batch; the NMS kernel {nms_ms:.4f} ms, "
+          f"{nms_ms / total:.4f} of all")
 
 
 def memory_roof() -> None:

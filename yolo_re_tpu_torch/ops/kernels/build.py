@@ -51,8 +51,8 @@ SIGNATURES = {
     # x, g, w1t, w2t, dx, dw1, dw2, M, idx, dM, dA1, avg1, part,
     # B, H, W, Cin, Cout, S, dtype, stream
     "yolo_adown_bwd": (_P,) * 13 + (_I,) * 7 + (_P,),
-    # boxes, scores, out_idx, B, K, max_det, iou_thres, stream
-    "yolo_nms_select": (_P, _P, _P, _I, _I, _I, _F, _P),
+    # boxes, scores, out_idx, B, K, max_det, iou_thres, cluster size, stream
+    "yolo_nms_select": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
     # m, wt, bias, out, B, H, W, n, dtype, stream
     "yolo_csp_chain": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, b, y, B, H, W, dtype, stream

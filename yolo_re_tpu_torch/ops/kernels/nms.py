@@ -1,11 +1,12 @@
-"""Greedy NMS selection kernel, one block per image.
+"""Greedy NMS selection kernel, one thread-block cluster per image.
 
 Counterpart of the TPU kernel `yolo_re_tpu/ops/pallas/nms_kernel.py`
 (`pallas_nms_select`) and of the `lax.scan` loop in
 `yolo_re_tpu/ops/nms.py`; the CUDA source is `yolo_re_tpu_torch/csrc/nms.cu`.
 
-A CUDA tensor launches the hand-written kernel; a CPU tensor takes
-`nms_select_plain`, the plain PyTorch version of the same greedy loop.
+A CUDA tensor launches the hand-written kernel, its cluster size from
+`cluster_size`; a CPU tensor takes `nms_select_plain`, the plain PyTorch
+version of the same greedy loop.
 """
 
 from __future__ import annotations
@@ -14,8 +15,20 @@ import torch
 
 from yolo_re_tpu_torch.ops.kernels import build, common
 
-# csrc/nms.cu keeps K boxes and scores (20 bytes each) in shared memory
+# the most candidates an image may have: what one CTA of the first kernel
+# held (20 bytes each); the cluster kernel takes them at c >= 2
 MAX_K = (227 * 1024 - 1024) // 20
+# csrc/nms.cu: threads of a CTA; bytes of shared memory a candidate takes
+# (box, area, live score); the most a CTA's slice may take (227 KB less the
+# kernel's 4 KB of slots and the 1 KB the card reserves a CTA); an SM's
+# shared memory. The kernel's launch bound keeps two CTAs an SM by threads
+# and registers, so two fit where their shared memory does.
+THREADS = 256
+CANDIDATE_BYTES = 24
+SLICE_BYTES = 222 * 1024
+CTA_EXTRA_BYTES = 5 * 1024
+SM_BYTES = 228 * 1024
+CLUSTER_SIZES = (1, 2, 4, 8)
 
 launches = 0
 
@@ -51,6 +64,31 @@ def nms_select_plain(boxes_off: torch.Tensor, scores: torch.Tensor,
     return out
 
 
+def slice_bytes(k: int, c: int) -> int:
+    """Shared memory of a CTA's slice: ceil(k / c) candidates."""
+    return -(-k // c) * CANDIDATE_BYTES
+
+
+def ctas_per_sm(k: int, c: int) -> int:
+    """CTAs of the kernel an SM holds at once at slices of ceil(k / c)."""
+    return 2 if 2 * (slice_bytes(k, c) + CTA_EXTRA_BYTES) <= SM_BYTES else 1
+
+
+def cluster_size(b: int, k: int, sms: int) -> int:
+    """CTAs per image of the kernel's launch (grid b * c): the largest c
+    of CLUSTER_SIZES whose b * c CTAs the card's sms SMs hold at once
+    (two an SM where their slices fit) and whose slices give every thread
+    a candidate, else 1; then raised until a slice of ceil(k / c)
+    candidates fits a CTA's shared memory (k > 9472 needs 2), in waves
+    of clusters where the SMs cannot hold them all."""
+    c = max(c for c in CLUSTER_SIZES
+            if c == 1 or (b * c <= sms * ctas_per_sm(k, c)
+                          and k // c >= THREADS))
+    while slice_bytes(k, c) > SLICE_BYTES:
+        c *= 2
+    return c
+
+
 def nms_select(boxes_off: torch.Tensor, scores: torch.Tensor,
                iou_thres: float, max_det: int) -> torch.Tensor:
     """boxes_off (B, K, 4) float32 xyxy with class offsets, scores (B, K)
@@ -75,11 +113,13 @@ def nms_select(boxes_off: torch.Tensor, scores: torch.Tensor,
     common.check_cuda(boxes_off)
     out = torch.empty((bsz, max_det), dtype=torch.int32,
                       device=boxes_off.device)
+    c = cluster_size(bsz, k, torch.cuda.get_device_properties(
+        boxes_off.device).multi_processor_count)
     lib = build.library()
     with torch.cuda.device(boxes_off.device):
         err = lib.yolo_nms_select(
             boxes_off.data_ptr(), scores.data_ptr(), out.data_ptr(), bsz, k,
-            max_det, float(iou_thres), common.stream(boxes_off))
+            max_det, float(iou_thres), c, common.stream(boxes_off))
     build.check(err, "nms_select")
     launches += 1
     return out
