@@ -61,7 +61,25 @@ non-zero (no phase is caught):
    fused, bf16, 64 synthetic images letterboxed to 640 px by the port's
    val loader, batch 32: one warm-up pass, then a counted one with the
    launch counts held to the fused model's kernel sites per batch (gelan-c:
-   stem 1, ADown 5, chain 2, conv3 6, NMS 1).
+   stem 1, ADown 5, chain 2, conv3 6, NMS 1);
+10. yolov9-c at full width (random weights from seed 0, class biases 0):
+   (a) the fused model in f32 on cuda against the CPU at (1, 3, 256, 256),
+   decoded aux and main, the full forward's launches held to the fused
+   model's kernel sites (stem 2, ADown 8, chain 4, conv3 10) and the
+   main-only forward's to those of its main steps (1, 5, 2, 6); (b)
+   serving as phase 5 (the Detector runs the main-only forward): launches
+   held to the main sites x 4 plus NMS 4; (c) eval as phase 9 (b) on the
+   same 64 images; (d) training, bf16, 640 px, batch 32 (16 if 32 does not
+   fit; the batch and the peak memory printed): one warm-up step, then
+   three through Trainer.train_one_epoch with two stem pairs and eight
+   ADown pairs a step, a finite loss, and every bias of the aux branch
+   changed (cb_route*, aux_*, the aux towers: only a gradient moves a
+   bias; in a tower, wherever its main-branch twin changed); (e)
+   TINY_DUAL_YAML, f32, phase 7's batches and TF32 flags: 12 Trainer steps
+   on cuda and on the CPU, each from one state (the CPU trainer takes the
+   cuda trainer's state before every step) within phase 7's bounds; the
+   free curves, chaotic for this model (a 1e-6 change of the weights moves
+   them further on the CPU alone), are printed.
 
 `bound_ms` in the kernels line is the least time the card could take for
 the work: the larger of the bytes each function must move (inputs read
@@ -98,9 +116,11 @@ import torch
 import torch.nn.functional as F
 
 from yolo_re_tpu_torch.convert import load_weights
+from yolo_re_tpu_torch.cli.profile_launches import random_model
 from yolo_re_tpu_torch.data.config import DataConfig
 from yolo_re_tpu_torch.data.dataset import create_dataloader
 from yolo_re_tpu_torch.data.synth import (
+    TINY_DUAL_YAML,
     TINY_YAML,
     make_eval_batch,
     write_dataset,
@@ -135,6 +155,7 @@ CHAIN_DEPTHS = (1, 2)      # gelan-c, gelan-c-d2
 TRAIN_STEPS = 5            # counted gelan-c train steps (after one warm-up)
 WGRAD_BATCHES = (BATCH, 8)   # the stem weight gradient's bf16 shapes
 EVAL_IMAGES = 64           # phase 9 (b): two batches of 32
+V9C_TRAIN_STEPS = 3        # counted yolov9-c train steps (after one warm-up)
 # weight gradients, kernel vs plain: relative L2 (both sum f32 products in
 # another order; bf16 inputs are exact in f32)
 WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -584,22 +605,103 @@ def phase_tiny_train(dev, tmp: Path) -> None:
         raise AssertionError("tiny train: cuda and cpu loss curves diverge")
 
 
-def phase_gelan_c_train(dev, tmp: Path) -> dict:
-    model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
-    batches = [make_eval_batch(BATCH, SIZE, seed)
-               for seed in range(TRAIN_STEPS + 1)]
-    cfg = TrainConfig(epochs=1, compute_dtype="bfloat16", data_parallel=False,
-                      output_dir=str(tmp / "gelan-c"), log_interval=1)
-    trainer = Trainer(model, config=cfg, train_loader=batches[1:],
-                      device=dev)
-    before = {"params": {k: v.clone() for k, v in trainer.params.items()},
-              "stats": {k: v.clone() for k, v in trainer.stats.items()},
-              "ema": {k: v.clone() for k, v in trainer.ema["params"].items()}}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    loss, _, _ = trainer.train_step(batches[0]["images"],
-                                    batches[0]["targets"])     # warm-up
-    torch.cuda.synchronize()
+def phase_tiny_dual_train(dev, tmp: Path) -> None:
+    """Phase 10 (e): 12 f32 TINY_DUAL_YAML Trainer steps on cuda and on
+    the CPU, phase 7's init, batches and bounds. The dual model's free
+    curve is chaotic: a 1e-6 relative change of the weights moves it by
+    far more than the bounds within a few steps, on the CPU alone. So the
+    three free curves (cuda, CPU, CPU from weights times 1 + 1e-6 N(0, 1))
+    are printed, and the bounds hold each step taken from one state: the
+    CPU trainer takes the cuda trainer's whole state (parameters, BN
+    statistics, momentum, EMA, step) before every step."""
+    path = tmp / "tiny_dual.yaml"
+    path.write_text(TINY_DUAL_YAML)
+    batches = [make_eval_batch(2, 96, 11 + i) for i in range(3)]
+    loader = [batches[i % 3] for i in range(12)]
+    cpu = torch.device("cpu")
+
+    def trainer(d) -> Trainer:
+        cfg = TrainConfig(epochs=1, data_parallel=False,
+                          output_dir=str(tmp / d.type))
+        return Trainer(YOLO.from_yaml(path), config=cfg, train_loader=loader,
+                       device=d)
+
+    curves = []
+    for d, eps in ((dev, 0.0), (cpu, 0.0), (cpu, 1e-6)):
+        tr = trainer(d)
+        g = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for v in tr.params.values():
+                v.mul_(1 + eps * torch.randn(v.shape, generator=g).to(d))
+        curves.append([float(tr.train_step(b["images"], b["targets"])[0])
+                       for b in loader])
+    gpu_c, cpu_c, eps_c = curves
+    print("  free curves, rel to the CPU's: cuda " + " ".join(
+        f"{abs(a - c) / c:.1e}" for a, c in zip(gpu_c, cpu_c)) +
+        "; CPU from weights x (1 + 1e-6 N(0, 1)) " + " ".join(
+        f"{abs(e - c) / c:.1e}" for e, c in zip(eps_c, cpu_c)))
+
+    gpu, host = trainer(dev), trainer(cpu)
+    ok = True
+    for s, b in enumerate(loader):
+        with torch.no_grad():
+            for src, dst in ((gpu.params, host.params),
+                             (gpu.stats, host.stats),
+                             (gpu.opt_bufs, host.opt_bufs),
+                             (gpu.ema["params"], host.ema["params"]),
+                             (gpu.ema["stats"], host.ema["stats"])):
+                for k, v in src.items():
+                    dst[k].copy_(v)
+        host.ema["updates"] = gpu.ema["updates"]
+        host.global_step = gpu.global_step
+        a = float(gpu.train_step(b["images"], b["targets"])[0])
+        c = float(host.train_step(b["images"], b["targets"])[0])
+        rel = abs(a - c) / max(abs(c), 1e-9)
+        bound = 0.02 if s < 6 else 0.08
+        ok &= rel < bound
+        print(f"  step {s:2d} from one state: cuda {a:.5f} cpu {c:.5f} "
+              f"rel {rel:.2e} (bound {bound})")
+    if not ok:
+        raise AssertionError("tiny dual train: cuda and cpu steps differ")
+
+
+def train_full(dev, tmp: Path, name: str, steps: int, batch_sizes,
+               pairs: dict, groups: tuple[str, ...] = ()) -> dict:
+    """`name` at full width, 640 px, bf16: synthetic uint8 batches (numpy
+    seeds 0...), one warm-up Trainer step, then `steps` through
+    Trainer.train_one_epoch, the train kernels' launches held to `pairs`
+    (stem and ADown kernel pairs) a step. The first batch size of
+    `batch_sizes` whose warm-up step fits is used. Every BN buffer and
+    95% of the parameters and EMA tensors must change, and of each
+    group of parameters named by a prefix in `groups` every bias (the
+    tensors only a gradient moves). Returns the launch counts."""
+    for batch in batch_sizes:
+        model = YOLO.from_yaml(ROOT / "configs" / "models" / f"{name}.yaml")
+        batches = [make_eval_batch(batch, SIZE, seed)
+                   for seed in range(steps + 1)]
+        cfg = TrainConfig(epochs=1, compute_dtype="bfloat16",
+                          data_parallel=False, output_dir=str(tmp / name),
+                          log_interval=1)
+        trainer = Trainer(model, config=cfg, train_loader=batches[1:],
+                          device=dev)
+        before = {
+            "params": {k: v.clone() for k, v in trainer.params.items()},
+            "stats": {k: v.clone() for k, v in trainer.stats.items()},
+            "ema": {k: v.clone() for k, v in trainer.ema["params"].items()}}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            loss, _, _ = trainer.train_step(batches[0]["images"],
+                                            batches[0]["targets"])  # warm-up
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == batch_sizes[-1]:
+                raise
+        # outside the handler, so that its traceback frees the tensors
+        print(f"  batch {batch} does not fit in the card's memory")
+        del model, batches, trainer, before
+        torch.cuda.empty_cache()
     warm = time.perf_counter() - t0
     print(f"  warm-up step {warm * 1e3:.1f} ms, loss {float(loss):.4f}")
 
@@ -612,13 +714,15 @@ def phase_gelan_c_train(dev, tmp: Path) -> dict:
     counts = {"stem_raw": stem.raw_launches,
               "stem_wgrad": stem.wgrad_launches,
               "adown_raw": adown.raw_launches, "adown_bwd": adown.bwd_launches}
-    print(f"  launches {counts} over {TRAIN_STEPS} steps")
-    want = {"stem_raw": TRAIN_STEPS, "stem_wgrad": TRAIN_STEPS,
-            "adown_raw": 5 * TRAIN_STEPS, "adown_bwd": 5 * TRAIN_STEPS}
+    print(f"  launches {counts} over {steps} steps")
+    want = {"stem_raw": pairs["stem"] * steps,
+            "stem_wgrad": pairs["stem"] * steps,
+            "adown_raw": pairs["adown"] * steps,
+            "adown_bwd": pairs["adown"] * steps}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if not np.isfinite(items).all():
-        raise AssertionError(f"gelan-c train: loss items {items}")
+        raise AssertionError(f"{name} train: loss items {items}")
     changed = {
         "params": sum(not torch.equal(v, trainer.params[k])
                       for k, v in before["params"].items()),
@@ -635,13 +739,27 @@ def phase_gelan_c_train(dev, tmp: Path) -> dict:
         # an update below the f32 resolution of the value leaves it as is
         print(f"  unchanged parameters: {same}")
     # every BN buffer moves with its batch statistics; a parameter can keep
-    # its value when its six updates stay below its f32 resolution
+    # its value when its updates stay below its f32 resolution
     if changed["stats"] != total["stats"] or any(
             changed[k] < 0.95 * total[k] for k in ("params", "ema")):
-        raise AssertionError("gelan-c train: state did not change")
-    ms = dt / TRAIN_STEPS * 1e3
-    print(f"  {ms:.1f} ms/step, {BATCH * TRAIN_STEPS / dt:.1f} images/s "
-          f"(bf16, batch {BATCH}, {SIZE} px, {TRAIN_STEPS} steps); peak "
+        raise AssertionError(f"{name} train: state did not change")
+    for prefix in groups:
+        names = [k for k in before["params"] if k.startswith(prefix)]
+        # biases (BN shifts, from 0, and conv biases) take no weight decay:
+        # only a gradient moves them. One stays only where its main-branch
+        # twin stayed too: a box tower whose level holds no assigned
+        # anchor gets no gradient (stride 32 in these synthetic batches)
+        idle = [k for k in names if k.endswith(".bias") and k in same
+                and not (k.replace(".aux_", ".main_") != k
+                         and k.replace(".aux_", ".main_") in same)]
+        print(f"  {prefix}*: {sum(k not in same for k in names)} of "
+              f"{len(names)} parameters changed; biases without a "
+              f"gradient: {idle}")
+        if not names or idle:
+            raise AssertionError(f"{name} train: {prefix}* did not change")
+    ms = dt / steps * 1e3
+    print(f"  {ms:.1f} ms/step, {batch * steps / dt:.1f} images/s "
+          f"(bf16, batch {batch}, {SIZE} px, {steps} steps); peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return counts
 
@@ -681,12 +799,16 @@ def reset_counts() -> None:
     csp_chain.launches = conv3.launches = 0
 
 
-def kernel_sites(fused: YOLO) -> dict:
-    """Launches of each inference kernel in one forward of a fused model,
-    from its blocks' kernel gates (gelan-c: the stem, five ADowns, stage1's
-    two bottleneck chains, six 64 -> 64 3x3 convs: stage1's two block
-    convs and the bottleneck convs of stage2's and fpn2's RepNCSPs)."""
-    mods = list(fused.modules())
+def kernel_sites(fused: YOLO, steps=None) -> dict:
+    """Launches of each inference kernel in one forward of a fused model
+    (or of its `steps`, such as its `main_steps`), from its blocks' kernel
+    gates (gelan-c: the stem, five ADowns, stage1's two bottleneck chains,
+    six 64 -> 64 3x3 convs: stage1's two block convs and the bottleneck
+    convs of stage2's and fpn2's RepNCSPs; yolov9-c's aux branch adds a
+    stem, three ADowns, aux_stage1's two chains and four convs)."""
+    layers = [fused.layers[s.name] for s in steps] if steps is not None \
+        else [fused]
+    mods = [m for layer in layers for m in layer.modules()]
     sites = {
         "stem": sum(isinstance(m, blocks.Conv) and m.is_stem for m in mods),
         "adown": sum(isinstance(m, blocks.ADown) for m in mods),
@@ -702,13 +824,7 @@ def kernel_sites(fused: YOLO) -> dict:
 def phase_gelan_c(dev) -> tuple[dict, YOLO, dict]:
     """Returns the launch counts of the four requests, the model (phase 9
     evaluates its weights) and its kernel sites per forward."""
-    model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
-    model.init_parameters(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        # class biases 0 instead of the prior's -8.8: random weights then
-        # score near 0.5, so NMS serves full 512-candidate sets
-        for seq in model.layers["detect"].cls_convs:
-            seq[2].bias.zero_()
+    model = random_model("gelan-c")
     n_params = sum(p.numel() for p in model.parameters())
     print(f"  gelan-c: {n_params} parameters, strides {model.strides}")
 
@@ -734,6 +850,15 @@ def phase_gelan_c(dev) -> tuple[dict, YOLO, dict]:
         raise AssertionError(f"gelan-c f32: launch counts {f32_counts}")
     del f32
 
+    counts = serve_requests(dev, model, sites, "gelan-c")
+    return counts, model, sites
+
+
+def serve_requests(dev, model: YOLO, sites: dict, name: str) -> dict:
+    """A bf16 Detector of `model`'s weights: one warm-up request, then
+    REQUESTS requests of BATCH uint8 frames of FRAME_HW, the launches held
+    to `sites` per request plus one NMS; latency and images/s printed.
+    Returns the launch counts."""
     det = Detector(model, model.state_dict(), device=dev, img_size=SIZE,
                    compute_dtype="bfloat16")
     rng = np.random.default_rng(0)
@@ -763,12 +888,12 @@ def phase_gelan_c(dev) -> tuple[dict, YOLO, dict]:
             and torch.isfinite(out["scores"]).all()
             and int(valid.sum()) > 0
             and bool(((out["scores"] >= 0) & (out["scores"] <= 1)).all())):
-        raise AssertionError("gelan-c: malformed detections")
+        raise AssertionError(f"{name}: malformed detections")
     print(f"  request latency ms {[round(v, 3) for v in lat]}; "
           f"{BATCH * REQUESTS / total:.1f} images/s over {REQUESTS} "
           f"requests of {BATCH} frames {FRAME_HW[0]}x{FRAME_HW[1]}; "
           f"{int(valid.sum())} detections in the last request")
-    return counts, model, sites
+    return counts
 
 
 def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict,
@@ -793,17 +918,26 @@ def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict,
     if max(gap.values()) > 1e-3 or gpu["map50"] <= 0.5:
         raise AssertionError("tiny fixture eval: cuda and cpu disagree")
 
-    val = write_dataset(str(tmp / "gelan-c"), "val", EVAL_IMAGES, seed=2)
-    data = DataConfig(val_path=val, num_classes=gelan_c.num_classes,
+    return eval_launches(dev, tmp, gelan_c, sites, "gelan-c")
+
+
+def eval_launches(dev, tmp: Path, model: YOLO, sites: dict,
+                  name: str) -> dict:
+    """`model`'s weights, fused, bf16, over EVAL_IMAGES synthetic images
+    letterboxed to SIZE by the val loader, batch BATCH: a warm-up pass,
+    then a counted one with the launches held to `sites` plus one NMS per
+    batch. Returns the launch counts."""
+    val = write_dataset(str(tmp / name), "val", EVAL_IMAGES, seed=2)
+    data = DataConfig(val_path=val, num_classes=model.num_classes,
                       img_size=SIZE, batch_size=BATCH, workers=8)
     t0 = time.perf_counter()
     n = sum(len(batch["images"]) for batch in
             create_dataloader(val, data, "val"))
     print(f"  val loader alone (decode, letterbox, f32 batches): "
           f"{n / (time.perf_counter() - t0):.1f} images/s")
-    ev = Evaluator(gelan_c, create_dataloader(val, data, "val"),
+    ev = Evaluator(model, create_dataloader(val, data, "val"),
                    compute_dtype="bfloat16", device=dev)
-    sd = gelan_c.state_dict()
+    sd = model.state_dict()
     ev.evaluate(sd)                       # warm-up (cuDNN algorithm choice)
     torch.cuda.synchronize()
     reset_counts()
@@ -814,7 +948,7 @@ def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict,
     counts = counts_now()
     batches = EVAL_IMAGES // BATCH
     want = {k: v * batches for k, v in {**sites, "nms": 1}.items()}
-    print(f"  gelan-c bf16 eval, {EVAL_IMAGES} images at {SIZE} px, batch "
+    print(f"  {name} bf16 eval, {EVAL_IMAGES} images at {SIZE} px, batch "
           f"{BATCH}: {EVAL_IMAGES / dt:.1f} images/s (host clock, loader "
           f"included), Evaluator images_per_sec "
           f"{out['images_per_sec']:.1f}; mAP50 {out['map50']:.4f} mAP "
@@ -822,15 +956,72 @@ def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict,
     if counts != want:
         raise AssertionError(f"eval launch counts {counts}, expected {want}")
     if not all(np.isfinite(v) and v >= 0 for v in out.values()):
-        raise AssertionError(f"gelan-c eval: results {out}")
+        raise AssertionError(f"{name} eval: results {out}")
     return counts
 
 
-def kernels_line(res: dict, tres: dict, counts: dict,
-                 tcounts: dict) -> list[dict]:
+def phase_yolov9c(dev, tmp: Path, defaults: tuple[bool, bool]) -> dict:
+    """Phase 10: yolov9-c served, evaluated and trained (the module
+    docstring's (a)-(e)). Returns the launch counts of (b), (c) and
+    (d)."""
+    model = random_model("yolov9-c")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  (a) yolov9-c: {n_params} parameters, strides {model.strides}")
+    f32 = copy.deepcopy(model).fuse()
+    sites = kernel_sites(f32)
+    main_sites = kernel_sites(f32, f32.main_steps)
+    print(f"  kernel launches per forward: {sites}; main-only forward "
+          f"(serving, eval) {main_sites}")
+    x = torch.rand(1, 3, 256, 256, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref, _ = f32(x)
+        f32 = f32.to(dev)
+        reset_counts()
+        out, _ = f32(x.to(dev))
+        full_counts = counts_now()
+        reset_counts()
+        main, _ = f32(x.to(dev), main_only=True)
+        main_counts = counts_now()
+    ok = torch.equal(main, out["main"])
+    for k in ("aux", "main"):
+        box_err = float((out[k][..., :4].cpu() - ref[k][..., :4]).abs().max())
+        cls_err = float((out[k][..., 4:].cpu() - ref[k][..., 4:]).abs().max())
+        print(f"  f32 decoded {k} (1, 3, 256, 256): cuda vs cpu boxes "
+              f"{box_err:.3e} px (tol 1e-2), scores {cls_err:.3e} (tol 1e-4)")
+        ok &= box_err <= 1e-2 and cls_err <= 1e-4
+    print(f"  launches: full forward {full_counts}, main-only "
+          f"{main_counts}; main-only equals the full forward's main: "
+          f"{torch.equal(main, out['main'])}")
+    if not ok:
+        raise AssertionError("yolov9-c f32: cuda and cpu decoded differ")
+    if full_counts != {**sites, "nms": 0} or \
+            main_counts != {**main_sites, "nms": 0}:
+        raise AssertionError(f"yolov9-c f32: launch counts {full_counts}, "
+                             f"{main_counts}")
+    del f32
+
+    print("  (b) serving")
+    counts = {"serving": serve_requests(dev, model, main_sites, "yolov9-c")}
+    print("  (c) eval")
+    counts["eval"] = eval_launches(dev, tmp, model, main_sites, "yolov9-c")
+    del model
+    print("  (d) training")
+    counts["train"] = train_full(
+        dev, tmp, "yolov9-c", V9C_TRAIN_STEPS, (BATCH, BATCH // 2),
+        {"stem": 2, "adown": 8},
+        ("layers.cb_route", "layers.aux_", "layers.detect.aux_"))
+    print("  (e) TINY_DUAL_YAML training, cuda against cpu")
+    with tf32_flags(defaults):
+        phase_tiny_dual_train(dev, tmp)
+    return counts
+
+
+def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
+                 v9c: dict) -> list[dict]:
     """The kernels JSON line's entries from phases 3 and 6's numbers and
-    the launch counts of phases 5 and 8; prints each dtype's fractions of
-    the bound."""
+    the launch counts of phases 5 and 8 (`launches`, gelan-c) and of phase
+    10 (`launches_yolov9_c`: serving, eval and train); prints each dtype's
+    fractions of the bound."""
     # (name, source, TPU kernel, launches, {dtype: numbers}); NMS runs in
     # f32 only
     rows = (
@@ -863,10 +1054,22 @@ def kernels_line(res: dict, tres: dict, counts: dict,
                 "library_ms": r["library_ms"],
                 "bound_fraction": r["bound_ms"] / r["ms"]}
 
+    # phase 10's counters by kernel name (the train counters: train only)
+    v9c_key = {"stem_conv": "stem", "adown": "adown", "nms_select": "nms",
+               "bottleneck_chain": "csp_chain", "conv3_silu": "conv3",
+               "stem_conv_raw": "stem_raw", "stem_wgrad": "stem_wgrad",
+               "adown_raw": "adown_raw", "adown_bwd": "adown_bwd"}
+
+    def v9c_launches(name: str) -> dict:
+        key = v9c_key[name]
+        return {path: v9c[path].get(key, 0)
+                for path in ("serving", "eval", "train")}
+
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"yolo_re_tpu_torch/csrc/{src}",
         "replaces": f"yolo_re_tpu/ops/pallas/{tpu}", "launches": launches,
+        "launches_yolov9_c": v9c_launches(name),
         **numbers(r["bf16"]), "f32": numbers(r["f32"])}
         for name, src, tpu, launches, r in rows]
 
@@ -967,13 +1170,19 @@ def main() -> int:
         with tf32_flags(defaults):
             phase_tiny_train(dev, Path(td))
         print("phase 8: gelan-c training")
-        tcounts = phase_gelan_c_train(dev, Path(td))
+        tcounts = train_full(dev, Path(td), "gelan-c", TRAIN_STEPS, (BATCH,),
+                             {"stem": 1, "adown": 5})
 
     with tempfile.TemporaryDirectory() as td:
         print("phase 9: eval")
         ecounts = phase_eval(dev, Path(td), gelan_c, sites, defaults)
+    del gelan_c
 
-    kernels = kernels_line(res, tres, counts, tcounts)
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 10: yolov9-c")
+        v9c = phase_yolov9c(dev, Path(td), defaults)
+
+    kernels = kernels_line(res, tres, counts, tcounts, v9c)
     print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "
           f"the serving, eval and train shapes, library calls with TF32 "
           f"off; adown kernels are the sum of gelan-c's five ADown shapes "
@@ -995,7 +1204,9 @@ def main() -> int:
           f"null; adown_bwd's max_abs_err is dx's, stem_wgrad's dW's; "
           f"serving launches from phase 5's {REQUESTS} requests, train "
           f"launches from phase 8's counted steps; phase 9 eval launches "
-          f"{ecounts})")
+          f"{ecounts}; launches_yolov9_c: phase 10's {REQUESTS} requests, "
+          f"{EVAL_IMAGES // BATCH} eval batches and {V9C_TRAIN_STEPS} "
+          f"counted train steps)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

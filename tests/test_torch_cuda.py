@@ -19,8 +19,8 @@ import torch
 from yolo_re_tpu_torch.convert import load_weights
 from yolo_re_tpu_torch.data.config import DataConfig
 from yolo_re_tpu_torch.data.dataset import create_dataloader
-from yolo_re_tpu_torch.data.synth import TINY_YAML, make_eval_batch, \
-    write_dataset
+from yolo_re_tpu_torch.data.synth import TINY_DUAL_YAML, TINY_YAML, \
+    make_eval_batch, write_dataset
 from yolo_re_tpu_torch.eval.evaluator import Evaluator
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.kernels import adown, conv3, csp_chain, nms, stem
@@ -797,6 +797,93 @@ def test_tiny_train_step_cuda_matches_cpu(cuda, tmp_path):
         if dev.type == "cuda":
             assert stem.raw_launches == before[0] + 1
             assert adown.bwd_launches == before[1] + 4
+        out.append((float(loss), {k: v.detach().cpu()
+                                  for k, v in tr.params.items()}))
+    (loss_c, p_c), (loss_h, p_h) = out
+    assert abs(loss_c - loss_h) <= 1e-4 * abs(loss_h)
+    for k in p_h:
+        torch.testing.assert_close(p_c[k], p_h[k], atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# yolov9-c: the dual model through the same kernels
+# ---------------------------------------------------------------------------
+
+def _counts() -> dict:
+    return {"stem": stem.launches, "adown": adown.launches,
+            "csp_chain": csp_chain.launches, "conv3": conv3.launches}
+
+
+def test_tiny_dual_cuda_matches_cpu(cuda, tmp_path):
+    """TINY_DUAL_YAML, fused, f32, random weights from seed 0: decoded aux
+    and main on cuda (kernels) against the CPU (plain versions), to
+    test_detector_cuda_matches_cpu's tolerances; the main-only forward
+    equals the full forward's main on the card too."""
+    path = tmp_path / "tiny_dual.yaml"
+    path.write_text(TINY_DUAL_YAML)
+    model = YOLO.from_yaml(path)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    model.fuse()
+    x = torch.rand(2, 3, 160, 160, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref, _ = model(x)
+        model.to(cuda)
+        before = _counts()
+        out, _ = model(x.to(cuda))
+        mid = _counts()
+        main, _ = model(x.to(cuda), main_only=True)
+    # stem1 and aux_stem1, eight ADowns; the main branch's stem and five
+    assert (mid["stem"] - before["stem"], mid["adown"] - before["adown"]) \
+        == (2, 8)
+    assert (stem.launches - mid["stem"], adown.launches - mid["adown"]) \
+        == (1, 5)
+    for k in ("aux", "main"):
+        torch.testing.assert_close(out[k][..., :4].cpu(), ref[k][..., :4],
+                                   atol=1e-2, rtol=0)
+        torch.testing.assert_close(out[k][..., 4:].cpu(), ref[k][..., 4:],
+                                   atol=1e-4, rtol=0)
+    assert torch.equal(main, out["main"])
+
+
+def test_yolov9c_launch_counts(cuda):
+    """yolov9-c at full width, fused, (1, 3, 256, 256): the full forward
+    launches the stem 2 times (stem1, aux_stem1), ADown 8, the chain 4
+    (stage1's and aux_stage1's), conv3 10; the main-only forward (serving,
+    eval) 1, 5, 2 and 6, as gelan-c."""
+    model = YOLO.from_yaml(Path(__file__).resolve().parent.parent /
+                           "configs" / "models" / "yolov9-c.yaml")
+    model.init_parameters(torch.Generator().manual_seed(0))
+    model = model.fuse().to(cuda)
+    x = torch.rand(1, 3, 256, 256, device=cuda)
+    for main_only, want in ((False, (2, 8, 4, 10)), (True, (1, 5, 2, 6))):
+        before = _counts()
+        with torch.no_grad():
+            model(x, main_only=main_only)
+        got = tuple(v - before[k] for k, v in _counts().items())
+        assert got == want, (main_only, got)
+
+
+def test_tiny_dual_train_step_cuda_matches_cpu(cuda, tmp_path):
+    """One f32 TINY_DUAL_YAML train step from the same init: two stem
+    pairs (stem1, aux_stem1) and eight ADown pairs on cuda, the loss and
+    the parameters to test_tiny_train_step_cuda_matches_cpu's
+    tolerances."""
+    path = tmp_path / "tiny_dual.yaml"
+    path.write_text(TINY_DUAL_YAML)
+    batch = make_eval_batch(4, 96, 5)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg = TrainConfig(data_parallel=False, output_dir=str(tmp_path))
+        tr = Trainer(YOLO.from_yaml(path), config=cfg, train_loader=[batch],
+                     device=dev)
+        before = (stem.raw_launches, stem.wgrad_launches, adown.raw_launches,
+                  adown.bwd_launches)
+        loss, _, _ = tr.train_step(batch["images"], batch["targets"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            after = (stem.raw_launches, stem.wgrad_launches,
+                     adown.raw_launches, adown.bwd_launches)
+            assert tuple(a - b for a, b in zip(after, before)) == (2, 2, 8, 8)
         out.append((float(loss), {k: v.detach().cpu()
                                   for k, v in tr.params.items()}))
     (loss_c, p_c), (loss_h, p_h) = out

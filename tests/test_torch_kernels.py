@@ -374,6 +374,14 @@ def test_profile_launches_needs_a_card(monkeypatch, capsys):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in ([], ["train"], ["train", "f32"], ["eval"], ["eval", "bf16"],
-                 ["roof"], ["other"]):
+                 ["roof"], ["other"], ["train", "yolov9-c"],
+                 ["eval", "bf16", "yolov9-c"], ["train", "f32", "gelan-c"],
+                 ["train", "nomodel"], ["eval", "f32"], ["roof", "yolov9-c"]):
         assert profile_launches.main(argv) == 2
+    assert profile_launches.parse(["train", "f32", "yolov9-c"]) == \
+        ("train", "f32", "yolov9-c")
+    assert profile_launches.parse(["eval"]) == ("eval", "", "gelan-c")
+    for bad in (["train", "nomodel"], ["eval", "f32"], ["roof", "x"],
+                ["eval", "bf16", "yolov9-c", "x"]):
+        assert profile_launches.parse(bad) is None
     assert "ms" not in capsys.readouterr().out

@@ -46,6 +46,18 @@ def tiny_yaml(tmp_path_factory):
     return str(p)
 
 
+@pytest.fixture(scope="module")
+def tiny_dual_yaml(tmp_path_factory):
+    p = tmp_path_factory.mktemp("cfg") / "tiny_dual.yaml"
+    p.write_text(synth.TINY_DUAL_YAML)
+    return str(p)
+
+
+def _config_path(name, tiny_yaml, tiny_dual_yaml):
+    return {"TINY_YAML": tiny_yaml, "TINY_DUAL_YAML": tiny_dual_yaml}.get(
+        name, ROOT / "configs" / "models" / f"{name}.yaml")
+
+
 def _nchw(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
 
@@ -93,6 +105,7 @@ def test_parse_yaml_copy_matches_jax(name, tiny_yaml):
 
 def test_make_eval_batch_copy_is_bit_equal():
     assert synth.TINY_YAML == jsynth.TINY_YAML
+    assert synth.TINY_DUAL_YAML == jsynth.TINY_DUAL_YAML
     for seed in (0, 7):
         a = synth.make_eval_batch(3, 96, seed)
         b = jsynth.make_eval_batch(3, 96, seed)
@@ -106,10 +119,10 @@ def test_make_eval_batch_copy_is_bit_equal():
 # plan and weight bridge
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["gelan-c", "TINY_YAML"])
-def test_plan_matches_jax(name, tiny_yaml):
-    path = tiny_yaml if name == "TINY_YAML" else \
-        ROOT / "configs" / "models" / f"{name}.yaml"
+@pytest.mark.parametrize("name", ["gelan-c", "TINY_YAML", "yolov9-c",
+                                  "TINY_DUAL_YAML"])
+def test_plan_matches_jax(name, tiny_yaml, tiny_dual_yaml):
+    path = _config_path(name, tiny_yaml, tiny_dual_yaml)
     tp, jp = YOLO.from_yaml(path).plan, JYOLO.from_yaml(path).plan
     assert tp.strides == jp.strides
     assert tp.detect_name == jp.detect_name
@@ -123,21 +136,23 @@ def test_plan_matches_jax(name, tiny_yaml):
 
 
 def _zeros_like_init(jmodel):
-    """gelan-c's (params, stats) STRUCTURE as numpy zeros: jax.eval_shape
+    """A full model's (params, stats) STRUCTURE as numpy zeros: jax.eval_shape
     runs no init, so the full model costs nothing on the CPU."""
     shapes = jax.eval_shape(jmodel.init, jax.random.key(0))
     return jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, s.dtype), shapes)
 
 
-@pytest.mark.parametrize("name", ["gelan-c", "TINY_YAML"])
-def test_state_dict_bridge_matches_export(name, tiny_yaml):
+@pytest.mark.parametrize("name", ["gelan-c", "TINY_YAML", "yolov9-c",
+                                  "TINY_DUAL_YAML"])
+def test_state_dict_bridge_matches_export(name, tiny_yaml, tiny_dual_yaml):
     """state_dict_from_jax == export_state_dict key by key and value by
-    value, apart from num_batches_tracked and the derived DFL conv."""
-    path = tiny_yaml if name == "TINY_YAML" else \
-        ROOT / "configs" / "models" / f"{name}.yaml"
+    value, apart from num_batches_tracked and the derived DFL convs (the
+    dual head's `dfl` and `dfl2`: fixed projections that neither package
+    stores)."""
+    path = _config_path(name, tiny_yaml, tiny_dual_yaml)
     jmodel, model = JYOLO.from_yaml(path), YOLO.from_yaml(path)
-    if name == "gelan-c":
+    if not name.startswith("TINY"):
         params, stats = _zeros_like_init(jmodel)
     else:
         params, stats = jax.device_get(jmodel.init(jax.random.key(3)))
@@ -145,20 +160,13 @@ def test_state_dict_bridge_matches_export(name, tiny_yaml):
     ref = export_state_dict(jmodel.plan, params, stats)
     sd = convert.state_dict_from_jax(model.plan, params, stats)
     skip = {k for k in ref if k.endswith("num_batches_tracked")
-            or ".dfl." in k}
+            or ".dfl." in k or ".dfl2." in k}
     assert set(ref) - skip == {k for k in sd
                                if not k.endswith("num_batches_tracked")}
     for k in set(ref) - skip:
         assert sd[k].dtype == torch.float32, k
         np.testing.assert_array_equal(sd[k].numpy(), ref[k], err_msg=k)
     model.load_state_dict(sd, strict=True)
-
-
-def test_unported_blocks_raise(tmp_path):
-    path = tmp_path / "tiny_dual.yaml"
-    path.write_text(jsynth.TINY_DUAL_YAML)
-    with pytest.raises(NotImplementedError, match="Silence"):
-        YOLO.from_yaml(path)
 
 
 def test_load_weights_matches_jax(tmp_path):

@@ -89,30 +89,35 @@ def test_detector_takes_a_state_dict(detectors):
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
 
 
-class _DualHead(torch.nn.Module):
-    """A model whose head returns the dual head's {"aux", "main"} dict; the
-    aux branch scores nothing, so serving it would detect nothing."""
+def test_detector_takes_the_main_branch_of_a_dual_head(tmp_path):
+    """A TINY_DUAL_YAML Detector serves the main branch alone: its output
+    equals NMS over the full dual forward's decoded "main", bit for bit,
+    and no aux layer runs (the JAX Detector keeps decoded["main"] of the
+    whole program; tests/test_torch_dual.py holds the two Detectors)."""
+    from yolo_re_tpu_torch.data.device_pipeline import batched_letterbox
+    from yolo_re_tpu_torch.data.synth import TINY_DUAL_YAML
+    from yolo_re_tpu_torch.ops.nms import non_max_suppression
 
-    def __init__(self, model):
-        super().__init__()
-        self.model = model
-
-    def forward(self, x):
-        decoded, feats = self.model(x)
-        return {"aux": torch.zeros_like(decoded), "main": decoded}, feats
-
-
-def test_detector_takes_the_main_branch_of_a_dual_head(detectors):
-    _, det, _ = detectors
-    images = make_eval_batch(2, 160, 7)["images"]
-    ref = det(images)
-    det.model = _DualHead(det.model)
-    try:
-        out = det(images)
-    finally:
-        det.model = det.model.model
+    path = tmp_path / "tiny_dual.yaml"
+    path.write_text(TINY_DUAL_YAML)
+    model = YOLO.from_yaml(path)
+    model.init_parameters(torch.Generator().manual_seed(0))
+    det = Detector(model, model.state_dict(), device="cpu", img_size=128,
+                   compute_dtype="float32", conf_thres=0.0)
+    ran = []
+    for name, layer in det.model.layers.items():
+        layer.register_forward_hook(lambda m, i, o, n=name: ran.append(n))
+    images = make_eval_batch(2, 128, 7)["images"]
+    out = det(images)
+    assert ran and not [n for n in ran if n.startswith(("aux_", "cb_"))]
+    x = batched_letterbox(torch.as_tensor(images), 128, dtype=torch.float32)
+    with torch.no_grad():
+        decoded, _ = det.model(x.permute(0, 3, 1, 2))
+    ref = non_max_suppression(decoded["main"], conf_thres=0.0,
+                              iou_thres=det.iou_thres, max_det=det.max_det)
     for k in ref:
         torch.testing.assert_close(out[k], ref[k], rtol=0, atol=0)
+    assert int(out["valid"].sum()) > 0
 
 
 def test_detector_cuda_without_cuda_raises(detectors, monkeypatch):

@@ -1,8 +1,12 @@
 """Device time of each launch inside one call of a train kernel's wrapper,
-and of one gelan-c train step or eval batch.
+and of one train step or eval batch of gelan-c or yolov9-c.
 
     python -m yolo_re_tpu_torch.cli.profile_launches \
-        [kernels|train [f32]|eval [bf16]|roof]
+        [kernels|train [f32] [MODEL]|eval [bf16] [MODEL]|roof]
+
+MODEL names a file of configs/models/ (`gelan-c`, the default, or
+`yolov9-c`, whose train step runs both branches and the dual loss and
+whose eval batch the main branch alone).
 
 `kernels` (the default): a wrapper such as `adown_bwd` makes several
 launches from one C entry point; `chip_smoke.py` times the call as a
@@ -24,14 +28,16 @@ avg it writes for the weight-gradient products), that over 3.35 TB/s as
 their bound, and bound / time. The ADown tables run on older trees too
 (their `adown` permutes the weights on every call).
 
-`train`: gelan-c, bf16 (`train f32`: f32, the `TrainConfig` default),
+`train`: gelan-c (or MODEL), bf16 (`train f32`: f32, the `TrainConfig`
+default),
 batch 32 (f32: 16 if 32 does not fit in the card's memory; the batch used
 is printed), 640 px, random weights and synthetic batches (as
 chip_smoke.py's phase 8): after a warm-up step, the host clock over five
 steps, then the device time per step over five traced steps (after three
 more), in all and by kernel (the largest first).
 
-`eval`: gelan-c, fused, f32 (the Evaluator's default dtype; `eval bf16`:
+`eval`: gelan-c (or MODEL), fused, f32 (the Evaluator's default dtype;
+`eval bf16`:
 bf16), random weights from seed 0 with the class biases at 0 (as
 chip_smoke.py's phase 5, so that the all-anchor NMS keeps its full 300),
 one batch of 32 random uint8 images at 640 px, made on the card and
@@ -60,12 +66,14 @@ from __future__ import annotations
 
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
 from yolo_re_tpu_torch.ops.kernels import adown, stem
 
 BATCH = 32
+CONFIGS = Path(__file__).resolve().parents[2] / "configs" / "models"
 # gelan-c's five ADown inputs at 640 px: (Cin, H, W) -> Cout
 ADOWN_SHAPES = {"down1": (256, 160, 160, 256), "down2": (512, 80, 80, 512),
                 "down3": (512, 40, 40, 512), "pan_down1": (256, 80, 80, 256),
@@ -218,22 +226,37 @@ def adown_bwd_shapes(rand, dtype: torch.dtype) -> None:
               f"bound {bound:.4f} ms, fraction {bound / ms:.3f}")
 
 
-def train_step(dtype: str) -> None:
+def random_model(name: str):
+    """`name`'s model at full width with random weights from seed 0 and
+    the class biases at 0 instead of the prior's -8.8: random weights then
+    score near 0.5, so NMS keeps full candidate sets (chip_smoke.py's
+    phases 5 and 10 serve and evaluate this model too)."""
+    from yolo_re_tpu_torch.models.yolo import YOLO
+
+    model = YOLO.from_yaml(CONFIGS / f"{name}.yaml")
+    model.init_parameters(torch.Generator().manual_seed(0))
+    head = model.layers[model.plan.detect_name]
+    with torch.no_grad():
+        for n, p in head.named_parameters():
+            if "cls_convs" in n and n.endswith(".2.bias"):
+                p.zero_()
+    return model
+
+
+def train_step(dtype: str, name: str) -> None:
     import gc
     import tempfile
     import time
-    from pathlib import Path
 
     from yolo_re_tpu_torch.data.synth import make_eval_batch
     from yolo_re_tpu_torch.models.yolo import YOLO
     from yolo_re_tpu_torch.train.config import TrainConfig
     from yolo_re_tpu_torch.train.trainer import Trainer
 
-    root = Path(__file__).resolve().parents[2]
     # f32 steps hold twice bf16's activations: half the batch if 32 does
     # not fit
     for batch in (BATCH, BATCH // 2) if dtype == "float32" else (BATCH,):
-        model = YOLO.from_yaml(root / "configs" / "models" / "gelan-c.yaml")
+        model = YOLO.from_yaml(CONFIGS / f"{name}.yaml")
         batches = [make_eval_batch(batch, 640, seed) for seed in range(4)]
         cfg = TrainConfig(epochs=1, compute_dtype=dtype,
                           data_parallel=False,
@@ -253,7 +276,7 @@ def train_step(dtype: str) -> None:
             if batch == BATCH // 2:
                 raise
         # outside the handler, so that its traceback frees the tensors
-        print(f"gelan-c {dtype} train step: batch {batch} does not fit")
+        print(f"{name} {dtype} train step: batch {batch} does not fit")
         del model, trainer, batches, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -261,7 +284,7 @@ def train_step(dtype: str) -> None:
     for i in range(5):
         step(i)
     torch.cuda.synchronize()
-    print(f"gelan-c {dtype} train step, batch {batch}, 640 px: host clock "
+    print(f"{name} {dtype} train step, batch {batch}, 640 px: host clock "
           f"{(time.perf_counter() - t0) / 5 * 1e3:.1f} ms per step over 5")
     rows = launch_times(lambda: step(1))
     report("device time per step, by kernel (largest 15 of "
@@ -269,19 +292,11 @@ def train_step(dtype: str) -> None:
     print(f"  all kernels {sum(r[0] for r in rows):.4f} ms per step")
 
 
-def eval_batch(dtype: str) -> None:
-    from pathlib import Path
-
+def eval_batch(dtype: str, name: str) -> None:
     from yolo_re_tpu_torch.eval.evaluator import Evaluator
-    from yolo_re_tpu_torch.models.yolo import YOLO
     from yolo_re_tpu_torch.serving import inference_model
 
-    root = Path(__file__).resolve().parents[2]
-    model = YOLO.from_yaml(root / "configs" / "models" / "gelan-c.yaml")
-    model.init_parameters(torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        for seq in model.layers["detect"].cls_convs:
-            seq[2].bias.zero_()
+    model = random_model(name)
     ev = Evaluator(model, None, compute_dtype=dtype, device="cuda")
     fused = inference_model(model, model.state_dict(), ev.device, ev.dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -289,7 +304,7 @@ def eval_batch(dtype: str) -> None:
         0, 256, (BATCH, 640, 640, 3), generator=gen, device="cuda",
         dtype=torch.uint8).cpu().numpy()}
     rows = launch_times(lambda: ev._dispatch(fused, batch))
-    report(f"gelan-c {dtype} eval batch of {BATCH} at 640 px, device time "
+    report(f"{name} {dtype} eval batch of {BATCH} at 640 px, device time "
            f"by kernel (largest 15 of {len(rows)})", rows[:15])
     own = sum(r[0] for r in rows if "yolo" in r[2])
     total = sum(r[0] for r in rows)
@@ -322,13 +337,28 @@ def memory_roof() -> None:
         del y, src
 
 
+def parse(what: list[str]) -> tuple[str, str, str] | None:
+    """argv -> (mode, dtype word or "", model name), None if malformed."""
+    if what in (["kernels"], ["roof"]):
+        return what[0], "", ""
+    flag = {"train": "f32", "eval": "bf16"}.get(what[0])
+    if flag is None or len(what) > 3:
+        return None
+    rest = what[1:]
+    dtype = rest.pop(0) if rest[:1] == [flag] else ""
+    name = rest.pop(0) if rest else "gelan-c"
+    if rest or not (CONFIGS / f"{name}.yaml").is_file():
+        return None
+    return what[0], dtype, name
+
+
 def main(argv: list[str] | None = None) -> int:
-    what = (sys.argv[1:] if argv is None else argv) or ["kernels"]
-    if what not in (["kernels"], ["train"], ["train", "f32"], ["eval"],
-                    ["eval", "bf16"], ["roof"]):
-        print("usage: profile_launches [kernels|train [f32]|eval [bf16]|"
-              "roof]", file=sys.stderr)
+    parsed = parse((sys.argv[1:] if argv is None else argv) or ["kernels"])
+    if parsed is None:
+        print("usage: profile_launches [kernels|train [f32] [MODEL]|"
+              "eval [bf16] [MODEL]|roof]", file=sys.stderr)
         return 2
+    what, dtype, name = parsed
     if not torch.cuda.is_available():
         print("profile_launches: no CUDA device", file=sys.stderr)
         return 2
@@ -336,13 +366,13 @@ def main(argv: list[str] | None = None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
-    if what[0] == "train":
-        train_step("float32" if what[1:] == ["f32"] else "bfloat16")
+    if what == "train":
+        train_step("float32" if dtype else "bfloat16", name)
         return 0
-    if what[0] == "eval":
-        eval_batch("bfloat16" if what[1:] == ["bf16"] else "float32")
+    if what == "eval":
+        eval_batch("bfloat16" if dtype else "float32", name)
         return 0
-    if what[0] == "roof":
+    if what == "roof":
         memory_roof()
         return 0
     dev = torch.device("cuda")

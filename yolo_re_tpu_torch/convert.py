@@ -150,14 +150,31 @@ def _pair(a: str, b: str):
     return emit
 
 
+def _cblinear(out: SD, p: str, params: dict, stats: dict) -> None:
+    out[p + "conv.weight"] = _t(params["w"])
+    out[p + "conv.bias"] = _v(params["b"])
+
+
+def _tower(out: SD, p: str, i: int, params: dict, stats: dict) -> None:
+    """Level i's box and cls towers under `p` (`<head>.`, or `<head>.aux_`
+    / `<head>.main_` in a dual head)."""
+    for kind in ("box", "cls"):
+        prefix = f"{p}{kind}_convs.{i}."
+        for j in (0, 1):
+            _conv(out, f"{prefix}{j}.", params[kind][j], stats[kind][j])
+        out[f"{prefix}2.weight"] = _t(params[kind][2]["w"])
+        out[f"{prefix}2.bias"] = _v(params[kind][2]["b"])
+
+
 def _detect(out: SD, p: str, params: dict, stats: dict) -> None:
     for i, (tp, ts) in enumerate(zip(params["towers"], stats["towers"])):
-        for kind in ("box", "cls"):
-            prefix = f"{p}{kind}_convs.{i}."
-            for j in (0, 1):
-                _conv(out, f"{prefix}{j}.", tp[kind][j], ts[kind][j])
-            out[f"{prefix}2.weight"] = _t(tp[kind][2]["w"])
-            out[f"{prefix}2.bias"] = _v(tp[kind][2]["b"])
+        _tower(out, p, i, tp, ts)
+
+
+def _dual_detect(out: SD, p: str, params: dict, stats: dict) -> None:
+    for branch in ("aux", "main"):
+        for i, (tp, ts) in enumerate(zip(params[branch], stats[branch])):
+            _tower(out, f"{p}{branch}_", i, tp, ts)
 
 
 _EMITTERS = {
@@ -166,9 +183,11 @@ _EMITTERS = {
     "RepNCSPELAN4": _elan,
     "SPPELAN": _pair("conv_in", "conv_out"),
     "ADown": _pair("conv_stride", "conv_pool"),
+    "CBLinear": _cblinear,
     "DetectDFL": _detect,
+    "DualDetectDFL": _dual_detect,
 }
-_PARAMETER_FREE = ("Concat", "Upsample")
+_PARAMETER_FREE = ("Concat", "Upsample", "Silence", "CBFuse")
 
 
 def state_dict_from_jax(plan: Plan, params: dict, stats: dict) -> SD:
@@ -256,7 +275,14 @@ def _pair_inv(a: str, b: str):
     return inv
 
 
-def _detect_inv(sd: SD, p: str) -> tuple[dict, dict]:
+def _cblinear_inv(sd: SD, p: str) -> tuple[dict, dict]:
+    return ({"w": _hwio(sd[p + "conv.weight"]),
+             "b": _np(sd[p + "conv.bias"])}, {})
+
+
+def _towers_inv(sd: SD, p: str) -> tuple[list, list]:
+    """The towers under `p` (`<head>.` or `<head>.aux_` / `.main_`), level
+    by level."""
     towers, tstats = [], []
     for i in range(_count(sd, p + "box_convs.")):
         tp, ts = {}, {}
@@ -272,7 +298,19 @@ def _detect_inv(sd: SD, p: str) -> tuple[dict, dict]:
             ts[kind].append({})
         towers.append(tp)
         tstats.append(ts)
+    return towers, tstats
+
+
+def _detect_inv(sd: SD, p: str) -> tuple[dict, dict]:
+    towers, tstats = _towers_inv(sd, p)
     return {"towers": towers}, {"towers": tstats}
+
+
+def _dual_detect_inv(sd: SD, p: str) -> tuple[dict, dict]:
+    params, stats = {}, {}
+    for branch in ("aux", "main"):
+        params[branch], stats[branch] = _towers_inv(sd, f"{p}{branch}_")
+    return params, stats
 
 
 _INVERSES = {
@@ -281,7 +319,9 @@ _INVERSES = {
     "RepNCSPELAN4": _elan_inv,
     "SPPELAN": _pair_inv("conv_in", "conv_out"),
     "ADown": _pair_inv("conv_stride", "conv_pool"),
+    "CBLinear": _cblinear_inv,
     "DetectDFL": _detect_inv,
+    "DualDetectDFL": _dual_detect_inv,
 }
 
 

@@ -84,9 +84,9 @@ class Evaluator:
         x = images.to(self.device, non_blocking=True)
         x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \
             else x.to(self.dtype)
-        decoded, _ = model(x.permute(0, 3, 1, 2))
-        if isinstance(decoded, dict):       # dual head: the main branch
-            decoded = decoded["main"]       # (ref: evaluator.py:105-113)
+        # a dual head: its main branch alone (yolo_re_tpu/eval/
+        # evaluator.py:86-87; reference evaluator.py:105-113)
+        decoded, _ = model(x.permute(0, 3, 1, 2), main_only=True)
         out = non_max_suppression(decoded, conf_thres=self.conf_thres,
                                   iou_thres=self.iou_thres,
                                   max_det=self.max_det)

@@ -4,10 +4,9 @@ reference src/yolo/loss/tal.py + src/yolo/loss/bbox.py).
 Target contract (the JAX package's): `targets` (B, M, 5) as (class, x, y,
 w, h) with xywh normalized to [0, 1]; padding rows are all zero (w == h ==
 0 marks them invalid). Predictions are the head's train output: a list of
-per-level (box (B, 4*reg_max, H, W), cls (B, nc, H, W)) pairs, NCHW.
-
-The single head only: the dual branch (`forward_dual`, aux x 0.25) waits
-for DualDetectDFL in a later slice.
+per-level (box (B, 4*reg_max, H, W), cls (B, nc, H, W)) pairs, NCHW; a
+dual head's {"aux": pairs, "main": pairs} goes to `forward_dual` (aux
+weighted 0.25).
 """
 
 from __future__ import annotations
@@ -146,27 +145,42 @@ class TALoss:
 
     def __call__(self, preds, targets):
         if isinstance(preds, dict):
-            raise NotImplementedError(
-                "the dual-head loss (forward_dual) is not ported yet: it "
-                "waits for DualDetectDFL")
+            return self.forward_dual(preds, targets)
         return self.forward_single(preds, targets)
+
+    def _setup(self, feats, targets: torch.Tensor):
+        """Anchors and targets from the first level of `feats`: (anchor
+        points, stride column, gt labels, gt xyxy px boxes, gt mask)."""
+        yb0 = feats[0][0]
+        img_h = yb0.shape[2] * self.strides[0]
+        img_w = yb0.shape[3] * self.strides[0]
+        return (*self._anchors(feats, yb0.device),
+                *self._prepare_targets(targets.float(), img_h, img_w))
+
+    def _gained(self, iou_l, cls_l, dfl_l) -> torch.Tensor:
+        return torch.stack([iou_l * self.config.box_gain,
+                            cls_l * self.config.cls_gain,
+                            dfl_l * self.config.dfl_gain])
 
     def forward_single(self, feats, targets: torch.Tensor):
         """feats: per-level (box, cls) NCHW pairs (reference:
         tal.py:135-190). Returns (sum of gained items * batch size, items
         (3,) detached)."""
-        yb0 = feats[0][0]
-        img_h = yb0.shape[2] * self.strides[0]
-        img_w = yb0.shape[3] * self.strides[0]
-        anchor_points, stride_col = self._anchors(feats, yb0.device)
-        gt_labels, gt_bboxes, mask_gt = self._prepare_targets(
-            targets.float(), img_h, img_w)
-        iou_l, cls_l, dfl_l = self._branch_losses(
-            feats, gt_labels, gt_bboxes, mask_gt, anchor_points, stride_col)
-        loss = torch.stack([iou_l * self.config.box_gain,
-                            cls_l * self.config.cls_gain,
-                            dfl_l * self.config.dfl_gain])
-        return loss.sum() * yb0.shape[0], loss.detach()
+        anchor_points, stride_col, *gt = self._setup(feats, targets)
+        loss = self._gained(*self._branch_losses(feats, *gt, anchor_points,
+                                                 stride_col))
+        return loss.sum() * feats[0][0].shape[0], loss.detach()
+
+    def forward_dual(self, preds, targets: torch.Tensor):
+        """preds: {"aux": pairs, "main": pairs}; anchors and targets from
+        the main branch's first level, each item (aux * 0.25 + main) * gain
+        (reference: tal.py:192-285; yolo_re_tpu/loss/tal.py:230-252)."""
+        feats_main = preds["main"]
+        anchor_points, stride_col, *gt = self._setup(feats_main, targets)
+        aux, main = (self._branch_losses(preds[k], *gt, anchor_points,
+                                         stride_col) for k in ("aux", "main"))
+        loss = self._gained(*(a * 0.25 + m for a, m in zip(aux, main)))
+        return loss.sum() * feats_main[0][0].shape[0], loss.detach()
 
 
 def pad_targets(labels_list, max_boxes: int | None = None):

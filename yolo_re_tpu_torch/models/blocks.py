@@ -41,6 +41,7 @@ from yolo_re_tpu_torch.ops.conv import (
     conv_bn_act,
     fold_conv_bn,
     get_activation,
+    interpolate_nearest,
     max_pool2d,
     upsample_nearest,
 )
@@ -359,7 +360,56 @@ class ADown(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Concat / Upsample
+# CBLinear / CBFuse (YOLOv9 auxiliary routing)
+# ---------------------------------------------------------------------------
+
+class CBLinear(nn.Module):
+    """One biased conv projecting to sum(out_channels_list), returned as a
+    tuple of channel slices (reference: src/yolo/blocks/auxiliary.py:30-66).
+
+    The bias is added after the conv in the activations' dtype, as the JAX
+    package adds it (yolo_re_tpu/models/blocks.py:629). `fuse()` leaves it
+    alone: it has no BN.
+    """
+
+    def __init__(self, in_channels: int, out_channels_list: tuple[int, ...],
+                 kernel_size: int = 1, stride: int = 1,
+                 padding: int | None = None, groups: int = 1):
+        super().__init__()
+        self.out_channels_list = tuple(out_channels_list)
+        self.conv = nn.Conv2d(in_channels, sum(self.out_channels_list),
+                              kernel_size, stride,
+                              autopad(kernel_size, padding), groups=groups,
+                              bias=True)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        c = self.conv
+        y = F.conv2d(x, c.weight.to(x.dtype), None, c.stride, c.padding,
+                     c.dilation, c.groups)
+        y = y + c.bias.to(y.dtype)[:, None, None]
+        return tuple(torch.split(y, self.out_channels_list, dim=1))
+
+
+class CBFuse(nn.Module):
+    """Take the `idx[i]`-th tensor of each CBLinear tuple, resize it to the
+    target's (the last input's) size by nearest neighbour and sum with the
+    target (reference: src/yolo/blocks/auxiliary.py:76-114)."""
+
+    def __init__(self, idx: tuple[int, ...]):
+        super().__init__()
+        self.idx = tuple(idx)
+
+    def forward(self, xs: list) -> torch.Tensor:
+        *cb_outputs, target = xs
+        h, w = target.shape[2], target.shape[3]
+        total = target
+        for i, cb in enumerate(cb_outputs):
+            total = total + interpolate_nearest(cb[self.idx[i]], h, w)
+        return total
+
+
+# ---------------------------------------------------------------------------
+# Concat / Silence / Upsample
 # ---------------------------------------------------------------------------
 
 class Concat(nn.Module):
@@ -371,6 +421,13 @@ class Concat(nn.Module):
 
     def forward(self, xs: list[torch.Tensor]) -> torch.Tensor:
         return torch.cat(xs, dim=self.dimension)
+
+
+class Silence(nn.Module):
+    """Identity tap (reference: src/yolo/blocks/common.py:40-50)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
 
 
 class Upsample(nn.Module):
@@ -394,19 +451,15 @@ BLOCKS: dict[str, type[nn.Module]] = {
     "RepNCSPELAN4": RepNCSPELAN4,
     "SPPELAN": SPPELAN,
     "ADown": ADown,
+    "CBLinear": CBLinear,
+    "CBFuse": CBFuse,
     "Concat": Concat,
+    "Silence": Silence,
     "Upsample": Upsample,
 }
 
-# Blocks of the JAX package that gelan-c does not use: a later slice.
-NOT_PORTED = ("CBLinear", "CBFuse", "Silence", "DualDetectDFL")
-
 
 def get_block_class(name: str) -> type[nn.Module]:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"block {name} is not ported to yolo_re_tpu_torch yet (the "
-            f"port's first slice covers gelan-c's blocks: {sorted(BLOCKS)})")
     try:
         return BLOCKS[name]
     except KeyError:

@@ -64,8 +64,11 @@ class PlanBuilder:
         in_scale = [self.scale_map[n] for n in inputs]
         params = dict(ld.params)
 
-        if btype == "DetectDFL":
-            strides = tuple(float(s) for s in in_scale)
+        if btype in ("DetectDFL", "DualDetectDFL"):
+            # a dual head's strides come from its main (second) half
+            # (reference: src/yolo/model/model.py:147-149)
+            n = len(in_ch) // 2 if btype == "DualDetectDFL" else 0
+            strides = tuple(float(s) for s in in_scale[n:])
             kwargs = {"num_classes": self.num_classes,
                       "in_channels": tuple(in_ch), "strides": strides}
             out_ch, out_scale = 0, in_scale[-1]
@@ -75,13 +78,27 @@ class PlanBuilder:
         elif btype == "Concat":
             kwargs = {"dimension": params.get("dimension", 1)}
             out_ch, out_scale = sum(in_ch), in_scale[0]
+        elif btype == "Silence":
+            kwargs, out_ch, out_scale = {}, in_ch[0], in_scale[0]
         elif btype == "Upsample":
             sf = int(params.get("scale_factor", 2))
             kwargs = {"scale_factor": sf,
                       "mode": params.get("mode", "nearest")}
             out_ch, out_scale = in_ch[0], in_scale[0] / sf
+        elif btype == "CBLinear":
+            ocl = tuple(apply_width_multiplier(c, self.width_mult)
+                        for c in params["out_channels_list"])
+            kwargs = {"in_channels": in_ch[0], "out_channels_list": ocl,
+                      "kernel_size": params.get("kernel_size", 1),
+                      "stride": params.get("stride", 1),
+                      "padding": params.get("padding"),
+                      "groups": params.get("groups", 1)}
+            out_ch, out_scale = ocl[-1], in_scale[0] * kwargs["stride"]
+        elif btype == "CBFuse":
+            kwargs = {"idx": tuple(params["idx"])}
+            out_ch, out_scale = in_ch[-1], in_scale[-1]
         else:
-            B.get_block_class(btype)     # unknown / not-yet-ported: raise
+            B.get_block_class(btype)     # unknown: raise
             kwargs, out_ch, out_scale = self._build_standard(
                 btype, params, in_ch[0], in_scale[0])
 

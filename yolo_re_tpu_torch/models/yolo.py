@@ -6,11 +6,15 @@ names), so parameters carry the reference state-dict names
 (`layers.stem1.conv.weight`, ...). In eval mode `forward` returns the
 decoded predictions; in train mode (`model.train()`: BN batch statistics
 and running-stat updates) the head's per-level (box, cls) pairs that the
-TAL loss takes. `param_labels` groups the parameters for the optimizer.
+TAL loss takes (a dual head: both as {"aux", "main"} dicts).
+`forward(x, main_only=True)` runs only what the head's main branch needs
+(the serving and eval forward). `param_labels` groups the parameters for
+the optimizer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from pathlib import Path
 
@@ -21,7 +25,7 @@ from yolo_re_tpu_torch.models import blocks as B
 from yolo_re_tpu_torch.models.builder import INPUT, Plan, build_plan
 from yolo_re_tpu_torch.models.config import ModelConfig, parse_yaml
 from yolo_re_tpu_torch.models.fuse import fuse_model
-from yolo_re_tpu_torch.models.heads import DetectDFL
+from yolo_re_tpu_torch.models.heads import HEADS, DualDetectDFL
 
 
 def param_labels(model: nn.Module) -> dict[str, str]:
@@ -58,13 +62,35 @@ class YOLO(nn.Module):
         self.strides = plan.strides
         self.layers = nn.ModuleDict()
         for step in plan.steps:
-            cls = DetectDFL if step.type == "DetectDFL" else \
-                B.get_block_class(step.type)
+            cls = HEADS.get(step.type) or B.get_block_class(step.type)
             self.layers[step.name] = cls(**step.kwargs)
         # layer outputs that later steps read; the rest are dropped
         self._save_names = {n for step in plan.steps for n in step.inputs}
+        self.main_steps = self._main_steps()
         self.fused = False
         self.eval()
+
+    def _main_steps(self) -> tuple:
+        """The steps that the head's main inputs depend on, in plan order,
+        the head's step taking only those inputs: what a program that keeps
+        only the main branch's output computes (the JAX Detector and
+        Evaluator compile the whole dual graph and XLA drops the rest: the
+        aux stem and stages, the CBLinears, CBFuses and aux towers). For a
+        single head these are the steps the head depends on."""
+        plan = self.plan
+        if plan.detect_name is None:
+            return plan.steps
+        inputs = plan.detect_inputs
+        if isinstance(self.layers[plan.detect_name], DualDetectDFL):
+            inputs = inputs[len(inputs) // 2:]
+        needed, keep = set(inputs), []
+        for step in reversed(plan.steps):
+            if step.name == plan.detect_name:
+                keep.append(dataclasses.replace(step, inputs=inputs))
+            elif step.name in needed:
+                keep.append(step)
+                needed.update(step.inputs)
+        return tuple(reversed(keep))
 
     # -- construction -----------------------------------------------------
 
@@ -100,7 +126,7 @@ class YOLO(nn.Module):
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
         for m in self.modules():
-            if isinstance(m, DetectDFL):
+            if isinstance(m, tuple(HEADS.values())):
                 m.init_bias()
         return self
 
@@ -119,28 +145,43 @@ class YOLO(nn.Module):
 
     # -- execution ----------------------------------------------------------
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, main_only: bool = False):
         """x: (B, 3, H, W) float; run in torch.channels_last memory.
 
-        Eval: (decoded (B, A, 4+nc) f32, raw per-level maps). Train: the
-        per-level (box, cls) f32 pairs."""
+        Eval: (decoded (B, A, 4+nc) f32, raw per-level maps); a dual head:
+        ({"aux": decoded, "main": decoded}, {"aux": raw, "main": raw}).
+        Train: the per-level (box, cls) f32 pairs ({"aux", "main"} for a
+        dual head).
+
+        main_only (eval only): run `main_steps` alone, a dual head only its
+        main towers, and return the main branch's (decoded, raw), equal to
+        `model(x)`'s "main" entries: the eager stand-in for XLA's
+        dead-code elimination in the JAX Detector and Evaluator, which
+        keep only `decoded["main"]`. For a single head it is the full
+        forward."""
         if self.training and self.fused:
             raise RuntimeError(
                 "a fused model has no BN to train: call .eval(), or train "
                 "the unfused model")
+        if self.training and main_only:
+            raise ValueError("main_only is an eval forward")
         x = x.contiguous(memory_format=torch.channels_last)
         outputs = {INPUT: x}
         out = x
         last = self.plan.steps[-1].name
-        for step in self.plan.steps:
-            if len(step.inputs) == 1:
+        for step in self.main_steps if main_only else self.plan.steps:
+            # CBFuse takes a list even from one input (yolo_re_tpu/models/
+            # yolo.py:118); a CBLinear's tuple is kept as it is
+            if len(step.inputs) == 1 and step.type != "CBFuse":
                 inp = outputs[step.inputs[0]]
             else:
                 inp = [outputs[n] for n in step.inputs]
-            if step.name == self.plan.detect_name and \
-                    not isinstance(inp, list):
-                inp = [inp]
-            out = self.layers[step.name](inp)
+            if step.name == self.plan.detect_name:
+                if not isinstance(inp, list):
+                    inp = [inp]
+                out = self.layers[step.name](inp, main_only=main_only)
+            else:
+                out = self.layers[step.name](inp)
             if step.name in self._save_names or step.name == last:
                 outputs[step.name] = out
         return out

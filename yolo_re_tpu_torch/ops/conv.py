@@ -21,6 +21,7 @@ lands on the f32 parameter). The convolutions accumulate in f32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -148,3 +149,30 @@ def avg_pool2d(x: torch.Tensor, kernel: int, stride: int,
 def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Nearest-neighbour integer upsample."""
     return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+# (in size, out size, device) -> the source index of each output row
+_NEAREST_INDEX: dict[tuple[int, int, str], torch.Tensor] = {}
+
+
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    key = (n_in, n_out, str(device))
+    if key not in _NEAREST_INDEX:
+        idx = np.floor(np.arange(n_out) * (n_in / n_out)).astype(np.int64)
+        _NEAREST_INDEX[key] = torch.from_numpy(idx).to(device)
+    return _NEAREST_INDEX[key]
+
+
+def interpolate_nearest(x: torch.Tensor, out_h: int, out_w: int
+                        ) -> torch.Tensor:
+    """Nearest resize to (out_h, out_w): source index floor(dst * in / out),
+    computed in float64 by numpy as yolo_re_tpu/ops/conv.py:
+    interpolate_nearest computes it (F.interpolate's float32 scale can
+    pick another row at sizes that do not divide). The index tensors are
+    made once per size and device, so a CUDA forward copies nothing from
+    the host."""
+    h, w = x.shape[2], x.shape[3]
+    if (out_h, out_w) == (h, w):
+        return x
+    return x.index_select(2, _nearest_index(h, out_h, x.device)) \
+        .index_select(3, _nearest_index(w, out_w, x.device))

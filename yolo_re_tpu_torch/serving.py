@@ -93,9 +93,9 @@ class Detector:
         detector's library convs compute in full f32."""
         frames = torch.as_tensor(images_u8).to(self.device)
         x = batched_letterbox(frames, self.img_size, dtype=self.dtype)
-        decoded, _ = self.model(x.permute(0, 3, 1, 2))
-        if isinstance(decoded, dict):       # dual head: the main branch
-            decoded = decoded["main"]
+        # a dual head: its main branch alone, as the JAX Detector keeps
+        # only decoded["main"] (yolo_re_tpu/serving.py:116-117)
+        decoded, _ = self.model(x.permute(0, 3, 1, 2), main_only=True)
         return non_max_suppression(
             decoded, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
             max_det=self.max_det)

@@ -56,12 +56,14 @@ _STAT_SUFFIXES = (".running_mean", ".running_var")
 
 
 def detect_info(model: YOLO) -> tuple[int, int, tuple[float, ...]]:
-    """(num_classes, reg_max, strides) of the model's detect head."""
+    """(num_classes, reg_max, strides) of the model's detect head; a dual
+    head's strides are its main half's (yolo_re_tpu/train/trainer.py:
+    55-65). The loss tells the heads apart by their train output."""
     for step in model.plan.steps:
-        if step.type == "DetectDFL":
+        if step.type in ("DetectDFL", "DualDetectDFL"):
             head = model.layers[step.name]
             return head.num_classes, head.reg_max, head.strides
-    raise ValueError("Model has no DetectDFL head")
+    raise ValueError("Model has no detect head")
 
 
 def _not_ported(what: str, slice_: str) -> NotImplementedError:
