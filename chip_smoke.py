@@ -79,7 +79,28 @@ non-zero (no phase is caught):
    on cuda and on the CPU, each from one state (the CPU trainer takes the
    cuda trainer's state before every step) within phase 7's bounds; the
    free curves, chaotic for this model (a 1e-6 change of the weights moves
-   them further on the CPU alone), are printed.
+   them further on the CPU alone), are printed;
+11. device augmentation (data/device_pipeline.py): (a) at gelan-c's train
+   shape (32, 640, 640, 3), uint8 synthetic images normalized in bf16 and
+   in f32, 32 target rows: augment_batch_full on the fast path (the "full"
+   preset: separable mosaic, mixup, HSV, flips), on the general path
+   (degrees 10, shear 2, perspective 1e-4: the gather warp) and
+   augment_batch (HSV, flips), on the card and on the CPU from the same
+   draws (draw_augment, numpy seed), stage by stage on identical inputs
+   (augment_batch_full's mosaic, then the rest on the card's mosaic:
+   `augment_stages`): images within 1e-6 (fast path, augment_batch) or
+   1e-4 (general) plus, in bf16, one ulp of |ref| (2^-7), the same boxes
+   kept, targets within the same bounds; the card's time (CUDA events)
+   and the CPU side's; (b) gelan-c at full width, 640 px,
+   batch 32, bf16 and f32, through Trainer(data=..., device_augment="full")
+   from an on-disk synthetic set (data/synth.write_dataset, 4 batches of
+   32): the loader's rate alone (one pass, images/s), one warm-up
+   train_step on a synthetic batch, then the 4 on-disk batches through
+   Trainer.train_one_epoch (uint8 from the loader, staged
+   in pinned memory and copied a batch ahead on the copy stream,
+   normalized and augmented on the card) with the train kernels' launch
+   counters held to one stem pair and five ADown pairs per step, a finite
+   loss, and ms/step, images/s and peak memory printed beside phase 8's.
 
 `bound_ms` in the kernels line is the least time the card could take for
 the work: the larger of the bytes each function must move (inputs read
@@ -96,7 +117,8 @@ gradient and ADown (forward, raw forward and backward) carry their
 numbers at each shape phase 3 or 6 ran under `shapes` (NMS at K = 512 and
 8400, and 8400 in the Evaluator's order, with the cluster size and the
 time a greedy step). The last three lines are the card's nvidia-smi line, a
-JSON line with one entry per kernel, and {"ok": true, "device": {...}}.
+JSON line with one entry per kernel (`launches_device_augment`: phase
+11 (b)'s launches per dtype), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -117,7 +139,8 @@ import torch.nn.functional as F
 
 from yolo_re_tpu_torch.convert import load_weights
 from yolo_re_tpu_torch.cli.profile_launches import random_model
-from yolo_re_tpu_torch.data.config import DataConfig
+from yolo_re_tpu_torch.data import device_pipeline
+from yolo_re_tpu_torch.data.config import AugmentConfig, DataConfig
 from yolo_re_tpu_torch.data.dataset import create_dataloader
 from yolo_re_tpu_torch.data.synth import (
     TINY_DUAL_YAML,
@@ -156,6 +179,13 @@ TRAIN_STEPS = 5            # counted gelan-c train steps (after one warm-up)
 WGRAD_BATCHES = (BATCH, 8)   # the stem weight gradient's bf16 shapes
 EVAL_IMAGES = 64           # phase 9 (b): two batches of 32
 V9C_TRAIN_STEPS = 3        # counted yolov9-c train steps (after one warm-up)
+# phase 11: the general warp's hyperparameters; target rows (mosaic x4 and
+# mixup x2 of the synthetic sets' 1-3 boxes fit); on-disk train batches;
+# tolerances of tests/test_torch_augment.py (bf16 also one ulp of |ref|)
+AUG_GENERAL = {"degrees": 10.0, "shear": 2.0, "perspective": 1e-4}
+AUG_MAX_BOXES = 32
+AUG_TRAIN_BATCHES = 4
+AUG_ATOL = {"full fast": 1e-6, "full general": 1e-4, "batch": 1e-6}
 # weight gradients, kernel vs plain: relative L2 (both sum f32 products in
 # another order; bf16 inputs are exact in f32)
 WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -666,7 +696,8 @@ def phase_tiny_dual_train(dev, tmp: Path) -> None:
 
 
 def train_full(dev, tmp: Path, name: str, steps: int, batch_sizes,
-               pairs: dict, groups: tuple[str, ...] = ()) -> dict:
+               pairs: dict, groups: tuple[str, ...] = ()
+               ) -> tuple[dict, dict]:
     """`name` at full width, 640 px, bf16: synthetic uint8 batches (numpy
     seeds 0...), one warm-up Trainer step, then `steps` through
     Trainer.train_one_epoch, the train kernels' launches held to `pairs`
@@ -674,7 +705,8 @@ def train_full(dev, tmp: Path, name: str, steps: int, batch_sizes,
     `batch_sizes` whose warm-up step fits is used. Every BN buffer and
     95% of the parameters and EMA tensors must change, and of each
     group of parameters named by a prefix in `groups` every bias (the
-    tensors only a gradient moves). Returns the launch counts."""
+    tensors only a gradient moves). Returns the launch counts and
+    `counted_epoch`'s ms/step, images/s and peak memory."""
     for batch in batch_sizes:
         model = YOLO.from_yaml(ROOT / "configs" / "models" / f"{name}.yaml")
         batches = [make_eval_batch(batch, SIZE, seed)
@@ -705,24 +737,7 @@ def train_full(dev, tmp: Path, name: str, steps: int, batch_sizes,
     warm = time.perf_counter() - t0
     print(f"  warm-up step {warm * 1e3:.1f} ms, loss {float(loss):.4f}")
 
-    stem.raw_launches = stem.wgrad_launches = 0
-    adown.raw_launches = adown.bwd_launches = 0
-    t0 = time.perf_counter()
-    items = trainer.train_one_epoch(0)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = {"stem_raw": stem.raw_launches,
-              "stem_wgrad": stem.wgrad_launches,
-              "adown_raw": adown.raw_launches, "adown_bwd": adown.bwd_launches}
-    print(f"  launches {counts} over {steps} steps")
-    want = {"stem_raw": pairs["stem"] * steps,
-            "stem_wgrad": pairs["stem"] * steps,
-            "adown_raw": pairs["adown"] * steps,
-            "adown_bwd": pairs["adown"] * steps}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
-    if not np.isfinite(items).all():
-        raise AssertionError(f"{name} train: loss items {items}")
+    items, counts, perf = counted_epoch(trainer, name, steps, batch, pairs)
     changed = {
         "params": sum(not torch.equal(v, trainer.params[k])
                       for k, v in before["params"].items()),
@@ -757,11 +772,42 @@ def train_full(dev, tmp: Path, name: str, steps: int, batch_sizes,
               f"gradient: {idle}")
         if not names or idle:
             raise AssertionError(f"{name} train: {prefix}* did not change")
-    ms = dt / steps * 1e3
-    print(f"  {ms:.1f} ms/step, {batch * steps / dt:.1f} images/s "
-          f"(bf16, batch {batch}, {SIZE} px, {steps} steps); peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return counts
+    return counts, perf
+
+
+def counted_epoch(trainer: Trainer, name: str, steps: int, batch: int,
+                  pairs: dict) -> tuple[np.ndarray, dict, dict]:
+    """One Trainer.train_one_epoch of `steps` steps, the train kernels'
+    launch counters set to 0 just before and read just after, held to
+    `pairs` (stem and ADown kernel pairs) a step, with finite mean loss
+    items. Returns (items, counts, {ms_per_step, images_per_s, peak_gib})
+    and prints them (the host clock over the epoch; the peak since the
+    caller's reset)."""
+    stem.raw_launches = stem.wgrad_launches = 0
+    adown.raw_launches = adown.bwd_launches = 0
+    t0 = time.perf_counter()
+    items = trainer.train_one_epoch(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"stem_raw": stem.raw_launches,
+              "stem_wgrad": stem.wgrad_launches,
+              "adown_raw": adown.raw_launches, "adown_bwd": adown.bwd_launches}
+    print(f"  launches {counts} over {steps} steps")
+    want = {"stem_raw": pairs["stem"] * steps,
+            "stem_wgrad": pairs["stem"] * steps,
+            "adown_raw": pairs["adown"] * steps,
+            "adown_bwd": pairs["adown"] * steps}
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    if not np.isfinite(items).all():
+        raise AssertionError(f"{name} train: loss items {items}")
+    perf = {"ms_per_step": dt / steps * 1e3,
+            "images_per_s": batch * steps / dt,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"  {perf['ms_per_step']:.1f} ms/step, {perf['images_per_s']:.1f} "
+          f"images/s ({trainer.config.compute_dtype}, batch {batch}, {SIZE} "
+          f"px, {steps} steps); peak memory {perf['peak_gib']:.2f} GiB")
+    return items, counts, perf
 
 
 def phase_tiny_fixture(dev, tmp: Path) -> None:
@@ -1006,7 +1052,7 @@ def phase_yolov9c(dev, tmp: Path, defaults: tuple[bool, bool]) -> dict:
     counts["eval"] = eval_launches(dev, tmp, model, main_sites, "yolov9-c")
     del model
     print("  (d) training")
-    counts["train"] = train_full(
+    counts["train"], _ = train_full(
         dev, tmp, "yolov9-c", V9C_TRAIN_STEPS, (BATCH, BATCH // 2),
         {"stem": 2, "adown": 8},
         ("layers.cb_route", "layers.aux_", "layers.detect.aux_"))
@@ -1016,12 +1062,134 @@ def phase_yolov9c(dev, tmp: Path, defaults: tuple[bool, bool]) -> dict:
     return counts
 
 
+def augment_stages(fn, card: tuple, host: tuple, out: tuple,
+                   kw: dict) -> list[tuple[str, tuple, tuple]]:
+    """(stage, card's output, CPU's output) of each stage of `fn` on
+    identical inputs: augment_batch as a whole; augment_batch_full as its
+    mosaic (the card's and the CPU's from the same inputs), then the rest
+    (mixup, compaction, HSV, flips: the card's whole output against the
+    CPU's rest on the card's mosaic). HSV does not keep a one-ulp input
+    difference within one ulp of its output (a pixel's channels feed each
+    other through v and s), so a difference the general warp leaves is
+    held where it arises, not downstream."""
+    if fn is device_pipeline.augment_batch:
+        return [("whole", out, fn(*host, **kw))]
+    mos = {k: kw[k] for k in ("degrees", "shear", "perspective", "mosaic_p")}
+    card_mos = device_pipeline.mosaic_affine(*card, **mos)
+    ref_mos = device_pipeline.mosaic_affine(*host, **mos)
+    rest = fn(card_mos[0].cpu(), card_mos[1].cpu(), host[2],
+              **{**kw, "mosaic_p": 0.0}, max_out=host[1].shape[1])
+    return [("mosaic", card_mos, ref_mos), ("rest", out, rest)]
+
+
+def check_augment(name: str, got: tuple, ref: tuple, atol: float,
+                  dtype: torch.dtype) -> None:
+    """Images within atol (plus one bf16 ulp of |ref| in bf16), the same
+    boxes kept, targets within atol; raises otherwise."""
+    img, tgt = got[0].cpu(), got[1].cpu()
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    diff = (img.float() - ref[0].float()).abs()
+    excess = float((diff - atol - rtol * ref[0].float().abs()).max())
+    kept, ref_kept = tgt[..., 3] > 0, ref[1][..., 3] > 0
+    t_err = float((tgt - ref[1]).abs().max())
+    ok = (excess <= 0 and torch.equal(kept, ref_kept) and t_err <= atol
+          and img.dtype == dtype and bool(torch.isfinite(img).all()))
+    print(f"      {name}: images max |err| {float(diff.max()):.3e} "
+          f"(tolerance {atol:g} + {rtol:g} |ref|), {int(ref_kept.sum())} "
+          f"boxes kept (equal {torch.equal(kept, ref_kept)}), targets max "
+          f"|err| {t_err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"augmentation {name}: the card disagrees "
+                             f"with the CPU")
+
+
+def phase_augment(dev) -> None:
+    """Phase 11 (a): each augmentation case on the card against the CPU
+    from the same draws, in bf16 and f32 (the module docstring)."""
+    batch = make_eval_batch(BATCH, SIZE, 0, max_boxes=AUG_MAX_BOXES)
+    preset = AugmentConfig()                     # "full"
+    full = {k: getattr(preset, f)
+            for k, f in device_pipeline.FULL_FIELDS.items()}
+    cases = {
+        "full fast": (device_pipeline.augment_batch_full, full),
+        "full general": (device_pipeline.augment_batch_full,
+                         {**full, **AUG_GENERAL}),
+        "batch": (device_pipeline.augment_batch,
+                  {k: full[k] for k in device_pipeline.BATCH_FIELDS})}
+    cpu = torch.device("cpu")
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (fn, hyps) in cases.items():
+            draws = device_pipeline.draw_augment(
+                np.random.default_rng([1, 0]), BATCH, SIZE, **hyps)
+            kw = {k: v for k, v in hyps.items()
+                  if k not in device_pipeline.DRAW_ONLY}
+            card, host = (
+                (torch.from_numpy(batch["images"]).to(d).to(dtype) / 255.0,
+                 torch.from_numpy(batch["targets"]).to(d),
+                 device_pipeline.draws_to(draws, d)) for d in (dev, cpu))
+            out = fn(*card, **kw)
+            ms = cuda_ms(lambda: fn(*card, **kw))
+            print(f"  (a) {name} {dtype}: {ms:.4f} ms on the card")
+            t0 = time.perf_counter()
+            for stage, got, ref in augment_stages(fn, card, host, out, kw):
+                check_augment(f"{name} {dtype} {stage}", got, ref,
+                              AUG_ATOL[name], dtype)
+            print(f"      the CPU's side {time.perf_counter() - t0:.2f} s")
+            del card, host, out
+    torch.cuda.empty_cache()
+
+
+def phase_augment_train(dev, tmp: Path, phase8: dict) -> dict:
+    """Phase 11 (b): gelan-c trained from disk with device_augment="full"
+    in bf16 and f32 (the module docstring). Returns the launch counts per
+    dtype."""
+    train_dir = write_dataset(str(tmp / "aug"), "train",
+                              AUG_TRAIN_BATCHES * BATCH, seed=0)
+    counts = {}
+    for tag, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        data = DataConfig(train_path=train_dir, img_size=SIZE,
+                          batch_size=BATCH, workers=8,
+                          max_boxes=AUG_MAX_BOXES, augment=AugmentConfig())
+        cfg = TrainConfig(epochs=1, compute_dtype=dtype, data_parallel=False,
+                          output_dir=str(tmp / f"aug_{tag}"), log_interval=1,
+                          device_augment="full")
+        trainer = Trainer(
+            YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml"),
+            data=data, config=cfg, device=dev)
+        if tag == "bf16":
+            t0 = time.perf_counter()
+            n = sum(len(b["images"]) for b in trainer.train_loader)
+            print(f"  (b) the loader alone (uint8, {SIZE} px letterbox): "
+                  f"{n / (time.perf_counter() - t0):.1f} images/s")
+        warm = make_eval_batch(BATCH, SIZE, 0, max_boxes=AUG_MAX_BOXES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _, _ = trainer.train_step(warm["images"], warm["targets"])
+        torch.cuda.synchronize()
+        print(f"  (b) gelan-c {tag}, device_augment='full', "
+              f"{len(trainer.train_loader)} on-disk batches of {BATCH}: "
+              f"warm-up step "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, loss "
+              f"{float(loss):.4f}")
+        _, counts[tag], _ = counted_epoch(
+            trainer, f"gelan-c {tag} augmented", AUG_TRAIN_BATCHES, BATCH,
+            {"stem": 1, "adown": 5})
+        print(f"  phase 8 (bf16, synthetic batches, no augmentation): "
+              f"{phase8['ms_per_step']:.1f} ms/step, "
+              f"{phase8['images_per_s']:.1f} images/s, peak memory "
+              f"{phase8['peak_gib']:.2f} GiB")
+        del trainer
+        torch.cuda.empty_cache()
+    return counts
+
+
 def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
-                 v9c: dict) -> list[dict]:
+                 v9c: dict, aug: dict) -> list[dict]:
     """The kernels JSON line's entries from phases 3 and 6's numbers and
-    the launch counts of phases 5 and 8 (`launches`, gelan-c) and of phase
-    10 (`launches_yolov9_c`: serving, eval and train); prints each dtype's
-    fractions of the bound."""
+    the launch counts of phases 5 and 8 (`launches`, gelan-c), of phase
+    10 (`launches_yolov9_c`: serving, eval and train) and of phase 11 (b)
+    (`launches_device_augment`, per dtype); prints each dtype's fractions
+    of the bound."""
     # (name, source, TPU kernel, launches, {dtype: numbers}); NMS runs in
     # f32 only
     rows = (
@@ -1070,6 +1238,8 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
         "source": f"yolo_re_tpu_torch/csrc/{src}",
         "replaces": f"yolo_re_tpu/ops/pallas/{tpu}", "launches": launches,
         "launches_yolov9_c": v9c_launches(name),
+        "launches_device_augment": {
+            tag: aug[tag].get(v9c_key[name], 0) for tag in aug},
         **numbers(r["bf16"]), "f32": numbers(r["f32"])}
         for name, src, tpu, launches, r in rows]
 
@@ -1170,8 +1340,8 @@ def main() -> int:
         with tf32_flags(defaults):
             phase_tiny_train(dev, Path(td))
         print("phase 8: gelan-c training")
-        tcounts = train_full(dev, Path(td), "gelan-c", TRAIN_STEPS, (BATCH,),
-                             {"stem": 1, "adown": 5})
+        tcounts, phase8 = train_full(dev, Path(td), "gelan-c", TRAIN_STEPS,
+                                     (BATCH,), {"stem": 1, "adown": 5})
 
     with tempfile.TemporaryDirectory() as td:
         print("phase 9: eval")
@@ -1182,7 +1352,12 @@ def main() -> int:
         print("phase 10: yolov9-c")
         v9c = phase_yolov9c(dev, Path(td), defaults)
 
-    kernels = kernels_line(res, tres, counts, tcounts, v9c)
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 11: device augmentation")
+        phase_augment(dev)
+        aug = phase_augment_train(dev, Path(td), phase8)
+
+    kernels = kernels_line(res, tres, counts, tcounts, v9c, aug)
     print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "
           f"the serving, eval and train shapes, library calls with TF32 "
           f"off; adown kernels are the sum of gelan-c's five ADown shapes "
@@ -1206,7 +1381,8 @@ def main() -> int:
           f"launches from phase 8's counted steps; phase 9 eval launches "
           f"{ecounts}; launches_yolov9_c: phase 10's {REQUESTS} requests, "
           f"{EVAL_IMAGES // BATCH} eval batches and {V9C_TRAIN_STEPS} "
-          f"counted train steps)")
+          f"counted train steps; launches_device_augment: phase 11 (b)'s "
+          f"{AUG_TRAIN_BATCHES} counted steps per dtype)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ jax):
 chip_smoke.py makes the same comparisons at the main path's full shapes.
 """
 
+import json
 import time
 from pathlib import Path
 
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 from yolo_re_tpu_torch.convert import load_weights
-from yolo_re_tpu_torch.data.config import DataConfig
+from yolo_re_tpu_torch.data import device_pipeline
+from yolo_re_tpu_torch.data.config import AugmentConfig, DataConfig
 from yolo_re_tpu_torch.data.dataset import create_dataloader
 from yolo_re_tpu_torch.data.synth import TINY_DUAL_YAML, TINY_YAML, \
     make_eval_batch, write_dataset
@@ -1014,3 +1016,153 @@ def test_bf16_kernels_within_one_ulp(cuda, kernel, shape, c, raw, capsys):
     torch.testing.assert_close(y.float(), ref.float(),
                                atol=ATOL[torch.bfloat16],
                                rtol=RTOL[torch.bfloat16])
+
+
+# ---------------------------------------------------------------------------
+# the train input path: device augmentation and the one-batch-ahead copy
+# ---------------------------------------------------------------------------
+
+# (function, hyperparameters beyond the "full" preset's): the fast
+# (separable) mosaic, the general (gather) warp, HSV + flips; mixup and
+# vertical flips at 0.5 so that both branches of their masks run
+AUG_CASES = {
+    "full_fast": ("full", {}),
+    "full_general": ("full", {"degrees": 10.0, "shear": 2.0,
+                              "perspective": 1e-4}),
+    "batch": ("batch", {})}
+# tests/test_torch_augment.py's tolerances (bf16 also RTOL: one ulp)
+AUG_ATOL = {"full_fast": 1e-6, "full_general": 1e-4, "batch": 1e-6}
+
+
+def _augment(case: str, images, targets, draws):
+    fn, extra = AUG_CASES[case]
+    kw = {"mixup_p": 0.5, "flip_ud": 0.5, **extra}
+    if fn == "full":
+        return device_pipeline.augment_batch_full(images, targets, draws,
+                                                  **kw)
+    return device_pipeline.augment_batch(images, targets, draws,
+                                         flip_ud=kw["flip_ud"])
+
+
+def _aug_close(got, ref, atol: float, dtype) -> None:
+    img, t = (v.cpu() for v in got)
+    assert img.dtype == dtype
+    torch.testing.assert_close(img.float(), ref[0].float(), atol=atol,
+                               rtol=RTOL[dtype])
+    assert torch.equal(t[..., 3] > 0, ref[1][..., 3] > 0)
+    assert int((t[..., 3] > 0).sum()) > 8
+    torch.testing.assert_close(t, ref[1], atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(AUG_CASES))
+def test_augment_cuda_matches_cpu(cuda, case, dtype):
+    """The same draws (draw_augment, numpy seed) applied on the card and on
+    the CPU to uint8 images normalized in `dtype`, stage by stage on
+    identical inputs (chip_smoke.py's `augment_stages`): augment_batch
+    whole; augment_batch_full's mosaic, then its rest on the card's
+    mosaic (HSV does not keep a one-ulp difference left by the general
+    warp within one ulp). Images within the CPU tests' tolerances, the
+    same boxes kept, targets close."""
+    batch = make_eval_batch(8, 96, 3, max_boxes=12)
+    kw = {"mixup_p": 0.5, "flip_ud": 0.5, **AUG_CASES[case][1]}
+    draws = device_pipeline.draw_augment(np.random.default_rng([1, 5]), 8,
+                                         96, **kw)
+    card, host = (
+        (torch.from_numpy(batch["images"]).to(dev).to(dtype) / 255.0,
+         torch.from_numpy(batch["targets"]).to(dev),
+         device_pipeline.draws_to(draws, dev))
+        for dev in (cuda, torch.device("cpu")))
+    out = _augment(case, *card)
+    assert out[1].shape == (8, 12, 5)
+    if AUG_CASES[case][0] == "batch":
+        _aug_close(out, _augment(case, *host), AUG_ATOL[case], dtype)
+        return
+    mos = {k: kw.get(k, 0.0) for k in ("degrees", "shear", "perspective")}
+    card_mos = device_pipeline.mosaic_affine(*card, **mos)
+    _aug_close(card_mos, device_pipeline.mosaic_affine(*host, **mos),
+               AUG_ATOL[case], dtype)
+    rest = device_pipeline.augment_batch_full(
+        card_mos[0].cpu(), card_mos[1].cpu(), host[2],
+        **{**kw, "mosaic_p": 0.0}, max_out=12)
+    _aug_close(out, rest, AUG_ATOL[case], dtype)
+
+
+def _aug_trainer(path, dev, batches, out) -> Trainer:
+    """A TINY_YAML f32 Trainer from seed 0 with device_augment="full" (the
+    "full" preset's hyperparameters)."""
+    return Trainer(YOLO.from_yaml(path), train_loader=batches,
+                   data=DataConfig(num_classes=4, augment=AugmentConfig()),
+                   config=TrainConfig(data_parallel=False,
+                                      output_dir=str(out)),
+                   device_augment="full", device=dev)
+
+
+def test_prefetched_epoch_cuda_matches_train_steps(cuda, tmp_path):
+    """An augmented TINY_YAML epoch through `_prefetched` (pinned staging,
+    the copy stream, the event) against the same batches through
+    `train_step`, both on the card: mean loss items within 1e-5
+    relative, and the train kernels launched every step."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    batches = [make_eval_batch(4, 96, seed) for seed in range(3)]
+    a = _aug_trainer(path, cuda, batches, tmp_path)
+    b = _aug_trainer(path, cuda, batches, tmp_path)
+    before = stem.raw_launches
+    mean = a.train_one_epoch(0)
+    assert stem.raw_launches == before + 3
+    steps = [b.train_step(x["images"], x["targets"])[1].cpu()
+             for x in batches]
+    np.testing.assert_allclose(mean, (sum(steps) / 3).numpy(), rtol=1e-5)
+    assert np.isfinite(mean).all()
+
+
+def _pinned_copies(events: list[dict]) -> list[dict]:
+    return [e for e in events if e.get("cat") == "gpu_memcpy"
+            and "HtoD" in e.get("name", "") and "Pinned" in e["name"]]
+
+
+def test_batch_copy_runs_off_the_compute_stream(cuda, tmp_path):
+    """A traced augmented epoch: the batches' images are copied from pinned
+    memory ("Pinned -> Device"), and every copy from pinned memory runs on
+    a stream on which none of the package's kernels runs. The epoch runs
+    50 ms inside the trace, and the trace is taken again (up to three
+    times) while it holds no copy of a batch's images or no kernel: the
+    profiler drops some device activity late in a long process (F4; in
+    one run of this file it kept 4 of an epoch's 6 copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    batches = [make_eval_batch(4, 96, seed) for seed in range(3)]
+    tr = _aug_trainer(path, cuda, batches, tmp_path)
+    image_bytes = batches[0]["images"].nbytes
+
+    def stream(e: dict):
+        return e.get("args", {}).get("stream", e.get("tid"))
+
+    tr.train_one_epoch(0)
+    torch.cuda.synchronize()
+    for traces in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            tr.train_one_epoch(0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        trace = tmp_path / f"trace{traces}.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+        copies = _pinned_copies(events)
+        kernels = {stream(e) for e in events if e.get("cat") == "kernel"
+                   and "yolo" in e.get("name", "")}
+        if kernels and any(e["args"].get("bytes") == image_bytes
+                           for e in copies):
+            break
+    seen = sorted({(e.get("cat"), e.get("name", "")[:40]) for e in events
+                   if e.get("cat") in ("gpu_memcpy", "gpu_memset")})
+    assert any(e["args"].get("bytes") == image_bytes for e in copies), (
+        traces, seen)
+    assert kernels, f"no yolo kernel in {traces} trace(s)"
+    assert not {stream(e) for e in copies} & kernels, (
+        {stream(e) for e in copies}, kernels)

@@ -376,12 +376,20 @@ def test_profile_launches_needs_a_card(monkeypatch, capsys):
     for argv in ([], ["train"], ["train", "f32"], ["eval"], ["eval", "bf16"],
                  ["roof"], ["other"], ["train", "yolov9-c"],
                  ["eval", "bf16", "yolov9-c"], ["train", "f32", "gelan-c"],
-                 ["train", "nomodel"], ["eval", "f32"], ["roof", "yolov9-c"]):
+                 ["train", "nomodel"], ["eval", "f32"], ["roof", "yolov9-c"],
+                 ["train", "aug"], ["train", "f32", "aug", "gelan-c"],
+                 ["augment"], ["augment", "f32"]):
         assert profile_launches.main(argv) == 2
     assert profile_launches.parse(["train", "f32", "yolov9-c"]) == \
-        ("train", "f32", "yolov9-c")
-    assert profile_launches.parse(["eval"]) == ("eval", "", "gelan-c")
+        ("train", "f32", False, "yolov9-c")
+    assert profile_launches.parse(["train", "f32", "aug"]) == \
+        ("train", "f32", True, "gelan-c")
+    assert profile_launches.parse(["eval"]) == ("eval", "", False, "gelan-c")
+    assert profile_launches.parse(["augment", "f32"]) == \
+        ("augment", "f32", False, "")
     for bad in (["train", "nomodel"], ["eval", "f32"], ["roof", "x"],
-                ["eval", "bf16", "yolov9-c", "x"]):
+                ["eval", "bf16", "yolov9-c", "x"], ["eval", "aug"],
+                ["train", "aug", "f32"], ["augment", "gelan-c"],
+                ["augment", "bf16"]):
         assert profile_launches.parse(bad) is None
     assert "ms" not in capsys.readouterr().out

@@ -632,8 +632,8 @@ def test_jax_checkpoint_resumes_in_port(trained_pair, tiny_yaml):
 def test_trainer_refuses_what_is_not_ported(tiny_yaml):
     model = YOLO.from_yaml(tiny_yaml)
     cfg = {"data_parallel": False}
-    for kw in ({"optimizer": object()}, {"device_augment": True},
-               {"remat": True}, {"checkpoint_format": "orbax"}):
+    for kw in ({"optimizer": object()}, {"remat": True},
+               {"checkpoint_format": "orbax"}):
         with pytest.raises(NotImplementedError, match="slice"):
             Trainer(model, config=TrainConfig(**cfg), train_loader=[None],
                     device="cpu", **kw)

@@ -1,8 +1,10 @@
 """Device time of each launch inside one call of a train kernel's wrapper,
-and of one train step or eval batch of gelan-c or yolov9-c.
+of one train step or eval batch of gelan-c or yolov9-c, and of the device
+augmentation.
 
     python -m yolo_re_tpu_torch.cli.profile_launches \
-        [kernels|train [f32] [MODEL]|eval [bf16] [MODEL]|roof]
+        [kernels|train [f32] [aug] [MODEL]|eval [bf16] [MODEL]|
+         augment [f32]|roof]
 
 MODEL names a file of configs/models/ (`gelan-c`, the default, or
 `yolov9-c`, whose train step runs both branches and the dual loss and
@@ -34,7 +36,12 @@ batch 32 (f32: 16 if 32 does not fit in the card's memory; the batch used
 is printed), 640 px, random weights and synthetic batches (as
 chip_smoke.py's phase 8): after a warm-up step, the host clock over five
 steps, then the device time per step over five traced steps (after three
-more), in all and by kernel (the largest first).
+more), in all and by kernel (the largest first); and, from a chrome
+trace of three steps, the streams on which the batches' copies from
+pinned memory ran and those of the package's kernels
+(`Trainer._put_batch` copies on a stream of its own). `train ... aug`: the same with
+device_augment="full" (the "full" preset's hyperparameters: the
+separable mosaic, mixup, HSV and flips run in each step; max_boxes 32).
 
 `eval`: gelan-c (or MODEL), fused, f32 (the Evaluator's default dtype;
 `eval bf16`:
@@ -46,6 +53,10 @@ handed over as the loader hands a batch (on the host), through
 NMS and the copy of the padded detections back. It prints the device
 time per batch of the 15 largest kernels, of the package's own kernels
 and of all, and the NMS kernel's time and share of all.
+
+`augment`: the device time by kernel of one call of augment_batch_full
+(fast and general path) and of augment_batch at gelan-c's train shape,
+bf16 (`augment f32`: f32), as chip_smoke.py's phase 11 (a) calls them.
 
 `roof`: the memory rate the card reaches on the stem's output at 640 px,
 batch 32 ((32, 64, 320, 320), bf16 and f32): `fill_` (writes only) and
@@ -243,11 +254,82 @@ def random_model(name: str):
     return model
 
 
-def train_step(dtype: str, name: str) -> None:
+def copy_streams(fn) -> tuple[int, float, set, set]:
+    """(copies, their device time in ms, their streams, the streams of the
+    package's kernels) of the host-to-device copies from pinned memory in
+    a chrome trace of fn(). fn runs 50 ms inside the trace (the profiler drops device
+    activity it dates outside its window, and a copy is the first thing
+    a step enqueues), and the trace is taken again, up to three times,
+    when it holds no such copy."""
+    import json
+    import tempfile
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def stream(e: dict):
+        return e.get("args", {}).get("stream", e.get("tid"))
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        with tempfile.TemporaryDirectory() as td:
+            path = Path(td) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+                  and "HtoD" in e.get("name", "") and "Pinned" in e["name"]]
+        if copies:
+            break
+    kernels = {stream(e) for e in events
+               if e.get("cat") == "kernel" and "yolo" in e.get("name", "")}
+    ms = sum(e.get("dur", 0) for e in copies) / 1e3
+    return len(copies), ms, {stream(e) for e in copies}, kernels
+
+
+def augment_calls(dtype: str) -> None:
+    """Device time by kernel of augment_batch_full (the "full" preset's
+    fast path, and the general path at degrees 10, shear 2, perspective
+    1e-4) and of augment_batch, at gelan-c's train shape (32, 640, 640, 3)
+    in `dtype`, 32 target rows (chip_smoke.py's phase 11 (a) inputs)."""
+    import numpy as np
+
+    from yolo_re_tpu_torch.data import device_pipeline as dp
+    from yolo_re_tpu_torch.data.config import AugmentConfig
+    from yolo_re_tpu_torch.data.synth import make_eval_batch
+
+    batch = make_eval_batch(BATCH, 640, 0, max_boxes=32)
+    x = torch.from_numpy(batch["images"]).cuda().to(getattr(torch, dtype))
+    x = x / 255.0
+    t = torch.from_numpy(batch["targets"]).cuda()
+    preset = AugmentConfig()
+    full = {k: getattr(preset, f) for k, f in dp.FULL_FIELDS.items()}
+    general = {"degrees": 10.0, "shear": 2.0, "perspective": 1e-4}
+    for name, fn, hyps in (
+            ("augment_batch_full, fast path", dp.augment_batch_full, full),
+            ("augment_batch_full, general path", dp.augment_batch_full,
+             {**full, **general}),
+            ("augment_batch", dp.augment_batch,
+             {k: full[k] for k in dp.BATCH_FIELDS})):
+        draws = dp.draws_to(dp.draw_augment(np.random.default_rng([1, 0]),
+                                            BATCH, 640, **hyps), "cuda")
+        kw = {k: v for k, v in hyps.items() if k not in dp.DRAW_ONLY}
+        rows = launch_times(lambda: fn(x, t, draws, **kw))
+        report(f"{name}, {dtype}, ({BATCH}, 640, 640, 3): device time by "
+               f"kernel (largest 12 of {len(rows)})", rows[:12])
+        print(f"  all kernels {sum(r[0] for r in rows):.4f} ms per call")
+
+
+def train_step(dtype: str, name: str, aug: bool = False) -> None:
     import gc
     import tempfile
     import time
 
+    from yolo_re_tpu_torch.data.config import AugmentConfig, DataConfig
     from yolo_re_tpu_torch.data.synth import make_eval_batch
     from yolo_re_tpu_torch.models.yolo import YOLO
     from yolo_re_tpu_torch.train.config import TrainConfig
@@ -257,12 +339,16 @@ def train_step(dtype: str, name: str) -> None:
     # not fit
     for batch in (BATCH, BATCH // 2) if dtype == "float32" else (BATCH,):
         model = YOLO.from_yaml(CONFIGS / f"{name}.yaml")
-        batches = [make_eval_batch(batch, 640, seed) for seed in range(4)]
+        batches = [make_eval_batch(batch, 640, seed,
+                                   max_boxes=32 if aug else 8)
+                   for seed in range(4)]
         cfg = TrainConfig(epochs=1, compute_dtype=dtype,
                           data_parallel=False,
+                          device_augment="full" if aug else False,
                           output_dir=tempfile.mkdtemp(prefix="profile_"))
-        trainer = Trainer(model, config=cfg, train_loader=batches,
-                          device="cuda")
+        data = DataConfig(augment=AugmentConfig()) if aug else None
+        trainer = Trainer(model, data=data, config=cfg,
+                          train_loader=batches, device="cuda")
 
         def step(i: int) -> None:
             b = batches[i % len(batches)]
@@ -284,12 +370,21 @@ def train_step(dtype: str, name: str) -> None:
     for i in range(5):
         step(i)
     torch.cuda.synchronize()
-    print(f"{name} {dtype} train step, batch {batch}, 640 px: host clock "
-          f"{(time.perf_counter() - t0) / 5 * 1e3:.1f} ms per step over 5")
+    what = f"{name} {dtype} train step{' (device_augment=full)' * aug}"
+    print(f"{what}, batch {batch}, 640 px: host clock "
+          f"{(time.perf_counter() - t0) / 5 * 1e3:.1f} ms per step over 5; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     rows = launch_times(lambda: step(1))
     report("device time per step, by kernel (largest 15 of "
            f"{len(rows)})", rows[:15])
     print(f"  all kernels {sum(r[0] for r in rows):.4f} ms per step")
+    n, ms, copies, kernels = copy_streams(
+        lambda: [step(i) for i in range(3)])
+    print(f"  batch copies from pinned memory over 3 steps: {n}, {ms:.4f} "
+          f"ms in all, on stream(s) "
+          f"{sorted(copies)}; the package's kernels on stream(s) "
+          f"{sorted(kernels)}; the copies off the compute stream: "
+          f"{bool(n) and not copies & kernels}")
 
 
 def eval_batch(dtype: str, name: str) -> None:
@@ -337,28 +432,36 @@ def memory_roof() -> None:
         del y, src
 
 
-def parse(what: list[str]) -> tuple[str, str, str] | None:
-    """argv -> (mode, dtype word or "", model name), None if malformed."""
+def parse(what: list[str]) -> tuple[str, str, bool, str] | None:
+    """argv -> (mode, dtype word or "", aug, model name), None if
+    malformed."""
     if what in (["kernels"], ["roof"]):
-        return what[0], "", ""
-    flag = {"train": "f32", "eval": "bf16"}.get(what[0])
-    if flag is None or len(what) > 3:
+        return what[0], "", False, ""
+    flag = {"train": "f32", "eval": "bf16", "augment": "f32"}.get(what[0])
+    if flag is None:
         return None
+    if what[0] == "augment":
+        if what[1:] not in ([], [flag]):
+            return None
+        return "augment", "".join(what[1:]), False, ""
     rest = what[1:]
     dtype = rest.pop(0) if rest[:1] == [flag] else ""
+    aug = what[0] == "train" and rest[:1] == ["aug"]
+    if aug:
+        rest.pop(0)
     name = rest.pop(0) if rest else "gelan-c"
     if rest or not (CONFIGS / f"{name}.yaml").is_file():
         return None
-    return what[0], dtype, name
+    return what[0], dtype, aug, name
 
 
 def main(argv: list[str] | None = None) -> int:
     parsed = parse((sys.argv[1:] if argv is None else argv) or ["kernels"])
     if parsed is None:
-        print("usage: profile_launches [kernels|train [f32] [MODEL]|"
-              "eval [bf16] [MODEL]|roof]", file=sys.stderr)
+        print("usage: profile_launches [kernels|train [f32] [aug] [MODEL]|"
+              "eval [bf16] [MODEL]|augment [f32]|roof]", file=sys.stderr)
         return 2
-    what, dtype, name = parsed
+    what, dtype, aug, name = parsed
     if not torch.cuda.is_available():
         print("profile_launches: no CUDA device", file=sys.stderr)
         return 2
@@ -367,10 +470,13 @@ def main(argv: list[str] | None = None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
     if what == "train":
-        train_step("float32" if dtype else "bfloat16", name)
+        train_step("float32" if dtype else "bfloat16", name, aug)
         return 0
     if what == "eval":
         eval_batch("bfloat16" if dtype else "float32", name)
+        return 0
+    if what == "augment":
+        augment_calls("float32" if dtype else "bfloat16")
         return 0
     if what == "roof":
         memory_roof()

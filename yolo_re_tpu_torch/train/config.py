@@ -3,8 +3,8 @@
 A framework-free copy of yolo_re_tpu/train/config.py (this package never
 imports the JAX one); tests/test_torch_train.py pins the two equal. The
 port's Trainer takes every field; the ones whose paths are not ported yet
-(data_parallel over several cards, device_augment, remat, orbax
-checkpoints) raise NotImplementedError there instead of being ignored.
+(data_parallel over several cards, remat, orbax checkpoints) raise
+NotImplementedError there instead of being ignored.
 
 The JAX package's deltas from the reference: `device`/`amp` are replaced by `compute_dtype` (bf16 needs no
 GradScaler on TPU — SURVEY §2.1) and `data_parallel` (shard the batch over

@@ -15,15 +15,22 @@ dtype; the parameters, gradients, optimizer buffers and EMA stay f32.
 Batches come from `train_loader`: any iterable (with `len`) of
 {"images": (B, H, W, 3) uint8 or float NHWC, "targets": (B, M, 5)} batches,
 numpy or torch, the JAX Trainer's batch format; or `data=` (a DataConfig)
-builds the train and val loaders from disk (data/dataset.py). `validate()`
-runs the Evaluator (eval/evaluator.py) on the EMA weights, and `train()`
-keeps the best map50 in output_dir/best.npz. What waits for later slices
-raises NotImplementedError naming the slice: device augmentation, injected
-optimizers, multi-card data parallelism, remat and orbax checkpoints.
+builds the train and val loaders from disk (data/dataset.py). An epoch
+reads them one batch ahead (`_prefetched`): on a card, batch n + 1 is
+staged in pinned memory and copied on a copy stream while batch n
+computes. uint8 images are normalized on the device, then, with
+`device_augment` (True: HSV + flips; "full": also mosaic, the
+random_perspective warp and mixup; data/device_pipeline.py) augmented
+there. `validate()` runs the Evaluator (eval/evaluator.py) on the EMA
+weights, and `train()` keeps the best map50 in output_dir/best.npz. What
+waits for later slices raises NotImplementedError naming the slice:
+injected optimizers, multi-card data parallelism, remat and orbax
+checkpoints.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import time
@@ -35,6 +42,15 @@ import torch
 
 from yolo_re_tpu_torch.convert import jax_from_state_dict, state_dict_from_jax
 from yolo_re_tpu_torch.data.dataset import create_dataloader
+from yolo_re_tpu_torch.data.device_pipeline import (
+    BATCH_FIELDS,
+    DRAW_ONLY,
+    FULL_FIELDS,
+    augment_batch,
+    augment_batch_full,
+    draw_augment,
+    draws_to,
+)
 from yolo_re_tpu_torch.eval.evaluator import Evaluator
 from yolo_re_tpu_torch.loss.tal import LossConfig, TALoss
 from yolo_re_tpu_torch.models.yolo import YOLO
@@ -99,8 +115,6 @@ class Trainer:
                 raise TypeError(f"Unknown TrainConfig field {k!r}")
             setattr(self.config, k, v)
         cfg = self.config
-        if cfg.device_augment:
-            raise _not_ported("device_augment", "device augmentation")
         if optimizer is not None:
             raise _not_ported("an injected optimizer", "train tooling")
         if cfg.remat:
@@ -115,6 +129,7 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda'): no CUDA device")
+        data = self._setup_device_augment(data)
         if train_loader is None:
             if data is None or not data.train_path:
                 raise ValueError(
@@ -136,6 +151,9 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self._evaluator: Evaluator | None = None
+        # the one-batch-ahead copies' stream (`_put_batch`)
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
 
         # -- state ----------------------------------------------------------
         if params is None or stats is None:
@@ -161,26 +179,101 @@ class Trainer:
         self.start_epoch = 0
         self.best_fitness = 0.0
 
+    # -- device augmentation ---------------------------------------------
+
+    def _setup_device_augment(self, data):
+        """yolo_re_tpu/train/trainer.py:112-143: take the augmentation
+        hyperparameters from `data.augment` into `self._device_aug`, and
+        return a copy of `data` whose host loader skips those stages and
+        emits uint8 (normalized on the device). Without `data` there are no
+        hyperparameters: nothing is augmented, as in the JAX Trainer."""
+        mode = self.config.device_augment
+        self._device_aug: dict[str, float] | None = None
+        self._device_aug_full = mode == "full"
+        if not mode:
+            return data
+        if data is None:
+            log.warning("device_augment=%r has no effect without data=: the "
+                        "augmentation hyperparameters come from "
+                        "data.augment", mode)
+            return data
+        fields = FULL_FIELDS if self._device_aug_full else BATCH_FIELDS
+        self._device_aug = {k: getattr(data.augment, f)
+                            for k, f in fields.items()}
+        data = copy.deepcopy(data)
+        for f in fields.values():
+            setattr(data.augment, f, 0.0)
+        data.uint8_images = True
+        return data
+
+    def _aug_draws(self, step: int, batch: int,
+                   size: int) -> dict[str, np.ndarray]:
+        """The augmentation draws of `step`: a function of (seed, step)
+        alone, as the JAX Trainer's fold_in(key(seed + 1), step), so a
+        resumed run draws what an unbroken one drew, on any device."""
+        rng = np.random.default_rng([self.config.seed + 1, step])
+        return draw_augment(rng, batch, size, **self._device_aug)
+
+    def _augment(self, x: torch.Tensor,
+                 t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Device augmentation of NHWC images in the compute dtype and f32
+        targets (the JAX step's `_step_body`, trainer.py:294-308)."""
+        draws = draws_to(self._aug_draws(self.global_step, x.shape[0],
+                                         x.shape[1]), self.device)
+        fn = augment_batch_full if self._device_aug_full else augment_batch
+        hyps = {k: v for k, v in self._device_aug.items()
+                if k not in DRAW_ONLY}
+        return fn(x, t, draws, **hyps)
+
     # -- one step ------------------------------------------------------------
 
-    def _batch(self, images, targets) -> tuple[torch.Tensor, torch.Tensor]:
-        """Host batch -> (NCHW images in the compute dtype, channels_last
-        memory; targets f32) on the device. uint8 images are normalized
-        on the device, as the JAX step does."""
-        x = torch.as_tensor(images).to(self.device, non_blocking=True)
-        x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \
-            else x.to(self.dtype)
-        t = torch.as_tensor(targets, dtype=torch.float32).to(self.device)
-        return x.permute(0, 3, 1, 2), t
+    def _put_batch(self, images, targets):
+        """Host batch -> (images as given, uint8 or float NHWC; targets f32)
+        on the device, and the event the compute stream waits on before it
+        reads them (None on the CPU, where this is a plain `as_tensor`, and
+        for tensors already on a device, which are moved as they are).
+        On a card a host batch is staged in pinned memory (PyTorch's caching
+        host allocator) and copied without blocking on the copy stream, so
+        that, called a batch ahead (`_prefetched`), the copy of batch n + 1
+        overlaps batch n's compute; `record_stream` keeps the allocator
+        from reusing the device tensors before the compute stream is done
+        with them (yolo_re_tpu/train/trainer.py:328-351)."""
+        x = torch.as_tensor(images)
+        t = torch.as_tensor(targets, dtype=torch.float32)
+        if self._copy_stream is None or x.device.type != "cpu":
+            return x.to(self.device), t.to(self.device), None
+        x, t = x.pin_memory(), t.pin_memory()
+        with torch.cuda.stream(self._copy_stream):
+            x = x.to(self.device, non_blocking=True)
+            t = t.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        compute = torch.cuda.current_stream(self.device)
+        x.record_stream(compute)
+        t.record_stream(compute)
+        return x, t, ready
 
-    @full_f32()
     def train_step(self, images, targets):
         """One optimizer step on a host batch. Returns (loss, items (3,),
-        grad norm) as device tensors (no host sync). The forward, the TAL
-        loss and the backward run with TF32 off
-        (`utils.precision.full_f32`)."""
+        grad norm) as device tensors (no host sync)."""
+        return self._step(*self._put_batch(images, targets))
+
+    @full_f32()
+    def _step(self, x: torch.Tensor, t: torch.Tensor,
+              ready: torch.cuda.Event | None = None):
+        """One optimizer step on a batch `_put_batch` put on the device:
+        normalize (uint8: cast to the compute dtype, then / 255, as the JAX
+        step does), augment (NHWC), then the forward on NCHW in
+        channels_last memory. The whole step, augmentation included, runs
+        with TF32 off (`utils.precision.full_f32`)."""
         cfg = self.config
-        x, t = self._batch(images, targets)
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \
+            else x.to(self.dtype)
+        if self._device_aug is not None:
+            x, t = self._augment(x, t)
+        x = x.contiguous().permute(0, 3, 1, 2)
         total, items = self.loss_fn(self.model(x), t)
         names = list(self.params)
         grads = torch.autograd.grad(total, [self.params[k] for k in names])
@@ -197,6 +290,19 @@ class Trainer:
 
     # -- epochs --------------------------------------------------------------
 
+    def _prefetched(self):
+        """The train loader's batches as (images, targets, ready event,
+        host batch) on the device, one batch ahead: batch n + 1 is put
+        before batch n is yielded (yolo_re_tpu/train/trainer.py:353-362)."""
+        pending = None
+        for batch in self.train_loader:
+            cur = (*self._put_batch(batch["images"], batch["targets"]), batch)
+            if pending is not None:
+                yield pending
+            pending = cur
+        if pending is not None:
+            yield pending
+
     def train_one_epoch(self, epoch: int) -> np.ndarray:
         if hasattr(self.train_loader, "set_epoch"):
             self.train_loader.set_epoch(epoch)
@@ -204,8 +310,8 @@ class Trainer:
         t0 = time.perf_counter()
         sum_items = None
         n_batches = n_images = 0
-        for batch in self.train_loader:
-            _, items, _ = self.train_step(batch["images"], batch["targets"])
+        for x, t, ready, batch in self._prefetched():
+            _, items, _ = self._step(x, t, ready)
             sum_items = items if sum_items is None else sum_items + items
             n_batches += 1
             n_images += len(batch["images"])
