@@ -100,7 +100,19 @@ non-zero (no phase is caught):
    in pinned memory and copied a batch ahead on the copy stream,
    normalized and augmented on the card) with the train kernels' launch
    counters held to one stem pair and five ADown pairs per step, a finite
-   loss, and ms/step, images/s and peak memory printed beside phase 8's.
+   loss, and ms/step, images/s and peak memory printed beside phase 8's;
+12. the serving export: phase 5's gelan-c weights in a bf16 Detector
+   (fused, 640 px) written by Detector.export for (32, 720, 1280, 3) uint8
+   frames to a torch.export archive in a temporary directory (its size and
+   the seconds to export), loaded by Detector.load_exported (the seconds
+   to load), then one warm-up request each and four passes of phase 5's
+   REQUESTS requests, live, loaded, loaded, live, then four more with
+   the frames already on the card (the host's enqueue then sets a
+   request's time): the loaded program's launches held to the fused
+   model's kernel sites per request plus one NMS (stem 1, ADown 5, chain
+   2, conv3 6, NMS 1), every request of every pass torch.equal to the
+   first live pass's, and each pass's images/s and request latency
+   printed with the nvidia-smi line.
 
 `bound_ms` in the kernels line is the least time the card could take for
 the work: the larger of the bytes each function must move (inputs read
@@ -118,7 +130,8 @@ numbers at each shape phase 3 or 6 ran under `shapes` (NMS at K = 512 and
 8400, and 8400 in the Evaluator's order, with the cluster size and the
 time a greedy step). The last three lines are the card's nvidia-smi line, a
 JSON line with one entry per kernel (`launches_device_augment`: phase
-11 (b)'s launches per dtype), and {"ok": true, "device": {...}}.
+11 (b)'s launches per dtype; `launches_exported`: phase 12's launches
+from the loaded archive), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1183,13 +1196,91 @@ def phase_augment_train(dev, tmp: Path, phase8: dict) -> dict:
     return counts
 
 
+def phase_export(dev, tmp: Path, model: YOLO, sites: dict) -> dict:
+    """Phase 12: phase 5's bf16 gelan-c Detector exported to a torch.export
+    archive, loaded, and served next to the live Detector on the same
+    frames (live, loaded, loaded, live; then so again with the frames
+    already on the card, where the host's enqueue sets a request's time):
+    the loaded program's launches held to `sites` per request plus one
+    NMS, each output equal to the live one. Returns the loaded program's
+    launch counts over REQUESTS requests."""
+    det = Detector(model, model.state_dict(), device=dev, img_size=SIZE,
+                   compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (BATCH, *FRAME_HW, 3), dtype=np.uint8)
+              for _ in range(REQUESTS)]
+    path = tmp / "gelan-c.pt2"
+    t0 = time.perf_counter()
+    det.export(str(path), BATCH, height=FRAME_HW[0], width=FRAME_HW[1])
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = Detector.load_exported(str(path))
+    t_load = time.perf_counter() - t0
+    consts = [s.target for s in run.program.graph_signature.input_specs
+              if s.kind.name == "CONSTANT_TENSOR"]
+    print(f"  exported ({BATCH}, {FRAME_HW[0]}, {FRAME_HW[1]}, 3) uint8 -> "
+          f"padded NMS dict: {path.stat().st_size} bytes in {t_export:.2f} "
+          f"s; loaded in {t_load:.2f} s; {len(run.program.graph.nodes)} "
+          f"graph nodes, constants made at trace time {consts}")
+    for fn in (det, run):                 # warm-up (cuDNN algorithm choice)
+        fn(frames[0])
+    torch.cuda.synchronize()
+
+    def serve(fn, frames=frames) -> tuple[list, list, float]:
+        outs, lat = [], []
+        t_all = time.perf_counter()
+        for f in frames:
+            t0 = time.perf_counter()
+            outs.append(fn(f))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return outs, lat, time.perf_counter() - t_all
+
+    passes = {"live": serve(det)}
+    reset_counts()
+    passes["loaded"] = serve(run)
+    counts = counts_now()
+    passes["loaded again"] = serve(run)
+    passes["live again"] = serve(det)
+    on_card = [torch.as_tensor(f).to(dev) for f in frames]
+    for name, fn in (("live", det), ("loaded", run), ("loaded", run),
+                     ("live", det)):
+        key = f"{name}, frames on the card"
+        passes[key if key not in passes else key + " again"] = serve(
+            fn, on_card)
+
+    print(f"  loaded program: launches {counts} over {REQUESTS} requests")
+    want = {k: v * REQUESTS for k, v in {**sites, "nms": 1}.items()}
+    if counts != want:
+        raise AssertionError(f"exported: launch counts {counts}, expected "
+                             f"{want}")
+    for name in list(passes)[1:]:
+        for i, (a, b) in enumerate(zip(passes["live"][0], passes[name][0])):
+            for k in ("boxes", "scores", "classes", "valid"):
+                if not torch.equal(a[k], b[k]):
+                    raise AssertionError(f"exported: request {i} of the "
+                                         f"{name} pass: {k} differs from "
+                                         f"the live Detector's")
+    print(f"  every request of the loaded passes equal to the live "
+          f"Detector's (torch.equal, 4 keys); "
+          f"{int(passes['live'][0][-1]['valid'].sum())} detections in the "
+          f"last request")
+    for name, (_, lat, total) in passes.items():
+        print(f"  {name}: {BATCH * REQUESTS / total:.1f} images/s, request "
+              f"latency ms {[round(v, 3) for v in lat]} ({REQUESTS} "
+              f"requests of {BATCH} frames {FRAME_HW[0]}x{FRAME_HW[1]}, "
+              f"bf16; {nvidia_smi()})")
+    return counts
+
+
 def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
-                 v9c: dict, aug: dict) -> list[dict]:
+                 v9c: dict, aug: dict, exported: dict) -> list[dict]:
     """The kernels JSON line's entries from phases 3 and 6's numbers and
     the launch counts of phases 5 and 8 (`launches`, gelan-c), of phase
-    10 (`launches_yolov9_c`: serving, eval and train) and of phase 11 (b)
-    (`launches_device_augment`, per dtype); prints each dtype's fractions
-    of the bound."""
+    10 (`launches_yolov9_c`: serving, eval and train), of phase 11 (b)
+    (`launches_device_augment`, per dtype) and of phase 12
+    (`launches_exported`: the loaded archive's requests); prints each
+    dtype's fractions of the bound."""
     # (name, source, TPU kernel, launches, {dtype: numbers}); NMS runs in
     # f32 only
     rows = (
@@ -1240,6 +1331,7 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
         "launches_yolov9_c": v9c_launches(name),
         "launches_device_augment": {
             tag: aug[tag].get(v9c_key[name], 0) for tag in aug},
+        "launches_exported": exported.get(v9c_key[name], 0),
         **numbers(r["bf16"]), "f32": numbers(r["f32"])}
         for name, src, tpu, launches, r in rows]
 
@@ -1346,7 +1438,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         print("phase 9: eval")
         ecounts = phase_eval(dev, Path(td), gelan_c, sites, defaults)
-    del gelan_c
 
     with tempfile.TemporaryDirectory() as td:
         print("phase 10: yolov9-c")
@@ -1357,7 +1448,12 @@ def main() -> int:
         phase_augment(dev)
         aug = phase_augment_train(dev, Path(td), phase8)
 
-    kernels = kernels_line(res, tres, counts, tcounts, v9c, aug)
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 12: the serving export")
+        exported = phase_export(dev, Path(td), gelan_c, sites)
+    del gelan_c
+
+    kernels = kernels_line(res, tres, counts, tcounts, v9c, aug, exported)
     print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "
           f"the serving, eval and train shapes, library calls with TF32 "
           f"off; adown kernels are the sum of gelan-c's five ADown shapes "
@@ -1382,7 +1478,8 @@ def main() -> int:
           f"{ecounts}; launches_yolov9_c: phase 10's {REQUESTS} requests, "
           f"{EVAL_IMAGES // BATCH} eval batches and {V9C_TRAIN_STEPS} "
           f"counted train steps; launches_device_augment: phase 11 (b)'s "
-          f"{AUG_TRAIN_BATCHES} counted steps per dtype)")
+          f"{AUG_TRAIN_BATCHES} counted steps per dtype; launches_exported: "
+          f"phase 12's {REQUESTS} requests through the loaded archive)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

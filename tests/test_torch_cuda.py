@@ -1166,3 +1166,121 @@ def test_batch_copy_runs_off_the_compute_stream(cuda, tmp_path):
     assert kernels, f"no yolo kernel in {traces} trace(s)"
     assert not {stream(e) for e in copies} & kernels, (
         {stream(e) for e in copies}, kernels)
+
+
+# ---------------------------------------------------------------------------
+# the serving export: the five custom ops and the loaded archive
+# ---------------------------------------------------------------------------
+
+def _op_case(name: str, dtype: torch.dtype, dev):
+    """(the module of the op `yolo_torch::{name}` and its launch counter,
+    args, plain result) on the card."""
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, scale=1.0, cl=False):
+        return _rand(g, *shape, scale=scale, dtype=dtype, cl=cl).to(dev)
+
+    if name == "stem_conv":
+        args = (rnd(2, 3, 17, 22, cl=True), rnd(16, 3, 3, 3, scale=0.3),
+                rnd(16))
+        return stem, args, stem.stem_conv_plain(*args)
+    if name == "adown_packed":
+        x = rnd(2, 32, 12, 14, cl=True)
+        w1, w2 = rnd(16, 16, 3, 3, scale=0.05), rnd(16, 16, 1, 1, scale=0.1)
+        b1, b2 = rnd(16), rnd(16)
+        w1p, w2p = adown.pack_weights(w1, w2)
+        return adown, (x, w1p, b1, w2p, b2), \
+            adown.adown_plain(x, w1, b1, w2, b2)
+    if name == "conv3_silu_packed":
+        x, w, b = rnd(2, 64, 9, 11, cl=True), \
+            rnd(64, 64, 3, 3, scale=0.05), rnd(64)
+        return conv3, (x, conv3.pack_weights(w), b), \
+            conv3.conv3_silu_plain(x, w, b)
+    if name == "bottleneck_chain_packed":
+        m = rnd(1, 32, 32, 32, cl=True)
+        w1, w2 = rnd(1, 32, 32, 3, 3, scale=0.06), \
+            rnd(1, 32, 32, 3, 3, scale=0.06)
+        b1, b2 = rnd(1, 32), rnd(1, 32)
+        return csp_chain, (m, *csp_chain.pack_weights(w1, b1, w2, b2)), \
+            csp_chain.bottleneck_chain_plain(m, w1, b1, w2, b2)
+    boxes = torch.rand(2, 50, 4, generator=g) * 40
+    boxes[..., 2:] += boxes[..., :2] + 1
+    scores = torch.rand(2, 50, generator=g)
+    args = (boxes.to(dev), scores.to(dev), 0.45, 20)
+    return nms, args, nms.nms_select_plain(*args)
+
+
+OP_CASES = [(n, d) for n in ("stem_conv", "adown_packed",
+                             "conv3_silu_packed", "bottleneck_chain_packed")
+            for d in (torch.float32, torch.bfloat16)] + \
+    [("nms_select", torch.float32)]
+
+
+@pytest.mark.parametrize("name,dtype", OP_CASES,
+                         ids=[f"{n}-{str(d)[6:]}" for n, d in OP_CASES])
+def test_custom_op_opcheck_on_cuda(cuda, name, dtype):
+    """torch.library.opcheck on CUDA inputs (schema, fake against the
+    kernel's real output: shape, dtype, strides; dispatch), and the op's
+    one launch within the tolerance of the plain version."""
+    module, args, plain = _op_case(name, dtype, cuda)
+    op = getattr(torch.ops.yolo_torch, name).default
+    torch.library.opcheck(op, args)
+    before = module.launches
+    y = op(*args)
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    assert y.stride() == plain.stride()
+    if name == "nms_select":
+        assert torch.equal(y, plain)
+    else:
+        torch.testing.assert_close(y.float(), plain.float(),
+                                   atol=ATOL[dtype], rtol=RTOL[dtype])
+
+
+def _serving_sites(model) -> dict:
+    """Launches of each serving kernel in one request of a fused model."""
+    from yolo_re_tpu_torch.models import blocks
+
+    mods = list(model.modules())
+    return {
+        "stem": sum(isinstance(m, blocks.Conv) and m.is_stem
+                    and m.bn is None for m in mods),
+        "adown": sum(isinstance(m, blocks.ADown) and m.packed for m in mods),
+        "csp_chain": sum(isinstance(m, blocks.RepNCSP) and m.chain
+                         for m in mods),
+        "conv3": sum(isinstance(m, blocks.Conv) and m.is_conv3
+                     and m.bn is None for m in mods),
+        "nms": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exported_detector_cuda_equals_live(cuda, tmp_path, dtype):
+    """The trained tiny fixture exported on the card: the loaded program's
+    output equals the live cuda Detector's bit for bit, and each call of it
+    launches every kernel of the model's sites and one NMS."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    det = Detector.from_checkpoint(YOLO.from_yaml(path), str(FIXTURE),
+                                   device=cuda, img_size=160,
+                                   conf_thres=1e-3, compute_dtype=dtype)
+    archive = str(tmp_path / "tiny.pt2")
+    det.export(archive, 2, height=120, width=200)
+    run = Detector.load_exported(archive)
+    assert run.device.type == "cuda"
+    modules = {"stem": stem, "adown": adown, "csp_chain": csp_chain,
+               "conv3": conv3, "nms": nms}
+    sites = _serving_sites(det.model)
+    assert min(v for k, v in sites.items() if k != "csp_chain") >= 1
+    for seed in (1, 2):
+        frames = np.ascontiguousarray(
+            make_eval_batch(2, 200, seed)["images"][:, 40:160])
+        live = det(frames)
+        before = {k: m.launches for k, m in modules.items()}
+        loaded = run(frames)
+        torch.cuda.synchronize()
+        assert {k: m.launches - before[k] for k, m in modules.items()} == \
+            sites
+        for k in ("boxes", "scores", "classes", "valid"):
+            assert loaded[k].device.type == "cuda"
+            assert torch.equal(live[k], loaded[k]), k
+        assert int(loaded["valid"].sum()) > 0

@@ -75,6 +75,23 @@ def test_detector_fuses_a_copy(detectors):
     assert det.model.layers["down1"].conv_stride.conv.bias is not None
 
 
+def test_detector_unfused_serves_within_the_fused_bounds(detectors):
+    """fuse=False (the JAX Detector's flag): the unfolded model, its BNs in
+    eval mode and no kernel of a fused block, serves within the bounds the
+    fused Detector keeps, against the JAX Detector and the fused one."""
+    jdet, det, model = detectors
+    unfused = Detector.from_checkpoint(model, str(FIXTURE), device="cpu",
+                                       img_size=160, compute_dtype="float32",
+                                       fuse=False)
+    assert unfused.model.layers["stem1"].bn is not None
+    assert not unfused.model.layers["down1"].packed
+    images = make_eval_batch(4, 160, 0)["images"]
+    out = unfused(images)
+    _compare(jdet(images), out)
+    _compare({k: v.numpy() for k, v in det(images).items()}, out)
+    assert out["valid"].sum(dim=1).min() >= 1
+
+
 def test_detector_takes_a_state_dict(detectors):
     """A state dict of the model serves the same as the JAX pytrees."""
     _, det, model = detectors

@@ -21,7 +21,10 @@ packs them first, as `adown_raw` does on every call (the train weights
 change every step), in one launch that also casts them to x's dtype
 (`pack_launches`). A CUDA tensor launches the hand-written kernels, which
 keep the stride-1 avgpool out of device memory; a CPU tensor takes the
-`*_plain` versions, plain PyTorch. The maxpool gradient goes to the first
+`*_plain` versions, plain PyTorch. `adown_packed`, on the serving path,
+does so through the custom op `yolo_torch::adown_packed` (so that
+`torch.export` keeps the kernel in the graph), whose dispatcher picks the
+device's implementation. The maxpool gradient goes to the first
 maximum of each window in row-major order (PyTorch's max_pool2d rule,
 XLA's select_and_scatter). Each kernel has its own launch counter.
 """
@@ -92,7 +95,6 @@ def adown_bwd_plain(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
 def _check_x(x: torch.Tensor, what: str) -> None:
     common.check_dtype(x, "x")
     common.check_channels_last(x, "x")
-    common.check_aligned(x, "x")
     _, cin, h, w = x.shape
     if cin % 2 or h < 2 or w < 2:
         raise ValueError(f"{what}: x must be (B, Cin, H, W) with even Cin "
@@ -195,7 +197,7 @@ def _launch(x: torch.Tensor, w1p: torch.Tensor, b1, w2p: torch.Tensor, b2,
     bsz, cin, h, w = x.shape
     y = torch.empty((bsz, 2 * co, h // 2, w // 2), dtype=x.dtype,
                     device=x.device, memory_format=torch.channels_last)
-    for t, name in ((w1p, "w1p"), (w2p, "w2p"), (y, "y")):
+    for t, name in ((x, "x"), (w1p, "w1p"), (w2p, "w2p"), (y, "y")):
         common.check_aligned(t, name)
     lib = build.library()
     with torch.cuda.device(x.device):
@@ -228,8 +230,15 @@ def adown(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def adown_packed(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor,
                  w2p: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """`adown` with the weights already packed (`pack_weights`): what a
-    fused `ADown` calls, one kernel launch."""
-    global launches
+    fused `ADown` calls, one call of the custom op `yolo_torch::adown_packed`
+    (one kernel launch)."""
+    _check_packed_call(x, w1p, b1, w2p, b2)
+    return _op(x, w1p, b1, w2p, b2)
+
+
+def _check_packed_call(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor,
+                       w2p: torch.Tensor, b2: torch.Tensor) -> None:
+    common.check_device(x)
     _check_x(x, "adown")
     co = b1.shape[0] if b1.dim() == 1 else -1
     if tuple(b2.shape) != (co,):
@@ -238,12 +247,37 @@ def adown_packed(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor,
     _check_packed(x, "adown", w1p, w2p, co)
     common.check_same(x, b1, "b1")
     common.check_same(x, b2, "b2")
-    if x.device.type == "cpu":
-        w1, w2 = unpack_weights(w1p, w2p, x.shape[1] // 2, co)
-        return adown_plain(x, w1, b1, w2, b2)
-    y = _launch(x, w1p, b1, w2p, b2, co)
+
+
+@torch.library.custom_op("yolo_torch::adown_packed", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor,
+        w2p: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The CPU implementation: the plain version on the unpacked weights."""
+    w1, w2 = unpack_weights(w1p, w2p, x.shape[1] // 2, b1.shape[0])
+    return adown_plain(x, w1, b1, w2, b2)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor,
+             w2p: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation: one launch of the kernel. The checks are
+    repeated here, where storage is real: an exported graph calls the op
+    without the wrapper."""
+    global launches
+    _check_packed_call(x, w1p, b1, w2p, b2)
+    y = _launch(x, w1p, b1, w2p, b2, b1.shape[0])
     launches += 1
     return y
+
+
+@_op.register_fake
+def _fake(x: torch.Tensor, w1p: torch.Tensor, b1: torch.Tensor,
+          w2p: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    bsz, _, h, w = x.shape
+    return torch.empty((bsz, 2 * b1.shape[0], h // 2, w // 2),
+                       dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
 
 
 def adown_raw(x: torch.Tensor, w1: torch.Tensor,
@@ -297,7 +331,6 @@ def adown_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
     bsz, cin, h, w = x.shape
     co = w1.shape[0]
     common.check_channels_last(g, "g")
-    common.check_aligned(g, "g")
     if tuple(g.shape) != (bsz, 2 * co, h // 2, w // 2) or \
             g.dtype != x.dtype or g.device != x.device:
         raise ValueError(f"adown_bwd: g must be {x.dtype} "
@@ -310,6 +343,8 @@ def adown_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
     if x.device.type == "cpu":
         return adown_bwd_plain(x, g, w1, w2)
     common.check_cuda(x)
+    common.check_aligned(x, "x")
+    common.check_aligned(g, "g")
     ch, n = cin // 2, bsz * (h // 2) * (w // 2)
     bf16_products = x.dtype == torch.bfloat16 and ch % 8 == 0 and co % 8 == 0
     slabs = _bwd_slabs(n, ch, co, x.device) if bf16_products else \

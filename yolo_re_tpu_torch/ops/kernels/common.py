@@ -39,6 +39,15 @@ def check_cuda(x: torch.Tensor) -> None:
         raise ValueError(f"no kernel for device {x.device}")
 
 
+def check_device(x: torch.Tensor) -> None:
+    """The custom ops have a kernel for CUDA tensors and the plain version
+    for CPU ones; another device (meta) raises here, ahead of the op's fake
+    implementation, which serves tracing (its fake tensors report cpu or
+    cuda)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+
+
 def dtype_code(x: torch.Tensor) -> int:
     return _DTYPE_CODES[x.dtype]
 

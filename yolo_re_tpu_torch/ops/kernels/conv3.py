@@ -12,8 +12,10 @@ convs of stage2's and fpn2's RepNCSPs, six per forward.
 It takes NCHW tensors in `torch.channels_last` memory. The kernel reads
 its weight as a packed image (`pack_weights`, the wgmma operand layout of
 csrc/hopper.cuh), which a fused `Conv` makes once; `conv3_silu` takes an
-OIHW weight and packs it first, `conv3_silu_packed` takes the image. A
-CUDA tensor launches the hand-written kernel; a CPU tensor takes
+OIHW weight and packs it first, `conv3_silu_packed` takes the image and
+calls the custom op `yolo_torch::conv3_silu_packed` (so that
+`torch.export` keeps the kernel in the graph). The dispatcher sends a
+CUDA tensor to the hand-written kernel and a CPU tensor to
 `conv3_silu_plain`, plain PyTorch.
 """
 
@@ -48,6 +50,7 @@ def unpack_weights(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _check(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> None:
+    common.check_device(x)
     common.check_dtype(x, "x")
     common.check_channels_last(x, "x")
     if x.shape[1] != C:
@@ -73,11 +76,27 @@ def conv3_silu(x: torch.Tensor, w: torch.Tensor,
 
 def conv3_silu_packed(x: torch.Tensor, wp: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
-    """conv3_silu with the weight already packed (`pack_weights`)."""
+    """conv3_silu with the weight already packed (`pack_weights`): one
+    call of the custom op `yolo_torch::conv3_silu_packed`."""
+    _check(x, wp, b)
+    return _op(x, wp, b)
+
+
+@torch.library.custom_op("yolo_torch::conv3_silu_packed", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The CPU implementation: the plain version."""
+    return conv3_silu_plain(x, unpack_weights(wp), b)
+
+
+@_op.register_kernel("cuda")
+def _launch(x: torch.Tensor, wp: torch.Tensor,
+            b: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation: one launch of the kernel. The checks are
+    repeated here, where storage is real: an exported graph calls the op
+    without the wrapper."""
     global launches
     _check(x, wp, b)
-    if x.device.type == "cpu":
-        return conv3_silu_plain(x, unpack_weights(wp), b)
     common.check_cuda(x)
     bsz, _, h, wd = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
@@ -91,3 +110,8 @@ def conv3_silu_packed(x: torch.Tensor, wp: torch.Tensor,
     build.check(err, "conv3_silu")
     launches += 1
     return y
+
+
+@_op.register_fake
+def _fake(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.channels_last)

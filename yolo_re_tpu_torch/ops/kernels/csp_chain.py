@@ -15,8 +15,10 @@ of the n bottlenecks stacked: w1, w2 (n, 32, 32, 3, 3), b1, b2 (n, 32)
 convs' weights as one packed image (`pack_weights`, the wgmma operand
 layout of csrc/hopper.cuh) and the biases stacked (n, 2, 32), which a fused
 `RepNCSP` makes once; `bottleneck_chain` packs the OIHW weights first,
-`bottleneck_chain_packed` takes the image. A CUDA tensor launches the
-hand-written kernel; a CPU tensor takes `bottleneck_chain_plain`, plain
+`bottleneck_chain_packed` takes the image and calls the custom op
+`yolo_torch::bottleneck_chain_packed` (so that `torch.export` keeps the
+kernel in the graph). The dispatcher sends a CUDA tensor to the
+hand-written kernel and a CPU tensor to `bottleneck_chain_plain`, plain
 PyTorch.
 """
 
@@ -66,6 +68,7 @@ def unpack_weights(wp: torch.Tensor, bias: torch.Tensor):
 
 
 def _check(m: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor) -> None:
+    common.check_device(m)
     common.check_dtype(m, "m")
     common.check_channels_last(m, "m")
     if m.shape[1] != C:
@@ -103,11 +106,27 @@ def bottleneck_chain(m: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 def bottleneck_chain_packed(m: torch.Tensor, wp: torch.Tensor,
                             bias: torch.Tensor) -> torch.Tensor:
-    """bottleneck_chain with the weights already packed (`pack_weights`)."""
+    """bottleneck_chain with the weights already packed (`pack_weights`):
+    one call of the custom op `yolo_torch::bottleneck_chain_packed`."""
+    _check(m, wp, bias)
+    return _op(m, wp, bias)
+
+
+@torch.library.custom_op("yolo_torch::bottleneck_chain_packed",
+                         mutates_args=(), device_types="cpu")
+def _op(m: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The CPU implementation: the plain version."""
+    return bottleneck_chain_plain(m, *unpack_weights(wp, bias))
+
+
+@_op.register_kernel("cuda")
+def _launch(m: torch.Tensor, wp: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation: one launch of the kernel. The checks are
+    repeated here, where storage is real: an exported graph calls the op
+    without the wrapper."""
     global launches
     _check(m, wp, bias)
-    if m.device.type == "cpu":
-        return bottleneck_chain_plain(m, *unpack_weights(wp, bias))
     common.check_cuda(m)
     bsz, _, h, w = m.shape
     out = torch.empty_like(m, memory_format=torch.channels_last)
@@ -121,3 +140,9 @@ def bottleneck_chain_packed(m: torch.Tensor, wp: torch.Tensor,
     build.check(err, "bottleneck_chain")
     launches += 1
     return out
+
+
+@_op.register_fake
+def _fake(m: torch.Tensor, wp: torch.Tensor,
+          bias: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(m, memory_format=torch.channels_last)

@@ -4,9 +4,11 @@ Counterpart of the TPU kernel `yolo_re_tpu/ops/pallas/nms_kernel.py`
 (`pallas_nms_select`) and of the `lax.scan` loop in
 `yolo_re_tpu/ops/nms.py`; the CUDA source is `yolo_re_tpu_torch/csrc/nms.cu`.
 
-A CUDA tensor launches the hand-written kernel, its cluster size from
-`cluster_size`; a CPU tensor takes `nms_select_plain`, the plain PyTorch
-version of the same greedy loop.
+`nms_select` calls the custom op `yolo_torch::nms_select` (so that
+`torch.export` keeps the kernel in the graph). The dispatcher sends a CUDA
+tensor to the hand-written kernel, its cluster size from `cluster_size`,
+and a CPU tensor to `nms_select_plain`, the plain PyTorch version of the
+same greedy loop.
 """
 
 from __future__ import annotations
@@ -92,8 +94,14 @@ def cluster_size(b: int, k: int, sms: int) -> int:
 def nms_select(boxes_off: torch.Tensor, scores: torch.Tensor,
                iou_thres: float, max_det: int) -> torch.Tensor:
     """boxes_off (B, K, 4) float32 xyxy with class offsets, scores (B, K)
-    float32 (<= 0 marks invalid) -> (B, max_det) int32 indices, -1 = none."""
-    global launches
+    float32 (<= 0 marks invalid) -> (B, max_det) int32 indices, -1 = none.
+    One call of the custom op `yolo_torch::nms_select`."""
+    _check(boxes_off, scores)
+    return _op(boxes_off, scores, float(iou_thres), int(max_det))
+
+
+def _check(boxes_off: torch.Tensor, scores: torch.Tensor) -> None:
+    common.check_device(boxes_off)
     if boxes_off.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError("nms_select: boxes and scores must be float32")
     if boxes_off.dim() != 3 or boxes_off.shape[2] != 4 or \
@@ -105,12 +113,30 @@ def nms_select(boxes_off: torch.Tensor, scores: torch.Tensor,
         raise ValueError("nms_select: boxes and scores on different devices")
     if not (boxes_off.is_contiguous() and scores.is_contiguous()):
         raise ValueError("nms_select: boxes and scores must be contiguous")
-    bsz, k = scores.shape
+    k = scores.shape[1]
     if k > MAX_K or k < 1:
         raise ValueError(f"nms_select: K must be in [1, {MAX_K}], got {k}")
-    if boxes_off.device.type == "cpu":
-        return nms_select_plain(boxes_off, scores, iou_thres, max_det)
+
+
+@torch.library.custom_op("yolo_torch::nms_select", mutates_args=(),
+                         device_types="cpu")
+def _op(boxes_off: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+        max_det: int) -> torch.Tensor:
+    """The CPU implementation: the plain version (its loop runs here, in
+    the op, and is never traced)."""
+    return nms_select_plain(boxes_off, scores, iou_thres, max_det)
+
+
+@_op.register_kernel("cuda")
+def _launch(boxes_off: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+            max_det: int) -> torch.Tensor:
+    """The CUDA implementation: one launch of the kernel, its cluster size
+    from the device's SM count. The checks are repeated here: an exported
+    graph calls the op without the wrapper."""
+    global launches
+    _check(boxes_off, scores)
     common.check_cuda(boxes_off)
+    bsz, k = scores.shape
     out = torch.empty((bsz, max_det), dtype=torch.int32,
                       device=boxes_off.device)
     c = cluster_size(bsz, k, torch.cuda.get_device_properties(
@@ -123,3 +149,10 @@ def nms_select(boxes_off: torch.Tensor, scores: torch.Tensor,
     build.check(err, "nms_select")
     launches += 1
     return out
+
+
+@_op.register_fake
+def _fake(boxes_off: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+          max_det: int) -> torch.Tensor:
+    return boxes_off.new_empty((boxes_off.shape[0], max_det),
+                               dtype=torch.int32)

@@ -12,8 +12,10 @@ Counterparts of the TPU kernels in `yolo_re_tpu/ops/pallas/stem_kernel.py`:
 They take NCHW tensors in `torch.channels_last` memory (the kernels read
 NHWC memory; x 16-byte aligned on a card, as a fresh tensor is) and OIHW
 weights. A CUDA tensor launches the hand-written kernel; a CPU tensor
-takes the `*_plain` version, plain PyTorch. Each kernel has its own
-launch counter.
+takes the `*_plain` version, plain PyTorch. `stem_conv`, on the serving
+path, does so through the custom op `yolo_torch::stem_conv` (so that
+`torch.export` keeps the kernel in the graph), whose dispatcher picks the
+device's implementation. Each kernel has its own launch counter.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ def _check_w(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
+    common.check_device(x)
     _check_x(x, "stem_conv")
     if tuple(b.shape) != (w.shape[0],):
         raise ValueError(f"stem_conv: b must be (C,), got {tuple(b.shape)}")
@@ -93,17 +96,32 @@ def _out_shape(x: torch.Tensor, c: int) -> tuple[int, int, int, int]:
 def stem_conv(x: torch.Tensor, w: torch.Tensor,
               b: torch.Tensor) -> torch.Tensor:
     """x (B, 3, H, W) channels_last, w (C, 3, 3, 3), b (C,), all one dtype
-    (float32 or bfloat16) -> (B, C, ceil(H/2), ceil(W/2)) channels_last."""
+    (float32 or bfloat16) -> (B, C, ceil(H/2), ceil(W/2)) channels_last.
+    One call of the custom op `yolo_torch::stem_conv`."""
+    _check(x, w, b)
+    return _op(x, w, b)
+
+
+@torch.library.custom_op("yolo_torch::stem_conv", mutates_args=(),
+                         device_types="cpu")
+def _op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The CPU implementation: the plain version."""
+    return stem_conv_plain(x, w, b)
+
+
+@_op.register_kernel("cuda")
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation: one launch of the kernel. The checks are
+    repeated here, where storage is real: an exported graph calls the op
+    without the wrapper."""
     global launches
     _check(x, w, b)
-    if x.device.type == "cpu":
-        return stem_conv_plain(x, w, b)
     common.check_cuda(x)
     common.check_aligned(x, "x")
     bsz, _, h, wd = x.shape
     c = w.shape[0]
-    y = torch.empty((bsz, c, (h + 1) // 2, (wd + 1) // 2), dtype=x.dtype,
-                    device=x.device, memory_format=torch.channels_last)
+    y = torch.empty(_out_shape(x, c), dtype=x.dtype, device=x.device,
+                    memory_format=torch.channels_last)
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.yolo_stem_conv(
@@ -112,6 +130,12 @@ def stem_conv(x: torch.Tensor, w: torch.Tensor,
     build.check(err, "stem_conv")
     launches += 1
     return y
+
+
+@_op.register_fake
+def _fake(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.empty(_out_shape(x, w.shape[0]), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
 
 
 def stem_conv_raw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

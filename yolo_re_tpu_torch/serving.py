@@ -5,10 +5,14 @@ yolo_re_tpu/serving.py).
     114 pad) -> fused (BN/RepConv-folded) forward -> DFL decode
     -> class-aware fixed-shape NMS -> padded (B, max_det) detections
 
-The fused forward runs the stem and every ADown through their CUDA kernels
-on a CUDA device, and NMS through the NMS kernel. PyTorch runs eagerly
-here: no torch.compile and no CUDA graphs. Mesh serving and the exported
-artifact wait for later slices.
+The fused forward runs the stem, every ADown, the RepNCSP chains and the
+64-channel 3x3 convs through their CUDA kernels on a CUDA device, and NMS
+through the NMS kernel. The pipeline is one module, `ServingProgram`:
+`Detector.__call__` runs it eagerly (no torch.compile and no CUDA graphs),
+and `Detector.export` writes it, weights included, to one `torch.export`
+archive that `Detector.load_exported` runs again. The kernels are custom
+ops (`yolo_torch::*`, registered when their modules are imported), so the
+archive calls the same kernels. Mesh serving waits for a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 from yolo_re_tpu_torch.convert import load_weights, state_dict_from_jax
 from yolo_re_tpu_torch.data.device_pipeline import batched_letterbox
@@ -45,6 +50,32 @@ def inference_model(model: YOLO, state_dict_or_params: Any,
     return model.eval().to(device=device, dtype=dtype)
 
 
+class ServingProgram(nn.Module):
+    """Pixels to detections: uint8 (B, H, W, 3) frames on the model's
+    device -> letterbox -> the model's main-only forward -> NMS -> the
+    padded dict. What `Detector.__call__` runs and `Detector.export`
+    writes."""
+
+    def __init__(self, model: YOLO, img_size: int, dtype: torch.dtype,
+                 conf_thres: float, iou_thres: float, max_det: int):
+        super().__init__()
+        self.model = model
+        self.img_size = img_size
+        self.dtype = dtype
+        self.conf_thres = conf_thres
+        self.iou_thres = iou_thres
+        self.max_det = max_det
+
+    def forward(self, frames: torch.Tensor) -> dict[str, torch.Tensor]:
+        x = batched_letterbox(frames, self.img_size, dtype=self.dtype)
+        # a dual head: its main branch alone, as the JAX Detector keeps
+        # only decoded["main"] (yolo_re_tpu/serving.py:116-117)
+        decoded, _ = self.model(x.permute(0, 3, 1, 2), main_only=True)
+        return non_max_suppression(
+            decoded, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
+            max_det=self.max_det)
+
+
 class Detector:
     """End-to-end detector over fused weights.
 
@@ -52,18 +83,23 @@ class Detector:
         det = Detector.from_checkpoint(model, "best.npz", device="cuda")
         out = det(frames_u8)                      # dict of padded tensors
         dets = det.to_list(out, original_shapes)  # per-image (n, 6) numpy
+        det.export("det.pt2", batch=8, height=720, width=1280)
+        run = Detector.load_exported("det.pt2")   # same contract as det
 
     state_dict_or_params: a state dict of `model` (for example
     `model.state_dict()`), or the JAX package's (params, stats) pytrees.
-    The model is copied, loaded with strict=True and fused; the caller's
-    model is left as it was. `device` defaults to "cuda" and raises
-    without a CUDA device; pass "cpu" to run the kernels' plain versions.
+    The model is copied, loaded with strict=True and fused (unless
+    fuse=False: then the kernels of the fused blocks do not run); the
+    caller's model is left as it was. `device` defaults to "cuda" and
+    raises without a CUDA device; pass "cpu" to run the kernels' plain
+    versions. The thresholds are fixed at construction.
     """
 
     def __init__(self, model: YOLO, state_dict_or_params: Any, *,
                  device: str | torch.device = "cuda", img_size: int = 640,
                  conf_thres: float = 0.25, iou_thres: float = 0.45,
-                 max_det: int = 300, compute_dtype: str = "bfloat16"):
+                 max_det: int = 300, compute_dtype: str = "bfloat16",
+                 fuse: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Detector(device='cuda'): no CUDA device")
@@ -71,11 +107,13 @@ class Detector:
             raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}")
         self.dtype = DTYPES[compute_dtype]
         self.model = inference_model(model, state_dict_or_params,
-                                     self.device, self.dtype)
+                                     self.device, self.dtype, fuse=fuse)
         self.img_size = img_size
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
         self.max_det = max_det
+        self.program = ServingProgram(self.model, img_size, self.dtype,
+                                      conf_thres, iou_thres, max_det)
 
     @classmethod
     def from_checkpoint(cls, model: YOLO, path: str, **kwargs) -> "Detector":
@@ -91,14 +129,48 @@ class Detector:
         (B, max_det, 4) xyxy in letterbox-canvas pixels, scores, classes,
         valid. Runs with TF32 off (`utils.precision.full_f32`), so an f32
         detector's library convs compute in full f32."""
-        frames = torch.as_tensor(images_u8).to(self.device)
-        x = batched_letterbox(frames, self.img_size, dtype=self.dtype)
-        # a dual head: its main branch alone, as the JAX Detector keeps
-        # only decoded["main"] (yolo_re_tpu/serving.py:116-117)
-        decoded, _ = self.model(x.permute(0, 3, 1, 2), main_only=True)
-        return non_max_suppression(
-            decoded, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
-            max_det=self.max_det)
+        return self.program(torch.as_tensor(images_u8).to(self.device))
+
+    def export(self, path: str, batch: int, *, height: int | None = None,
+               width: int | None = None) -> None:
+        """Write the whole pixels-to-detections program (`ServingProgram`),
+        the fused weights and the kernels' packed weight images included,
+        to one `torch.export` archive (.pt2) at `path`. Its input is
+        (batch, height, width, 3) uint8 on this detector's device
+        (height and width default to img_size), its output the padded NMS
+        dict; the shapes are static, as in the JAX export. The kernels
+        stay in the graph as `yolo_torch::*` custom ops. The letterbox
+        matrices, anchors and DFL projection become host constants of the
+        archive, which the graph copies to this device on every call (the
+        device is part of the graph): load the archive on the same kind of
+        device."""
+        h = height or self.img_size
+        w = width or self.img_size
+        example = torch.zeros((batch, h, w, 3), dtype=torch.uint8,
+                              device=self.device)
+        # no_grad, not inference_mode: inference tensors do not trace
+        with torch.no_grad(), full_f32():
+            program = torch.export.export(self.program, (example,),
+                                          strict=False)
+        # the archive would keep the example frames (88 MB at gelan-c's
+        # 32 x 720 x 1280); the loaded program does not read them
+        program.example_inputs = None
+        torch.export.save(program, path)
+
+    @staticmethod
+    def load_exported(path: str) -> "ExportedDetector":
+        """Load an archive `export` wrote: a callable with the Detector's
+        contract at the exported shape ((batch, height, width, 3) uint8 in,
+        the padded NMS dict out, on the archive's device)."""
+        # registers the kernels' custom ops, which the graph calls
+        from yolo_re_tpu_torch.ops.kernels import (  # noqa: F401
+            adown,
+            conv3,
+            csp_chain,
+            nms,
+            stem,
+        )
+        return ExportedDetector(torch.export.load(path))
 
     def to_list(self, out: dict[str, torch.Tensor],
                 original_shapes: list[tuple[int, int]] | None = None):
@@ -117,3 +189,33 @@ class Detector:
             det[:, [1, 3]] = ((det[:, [1, 3]] - pad_y) / gain).clip(0, h0)
             mapped.append(det)
         return mapped
+
+
+class ExportedDetector:
+    """A loaded serving archive (`Detector.load_exported`). A call takes
+    numpy or a tensor of exactly the exported shape and dtype (anything
+    else raises), moves it to the archive's device (contiguous) and runs
+    the program under no_grad with TF32 off (`full_f32`: the TF32 flags
+    are global, not part of the graph, so an f32 archive's library convs
+    would otherwise run in TF32)."""
+
+    def __init__(self, program: torch.export.ExportedProgram):
+        self.program = program
+        self.module = program.module()
+        (name,) = program.graph_signature.user_inputs
+        spec = next(n.meta["val"] for n in program.graph.nodes
+                    if n.op == "placeholder" and n.name == name)
+        self.shape = tuple(int(d) for d in spec.shape)
+        self.dtype = spec.dtype
+        self.device = spec.device
+
+    def __call__(self, images_u8: np.ndarray | torch.Tensor
+                 ) -> dict[str, torch.Tensor]:
+        frames = torch.as_tensor(images_u8)
+        if tuple(frames.shape) != self.shape or frames.dtype != self.dtype:
+            raise ValueError(
+                f"the archive takes {self.dtype} frames of shape "
+                f"{self.shape}, got {frames.dtype} {tuple(frames.shape)}")
+        # contiguous, as the example the program was traced on
+        with torch.no_grad(), full_f32():
+            return self.module(frames.to(self.device).contiguous())
