@@ -17,12 +17,15 @@ non-zero (no phase is caught):
    the packed calls a fused model makes (weights packed outside the timed
    calls, as `fuse()` packs them once; conv3 equal across two calls), at
    m (32, 32, 160, 160) for n = 1 and 2 (gelan-c, gelan-c-d2) and
-   x (32, 64, 160, 160) and (32, 64, 80, 80); ADown at gelan-c's five
-   sites through `adown` (packs, then the kernel) and through the packed
+   x (32, 64, 160, 160) and (32, 64, 80, 80); ADown at gelan-c's and at
+   gelan-e's five sites (gelan-e: Co = 160 and 320 a branch, a zero tail
+   in the last packed N block) through `adown` (packs, then the kernel)
+   and through the packed
    call a fused ADown makes (timed), each site's time beside its bound and
    beside the time of its cuDNN composite (avg_pool2d, the two F.conv2d
    with bias, max_pool2d, silu, cat, TF32 off: a composite of library
    calls, not one call, so not the kernel's `library_ms`); the stem
+   at C = 64 and 80 (gelan-e)
    (like conv3) equal across two calls; greedy NMS at K = 512 and 8400 in
    random order (iou 0.45) and at K = 8400 in the Evaluator's order (by
    score, the zeros last; iou 0.6), indices equal to the plain version's,
@@ -39,7 +42,9 @@ non-zero (no phase is caught):
    model in f32 on cuda against the CPU (every serving kernel in f32);
 6. the four train kernels (stem raw + weight grad, ADown raw + backward)
    against their plain versions at gelan-c's 640 px, batch 32 train
-   shapes, in f32 and bf16 (the bf16 stem weight gradient also at batch
+   shapes and at gelan-e's (the stem at C = 80, the five ADown sites at
+   Co = 160 and 320), in f32 and bf16 (the bf16 stem weight gradient also
+   at batch
    8, with its fraction of the bound and its bytes/s; ADown raw, which
    packs its weights on every call, per site beside its bound and its
    cuDNN composite without bias and SiLU; the ADown backward per site
@@ -112,7 +117,24 @@ non-zero (no phase is caught):
    model's kernel sites per request plus one NMS (stem 1, ADown 5, chain
    2, conv3 6, NMS 1), every request of every pass torch.equal to the
    first live pass's, and each pass's images/s and request latency
-   printed with the nvidia-smi line.
+   printed with the nvidia-smi line;
+13. gelan-e and gelan-c-d2 at full width and depth (random weights from
+   seed 0, class biases 0): (a) the fused model in f32 on cuda against the
+   CPU at (1, 3, 256, 256), the launches held to its kernel sites (gelan-e:
+   stem 1, ADown 5, chain 0, conv3 0; gelan-c-d2: 1, 5, 2 (n = 2), 10);
+   (b) serving as phase 5, images/s and launches a request; (c) eval as
+   phase 9 (b), bf16 and f32; (d) gelan-e training in bf16 and f32 at
+   batch 32 (16 if 32 does not fit; the batch and the peak memory
+   printed): a warm-up and three counted steps of one stem pair and five
+   ADown pairs;
+14. the CLIs on the card: the trained tiny fixture written as an
+   upstream-schema `.pt` (upstream.reference_to_upstream_sd), turned into
+   an .npz by cli.convert_weights; cli.detect on six synthetic images with
+   --device cuda (launches held to the fused model's sites and one NMS an
+   image) and --device cpu (no launch), equal detections; cli.train, one
+   epoch of four steps on the card (a stem pair and four ADown pairs a
+   step) with validation; cli.val, fused, on the checkpoint it wrote.
+The total seconds are printed before the last three lines.
 
 `bound_ms` in the kernels line is the least time the card could take for
 the work: the larger of the bytes each function must move (inputs read
@@ -124,20 +146,24 @@ kernel runs them so or on the CUDA cores) and 67 TFLOP/s for NMS (f32
 comparisons, no products: CUDA cores), the H100 SXM data sheet's rates,
 computed from this run's inputs; `bound_fraction` is bound_ms / ms. Each
 kernel's entry holds its bf16 numbers and, under "f32", its f32 ones (NMS
-runs in f32 only: the same numbers); the stage1 kernels, the stem weight
-gradient and ADown (forward, raw forward and backward) carry their
+runs in f32 only: the same numbers); the stage1 kernels, the stem
+kernels and ADown (forward, raw forward and backward) carry their
 numbers at each shape phase 3 or 6 ran under `shapes` (NMS at K = 512 and
 8400, and 8400 in the Evaluator's order, with the cluster size and the
-time a greedy step). The last three lines are the card's nvidia-smi line, a
-JSON line with one entry per kernel (`launches_device_augment`: phase
-11 (b)'s launches per dtype; `launches_exported`: phase 12's launches
-from the loaded archive), and {"ok": true, "device": {...}}.
+time a greedy step; ADown at gelan-c's and gelan-e's sites, gelan-e's
+sums under `gelan_e`). The last three lines are the card's nvidia-smi
+line, a JSON line with one entry per kernel (`launches_device_augment`:
+phase 11 (b)'s launches per dtype; `launches_exported`: phase 12's
+launches from the loaded archive; `launches_gelan_e`,
+`launches_gelan_c_d2`: phase 13's; `launches_cli`: phase 14's), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import subprocess
 import sys
@@ -150,8 +176,12 @@ import torch
 
 import torch.nn.functional as F
 
-from yolo_re_tpu_torch.convert import load_weights
+from yolo_re_tpu_torch import upstream
+from yolo_re_tpu_torch.cli import convert_weights, detect
+from yolo_re_tpu_torch.cli import train as train_cli
+from yolo_re_tpu_torch.cli import val as val_cli
 from yolo_re_tpu_torch.cli.profile_launches import random_model
+from yolo_re_tpu_torch.convert import load_weights, state_dict_from_jax
 from yolo_re_tpu_torch.data import device_pipeline
 from yolo_re_tpu_torch.data.config import AugmentConfig, DataConfig
 from yolo_re_tpu_torch.data.dataset import create_dataloader
@@ -182,6 +212,14 @@ BATCH, SIZE, FRAME_HW, REQUESTS = 32, 640, (720, 1280), 4
 ADOWN_SHAPES = {"down1": (256, 160, 160, 256), "down2": (512, 80, 80, 512),
                 "down3": (512, 40, 40, 512), "pan_down1": (256, 80, 80, 256),
                 "pan_down2": (512, 40, 40, 512)}
+# gelan-e's (width 1.25): Co = 160 and 320 a branch, packed to N = 256 and
+# 512 with a zero tail in the last n-block
+GELAN_E_ADOWN_SHAPES = {
+    "down1": (320, 160, 160, 320), "down2": (640, 80, 80, 640),
+    "down3": (640, 40, 40, 640), "pan_down1": (320, 80, 80, 320),
+    "pan_down2": (640, 40, 40, 640)}
+ADOWN_MODELS = {"gelan-c": ADOWN_SHAPES, "gelan-e": GELAN_E_ADOWN_SHAPES}
+STEM_WIDTHS = (64, 80)     # the stem's C: gelan-c (and yolov9-c), gelan-e
 # (K, sorted, iou): serving candidates; all anchors at 640 px; all anchors
 # in the Evaluator's order (by score, the zeros last) at its iou 0.6
 NMS_CASES = ((512, False, 0.45), (8400, False, 0.45), (8400, True, 0.6))
@@ -192,6 +230,15 @@ TRAIN_STEPS = 5            # counted gelan-c train steps (after one warm-up)
 WGRAD_BATCHES = (BATCH, 8)   # the stem weight gradient's bf16 shapes
 EVAL_IMAGES = 64           # phase 9 (b): two batches of 32
 V9C_TRAIN_STEPS = 3        # counted yolov9-c train steps (after one warm-up)
+# phase 13: the kernel sites of the fused gelan-e and gelan-c-d2 (gelan-e's
+# 40-channel bottlenecks and 80-channel 3x3 convs are outside the chain's
+# and conv3's geometry; gelan-c-d2 runs stage1's chains at n = 2 and eight
+# bottlenecks' convs in stage2 and fpn2); counted gelan-e train steps
+GELAN_E_SITES = {"stem": 1, "adown": 5, "csp_chain": 0, "conv3": 0}
+GELAN_C_D2_SITES = {"stem": 1, "adown": 5, "csp_chain": 2, "conv3": 10}
+GELAN_E_TRAIN_STEPS = 3
+# phase 14: detect and val images, train images and batch of the CLIs
+CLI_IMAGES, CLI_TRAIN_IMAGES, CLI_BATCH = 6, 32, 8
 # phase 11: the general warp's hyperparameters; target rows (mosaic x4 and
 # mixup x2 of the synthetic sets' 1-3 boxes fit); on-disk train batches;
 # tolerances of tests/test_torch_augment.py (bf16 also one ulp of |ref|)
@@ -334,6 +381,44 @@ def adown_site(name: str, tag: str, x: torch.Tensor, y: torch.Tensor,
     return r
 
 
+def adown_sites(rand, dtype: torch.dtype, tag: str, model: str,
+                shapes: dict) -> dict:
+    """ADown (`adown`, then the packed call a fused ADown makes, timed) at
+    `model`'s sites against the plain version. Returns the sums over the
+    sites, their summed bound and each site's numbers under "sites"."""
+    tot = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": [],
+           "sites": {}}
+    for name, (cin, h, wd, cout) in shapes.items():
+        x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
+        args = (rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype),
+                rand(cout // 2, dtype=dtype),
+                rand(cout // 2, cin // 2, 1, 1, scale=0.06, dtype=dtype),
+                rand(cout // 2, dtype=dtype))
+        ref = adown.adown_plain(x, *args)
+        err = check_close(f"adown {model} {name} {tag} {tuple(x.shape)}->"
+                          f"{cout}", adown.adown(x, *args), ref, dtype)
+        # the fused block's call: weights packed once, as ADown.fuse()
+        w1p, w2p = adown.pack_weights(args[0], args[2])
+        y = adown.adown_packed(x, w1p, args[1], w2p, args[3])
+        err = max(err, check_close(f"adown_packed {model} {name} {tag}", y,
+                                   ref, dtype))
+        ms = cuda_ms(lambda: adown.adown_packed(x, w1p, args[1], w2p,
+                                                args[3]), 5)
+        plain_ms = cuda_ms(lambda: adown.adown_plain(x, *args), 5)
+        r = adown_site(f"{model} {name}", tag, x, y, ms, plain_ms, False,
+                       args)
+        tot["err"] = max(tot["err"], err)
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bounds"].append(r)
+        tot["sites"][name] = r
+        del x, y, ref
+    print(f"  adown {model} {tag}, sum of {len(shapes)} sites: kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound "
+          f"{sum(b['bound_ms'] for b in tot['bounds']):.4f} ms")
+    return {**tot, **add_bounds(tot.pop("bounds")), "library_ms": None}
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version at the main path's shapes.
     Returns the numbers per kernel and dtype; these launches are outside
@@ -344,55 +429,38 @@ def phase_kernels(dev) -> dict:
         t = (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
         return t.contiguous(memory_format=torch.channels_last) if cl else t
 
-    res = {k: {} for k in ("stem", "adown", "nms", "csp_chain", "conv3")}
+    res = {k: {} for k in ("stem", "stem_shapes", "adown", "nms",
+                           "csp_chain", "conv3")}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         x = rand(BATCH, 3, SIZE, SIZE, dtype=dtype, cl=True)
-        w, b = rand(64, 3, 3, 3, scale=0.3, dtype=dtype), rand(64, dtype=dtype)
-        y = stem.stem_conv(x, w, b)
-        err = check_close(f"stem {tag} {tuple(x.shape)}->64", y,
-                          stem.stem_conv_plain(x, w, b), dtype)
-        if not torch.equal(y, stem.stem_conv(x, w, b)):
-            raise AssertionError(f"stem {tag}: two calls differ")
-        ms = cuda_ms(lambda: stem.stem_conv(x, w, b))
-        plain_ms = cuda_ms(lambda: stem.stem_conv_plain(x, w, b))
-        lib_ms = cuda_ms(lambda: F.conv2d(x, w, b, stride=2, padding=1))
-        print(f"  stem {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"F.conv2d {lib_ms:.4f} ms")
-        res["stem"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                            "library_ms": lib_ms, **bound(
-                                nbytes(x, w, b, y), conv_flops(x, y, 3),
-                                rate(tag))}
-        del x, y
+        for c in STEM_WIDTHS:
+            w, b = rand(c, 3, 3, 3, scale=0.3, dtype=dtype), \
+                rand(c, dtype=dtype)
+            y = stem.stem_conv(x, w, b)
+            err = check_close(f"stem {tag} {tuple(x.shape)}->{c}", y,
+                              stem.stem_conv_plain(x, w, b), dtype)
+            if not torch.equal(y, stem.stem_conv(x, w, b)):
+                raise AssertionError(f"stem {tag} C={c}: two calls differ")
+            ms = cuda_ms(lambda: stem.stem_conv(x, w, b))
+            plain_ms = cuda_ms(lambda: stem.stem_conv_plain(x, w, b))
+            lib_ms = cuda_ms(lambda: F.conv2d(x, w, b, stride=2, padding=1))
+            r = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, **bound(
+                     nbytes(x, w, b, y), conv_flops(x, y, 3), rate(tag))}
+            print(f"  stem C={c} {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            res["stem_shapes"][(c, tag)] = r
+            del y
+        res["stem"][tag] = res["stem_shapes"][(STEM_WIDTHS[0], tag)]
+        del x
 
-        tot = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": [],
-               "sites": {}}
-        for name, (cin, h, wd, cout) in ADOWN_SHAPES.items():
-            x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
-            args = (rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype),
-                    rand(cout // 2, dtype=dtype),
-                    rand(cout // 2, cin // 2, 1, 1, scale=0.06, dtype=dtype),
-                    rand(cout // 2, dtype=dtype))
-            ref = adown.adown_plain(x, *args)
-            err = check_close(f"adown {name} {tag} {tuple(x.shape)}->{cout}",
-                              adown.adown(x, *args), ref, dtype)
-            # the fused block's call: weights packed once, as ADown.fuse()
-            w1p, w2p = adown.pack_weights(args[0], args[2])
-            y = adown.adown_packed(x, w1p, args[1], w2p, args[3])
-            err = max(err, check_close(f"adown_packed {name} {tag}", y, ref,
-                                       dtype))
-            ms = cuda_ms(lambda: adown.adown_packed(x, w1p, args[1], w2p,
-                                                    args[3]), 5)
-            plain_ms = cuda_ms(lambda: adown.adown_plain(x, *args), 5)
-            r = adown_site(name, tag, x, y, ms, plain_ms, False, args)
-            tot["err"] = max(tot["err"], err)
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["bounds"].append(r)
-            tot["sites"][name] = r
-            del x, y, ref
-        res["adown"][tag] = {**tot, **add_bounds(tot.pop("bounds")),
-                             "library_ms": None}
+        for model, shapes in ADOWN_MODELS.items():
+            res["adown"][(model, tag)] = adown_sites(rand, dtype, tag,
+                                                     model, shapes)
+        res["adown"][tag] = res["adown"][("gelan-c", tag)]
+
 
         for n in CHAIN_DEPTHS:
             m = rand(BATCH, 32, *STAGE1_HW, dtype=dtype, cl=True)
@@ -504,6 +572,72 @@ def check_rel(name: str, y: torch.Tensor, ref: torch.Tensor,
     return float((y.float() - ref.float()).abs().max())
 
 
+def adown_train_sites(rand, dtype: torch.dtype, tag: str, model: str,
+                      shapes: dict) -> dict:
+    """adown_raw (its pack launch and the kernel, as the train forward
+    calls it) and adown_bwd at `model`'s sites against their plain
+    versions. Returns {"adown_raw": sums, "adown_bwd": sums}, each with
+    its summed bound and each site's numbers under "sites"."""
+    tot = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": [],
+               "sites": {}} for k in ("adown_raw", "adown_bwd")}
+    for name, (cin, h, wd, cout) in shapes.items():
+        site = f"{model} {name}"
+        x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
+        w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype)
+        w2 = rand(cout // 2, cin // 2, 1, 1, scale=0.06, dtype=dtype)
+        y = adown.adown_raw(x, w1, w2)
+        err = check_close(f"adown_raw {site} {tag} {tuple(x.shape)}", y,
+                          adown.adown_raw_plain(x, w1, w2), dtype)
+        # the two convs (3x3 and 1x1), each writing half of y
+        ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
+        ms = cuda_ms(lambda: adown.adown_raw(x, w1, w2), 5)
+        plain_ms = cuda_ms(lambda: adown.adown_raw_plain(x, w1, w2), 5)
+        r = adown_site(site, tag, x, y, ms, plain_ms, True, (w1, w2))
+        t = tot["adown_raw"]
+        t["err"], t["ms"], t["plain_ms"] = (
+            max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
+        t["bounds"].append(r)
+        t["sites"][name] = r
+        del y
+
+        gy = rand(BATCH, cout, h // 2, wd // 2, dtype=dtype, cl=True)
+        dx, dw1, dw2 = adown.adown_bwd(x, gy, w1, w2)
+        rdx, rdw1, rdw2 = adown.adown_bwd_plain(x, gy, w1, w2)
+        # max_abs_err is dx's; the weight gradients (sums over ~1e5
+        # pixels, values up to ~1e4) are held by relative L2
+        err = check_close(f"adown_bwd {site} {tag} dx", dx, rdx, dtype)
+        check_rel(f"adown_bwd {site} {tag} dW1", dw1, rdw1, dtype)
+        check_rel(f"adown_bwd {site} {tag} dW2", dw2, rdw2, dtype)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (dx, dw1, dw2), adown.adown_bwd(x, gy, w1, w2))):
+            raise AssertionError(f"adown_bwd {site} {tag}: two calls "
+                                 f"differ")
+        # the input and the weight gradients of both convs: twice the
+        # forward's products
+        bwd_bound = bound(nbytes(x, gy, w1, w2, dx, dw1, dw2), 2 * ops,
+                          rate(tag))
+        del dx, dw1, dw2, rdx, rdw1, rdw2
+        ms = cuda_ms(lambda: adown.adown_bwd(x, gy, w1, w2), 5)
+        plain_ms = cuda_ms(lambda: adown.adown_bwd_plain(x, gy, w1, w2), 5)
+        print(f"  adown_bwd {site} {tag}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bwd_bound['bound_ms']:.4f} ms "
+              f"({bwd_bound['bound_by']}, {bwd_bound['ops_rate']}), "
+              f"fraction {bwd_bound['bound_ms'] / ms:.3f}")
+        t = tot["adown_bwd"]
+        t["err"], t["ms"], t["plain_ms"] = (
+            max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
+        t["bounds"].append(bwd_bound)
+        t["sites"][name] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": None, **bwd_bound}
+        del x, gy
+    for k, t in tot.items():
+        print(f"  {k} {model} {tag}, sum of {len(shapes)} sites: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{sum(b['bound_ms'] for b in t['bounds']):.4f} ms")
+    return {k: {**v, **add_bounds(v.pop("bounds")), "library_ms": None}
+            for k, v in tot.items()}
+
+
 def phase_train_kernels(dev) -> dict:
     """The four train kernels against their plain versions at gelan-c's
     train shapes. Returns the bf16 numbers per kernel (ADown: summed over
@@ -514,110 +648,68 @@ def phase_train_kernels(dev) -> dict:
         t = (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
         return t.contiguous(memory_format=torch.channels_last) if cl else t
 
-    res = {k: {} for k in ("stem_raw", "stem_wgrad", "adown_raw",
-                           "adown_bwd")}
+    res = {k: {} for k in ("stem_raw", "stem_raw_shapes", "stem_wgrad",
+                           "adown_raw", "adown_bwd")}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         x = rand(BATCH, 3, SIZE, SIZE, dtype=dtype, cl=True)
-        w = rand(64, 3, 3, 3, scale=0.3, dtype=dtype)
-        y = stem.stem_conv_raw(x, w)
-        err = check_close(f"stem_raw {tag} {tuple(x.shape)}->64", y,
-                          stem.stem_conv_raw_plain(x, w), dtype)
-        if not torch.equal(y, stem.stem_conv_raw(x, w)):
-            raise AssertionError(f"stem_raw {tag}: two calls differ")
-        ms = cuda_ms(lambda: stem.stem_conv_raw(x, w))
-        plain_ms = cuda_ms(lambda: stem.stem_conv_raw_plain(x, w))
-        lib_ms = cuda_ms(lambda: F.conv2d(x, w, None, stride=2, padding=1))
-        print(f"  stem_raw {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, F.conv2d {lib_ms:.4f} ms")
-        res["stem_raw"][tag] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                                "library_ms": lib_ms, **bound(
-                                    nbytes(x, w, y), conv_flops(x, y, 3),
-                                    rate(tag))}
-        del y
-        # bf16 also at a quarter of the batch: fewer rows per CTA of the
-        # persistent grid
-        for bsz in WGRAD_BATCHES if dtype == torch.bfloat16 else (BATCH,):
-            xb = x[:bsz]
-            gy = rand(bsz, 64, SIZE // 2, SIZE // 2, dtype=dtype, cl=True)
-            dw = stem.stem_wgrad(xb, gy)
-            err = check_rel(f"stem_wgrad {tag} g {tuple(gy.shape)}", dw,
-                            stem.stem_wgrad_plain(xb, gy), dtype)
-            if not torch.equal(dw, stem.stem_wgrad(xb, gy)):
-                raise AssertionError("stem_wgrad: two calls differ")
-            ms = cuda_ms(lambda: stem.stem_wgrad(xb, gy))
-            plain_ms = cuda_ms(lambda: stem.stem_wgrad_plain(xb, gy))
-            lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
-                xb, w.shape, gy, stride=2, padding=1))
+        for c in STEM_WIDTHS:
+            w = rand(c, 3, 3, 3, scale=0.3, dtype=dtype)
+            y = stem.stem_conv_raw(x, w)
+            err = check_close(f"stem_raw {tag} {tuple(x.shape)}->{c}", y,
+                              stem.stem_conv_raw_plain(x, w), dtype)
+            if not torch.equal(y, stem.stem_conv_raw(x, w)):
+                raise AssertionError(f"stem_raw {tag} C={c}: two calls "
+                                     f"differ")
+            ms = cuda_ms(lambda: stem.stem_conv_raw(x, w))
+            plain_ms = cuda_ms(lambda: stem.stem_conv_raw_plain(x, w))
+            lib_ms = cuda_ms(lambda: F.conv2d(x, w, None, stride=2,
+                                              padding=1))
             r = {"err": err, "ms": ms, "plain_ms": plain_ms,
                  "library_ms": lib_ms, **bound(
-                     nbytes(xb, gy, dw), conv_flops(xb, gy, 3),
-                     rate(tag))}
-            print(f"  stem_wgrad {tag} {tuple(xb.shape)}: kernel {ms:.4f} "
-                  f"ms, plain {plain_ms:.4f} ms, conv2d_weight "
-                  f"{lib_ms:.4f} ms; bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}), fraction {r['bound_ms'] / ms:.3f}, "
-                  f"{nbytes(xb, gy) / ms / 1e9:.3f} TB/s")
-            res["stem_wgrad"][(bsz, tag)] = r
-            del gy
+                     nbytes(x, w, y), conv_flops(x, y, 3), rate(tag))}
+            print(f"  stem_raw C={c} {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, F.conv2d {lib_ms:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            res["stem_raw_shapes"][(c, tag)] = r
+            del y
+            # gelan-c's width in bf16 also at a quarter of the batch: fewer
+            # rows per CTA of the persistent grid
+            batches = WGRAD_BATCHES if dtype == torch.bfloat16 and \
+                c == STEM_WIDTHS[0] else (BATCH,)
+            for bsz in batches:
+                xb = x[:bsz]
+                gy = rand(bsz, c, SIZE // 2, SIZE // 2, dtype=dtype, cl=True)
+                dw = stem.stem_wgrad(xb, gy)
+                err = check_rel(f"stem_wgrad {tag} g {tuple(gy.shape)}", dw,
+                                stem.stem_wgrad_plain(xb, gy), dtype)
+                if not torch.equal(dw, stem.stem_wgrad(xb, gy)):
+                    raise AssertionError("stem_wgrad: two calls differ")
+                ms = cuda_ms(lambda: stem.stem_wgrad(xb, gy))
+                plain_ms = cuda_ms(lambda: stem.stem_wgrad_plain(xb, gy))
+                lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                    xb, w.shape, gy, stride=2, padding=1))
+                r = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, **bound(
+                         nbytes(xb, gy, dw), conv_flops(xb, gy, 3),
+                         rate(tag))}
+                print(f"  stem_wgrad C={c} {tag} {tuple(xb.shape)}: kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, conv2d_weight "
+                      f"{lib_ms:.4f} ms; bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}), fraction "
+                      f"{r['bound_ms'] / ms:.3f}, "
+                      f"{nbytes(xb, gy) / ms / 1e9:.3f} TB/s")
+                res["stem_wgrad"][(bsz, c, tag)] = r
+                del gy
+        res["stem_raw"][tag] = res["stem_raw_shapes"][(STEM_WIDTHS[0], tag)]
         del x
 
-        tot = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bounds": [],
-                   "sites": {}} for k in ("adown_raw", "adown_bwd")}
-        for name, (cin, h, wd, cout) in ADOWN_SHAPES.items():
-            x = rand(BATCH, cin, h, wd, dtype=dtype, cl=True)
-            w1 = rand(cout // 2, cin // 2, 3, 3, scale=0.03, dtype=dtype)
-            w2 = rand(cout // 2, cin // 2, 1, 1, scale=0.06, dtype=dtype)
-            y = adown.adown_raw(x, w1, w2)
-            err = check_close(f"adown_raw {name} {tag} {tuple(x.shape)}", y,
-                              adown.adown_raw_plain(x, w1, w2), dtype)
-            # the two convs (3x3 and 1x1), each writing half of y
-            ops = (9 + 1) * 2.0 * (cin // 2) * y.numel() / 2
-            # the pack launch and the kernel, as the train forward calls it
-            ms = cuda_ms(lambda: adown.adown_raw(x, w1, w2), 5)
-            plain_ms = cuda_ms(lambda: adown.adown_raw_plain(x, w1, w2), 5)
-            r = adown_site(name, tag, x, y, ms, plain_ms, True, (w1, w2))
-            t = tot["adown_raw"]
-            t["err"], t["ms"], t["plain_ms"] = (
-                max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
-            t["bounds"].append(r)
-            t["sites"][name] = r
-            del y
-
-            gy = rand(BATCH, cout, h // 2, wd // 2, dtype=dtype, cl=True)
-            dx, dw1, dw2 = adown.adown_bwd(x, gy, w1, w2)
-            rdx, rdw1, rdw2 = adown.adown_bwd_plain(x, gy, w1, w2)
-            # max_abs_err is dx's; the weight gradients (sums over ~1e5
-            # pixels, values up to ~1e4) are held by relative L2
-            err = check_close(f"adown_bwd {name} {tag} dx", dx, rdx, dtype)
-            check_rel(f"adown_bwd {name} {tag} dW1", dw1, rdw1, dtype)
-            check_rel(f"adown_bwd {name} {tag} dW2", dw2, rdw2, dtype)
-            if not all(torch.equal(a, b) for a, b in zip(
-                    (dx, dw1, dw2), adown.adown_bwd(x, gy, w1, w2))):
-                raise AssertionError(f"adown_bwd {name} {tag}: two calls "
-                                     f"differ")
-            # the input and the weight gradients of both convs: twice the
-            # forward's products
-            bwd_bound = bound(nbytes(x, gy, w1, w2, dx, dw1, dw2), 2 * ops,
-                              rate(tag))
-            del dx, dw1, dw2, rdx, rdw1, rdw2
-            ms = cuda_ms(lambda: adown.adown_bwd(x, gy, w1, w2), 5)
-            plain_ms = cuda_ms(lambda: adown.adown_bwd_plain(x, gy, w1, w2),
-                               5)
-            print(f"  adown_bwd {name} {tag}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bwd_bound['bound_ms']:.4f} ms "
-                  f"({bwd_bound['bound_by']}, {bwd_bound['ops_rate']}), "
-                  f"fraction {bwd_bound['bound_ms'] / ms:.3f}")
-            t = tot["adown_bwd"]
-            t["err"], t["ms"], t["plain_ms"] = (
-                max(t["err"], err), t["ms"] + ms, t["plain_ms"] + plain_ms)
-            t["bounds"].append(bwd_bound)
-            t["sites"][name] = {"ms": ms, "plain_ms": plain_ms,
-                                "library_ms": None, **bwd_bound}
-            del x, gy
-        for k, v in tot.items():
-            res[k][tag] = {**v, **add_bounds(v.pop("bounds")),
-                           "library_ms": None}
+        for model, shapes in ADOWN_MODELS.items():
+            tot = adown_train_sites(rand, dtype, tag, model, shapes)
+            for k, v in tot.items():
+                res[k][(model, tag)] = v
+        for k in ("adown_raw", "adown_bwd"):
+            res[k][tag] = res[k][("gelan-c", tag)]
     torch.cuda.empty_cache()
     return res
 
@@ -709,10 +801,10 @@ def phase_tiny_dual_train(dev, tmp: Path) -> None:
 
 
 def train_full(dev, tmp: Path, name: str, steps: int, batch_sizes,
-               pairs: dict, groups: tuple[str, ...] = ()
-               ) -> tuple[dict, dict]:
-    """`name` at full width, 640 px, bf16: synthetic uint8 batches (numpy
-    seeds 0...), one warm-up Trainer step, then `steps` through
+               pairs: dict, groups: tuple[str, ...] = (),
+               dtype: str = "bfloat16") -> tuple[dict, dict]:
+    """`name` at full width, 640 px, in `dtype`: synthetic uint8 batches
+    (numpy seeds 0...), one warm-up Trainer step, then `steps` through
     Trainer.train_one_epoch, the train kernels' launches held to `pairs`
     (stem and ADown kernel pairs) a step. The first batch size of
     `batch_sizes` whose warm-up step fits is used. Every BN buffer and
@@ -724,7 +816,7 @@ def train_full(dev, tmp: Path, name: str, steps: int, batch_sizes,
         model = YOLO.from_yaml(ROOT / "configs" / "models" / f"{name}.yaml")
         batches = [make_eval_batch(batch, SIZE, seed)
                    for seed in range(steps + 1)]
-        cfg = TrainConfig(epochs=1, compute_dtype="bfloat16",
+        cfg = TrainConfig(epochs=1, compute_dtype=dtype,
                           data_parallel=False, output_dir=str(tmp / name),
                           log_interval=1)
         trainer = Trainer(model, config=cfg, train_loader=batches[1:],
@@ -858,13 +950,16 @@ def reset_counts() -> None:
     csp_chain.launches = conv3.launches = 0
 
 
-def kernel_sites(fused: YOLO, steps=None) -> dict:
+def kernel_sites(fused: YOLO, steps=None, expect: dict | None = None
+                 ) -> dict:
     """Launches of each inference kernel in one forward of a fused model
     (or of its `steps`, such as its `main_steps`), from its blocks' kernel
     gates (gelan-c: the stem, five ADowns, stage1's two bottleneck chains,
     six 64 -> 64 3x3 convs: stage1's two block convs and the bottleneck
     convs of stage2's and fpn2's RepNCSPs; yolov9-c's aux branch adds a
-    stem, three ADowns, aux_stage1's two chains and four convs)."""
+    stem, three ADowns, aux_stage1's two chains and four convs). Every
+    kernel must have a site, or the sites must equal `expect` (gelan-e
+    runs no chain and no conv3)."""
     layers = [fused.layers[s.name] for s in steps] if steps is not None \
         else [fused]
     mods = [m for layer in layers for m in layer.modules()]
@@ -875,20 +970,21 @@ def kernel_sites(fused: YOLO, steps=None) -> dict:
                          for m in mods),
         "conv3": sum(isinstance(m, blocks.Conv) and m.is_conv3
                      for m in mods)}
-    if min(sites.values()) < 1:
+    if expect is not None and sites != expect:
+        raise AssertionError(f"kernel sites {sites}, expected {expect}")
+    if expect is None and min(sites.values()) < 1:
         raise AssertionError(f"a kernel has no site in the model: {sites}")
     return sites
 
 
-def phase_gelan_c(dev) -> tuple[dict, YOLO, dict]:
-    """Returns the launch counts of the four requests, the model (phase 9
-    evaluates its weights) and its kernel sites per forward."""
-    model = random_model("gelan-c")
+def f32_forward(dev, model: YOLO, name: str, expect: dict | None = None
+                ) -> dict:
+    """Full-width f32 check: the fused `model` on cuda (kernels) against
+    the same fused model on the CPU (plain versions), decoded output at
+    one 256 px image, the launches held to its kernel sites. Returns the
+    sites."""
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"  gelan-c: {n_params} parameters, strides {model.strides}")
-
-    # full-width f32 check: the fused model on cuda (kernels) against the
-    # same fused model on the CPU (plain versions), decoded output
+    print(f"  {name}: {n_params} parameters, strides {model.strides}")
     f32 = copy.deepcopy(model).fuse()
     x = torch.rand(1, 3, 256, 256, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -902,13 +998,19 @@ def phase_gelan_c(dev) -> tuple[dict, YOLO, dict]:
           f"px (tol 1e-2), scores {cls_err:.3e} (tol 1e-4); launches "
           f"{f32_counts}")
     if not (box_err <= 1e-2 and cls_err <= 1e-4):
-        raise AssertionError("gelan-c f32: cuda and cpu decoded differ")
-    sites = kernel_sites(f32)
+        raise AssertionError(f"{name} f32: cuda and cpu decoded differ")
+    sites = kernel_sites(f32, expect=expect)
     print(f"  kernel launches per forward: {sites}")
     if f32_counts != {**sites, "nms": 0}:
-        raise AssertionError(f"gelan-c f32: launch counts {f32_counts}")
-    del f32
+        raise AssertionError(f"{name} f32: launch counts {f32_counts}")
+    return sites
 
+
+def phase_gelan_c(dev) -> tuple[dict, YOLO, dict]:
+    """Returns the launch counts of the four requests, the model (phase 9
+    evaluates its weights) and its kernel sites per forward."""
+    model = random_model("gelan-c")
+    sites = f32_forward(dev, model, "gelan-c")
     counts = serve_requests(dev, model, sites, "gelan-c")
     return counts, model, sites
 
@@ -981,11 +1083,11 @@ def phase_eval(dev, tmp: Path, gelan_c: YOLO, sites: dict,
 
 
 def eval_launches(dev, tmp: Path, model: YOLO, sites: dict,
-                  name: str) -> dict:
-    """`model`'s weights, fused, bf16, over EVAL_IMAGES synthetic images
-    letterboxed to SIZE by the val loader, batch BATCH: a warm-up pass,
-    then a counted one with the launches held to `sites` plus one NMS per
-    batch. Returns the launch counts."""
+                  name: str, dtype: str = "bfloat16") -> dict:
+    """`model`'s weights, fused, in `dtype`, over EVAL_IMAGES synthetic
+    images letterboxed to SIZE by the val loader, batch BATCH: a warm-up
+    pass, then a counted one with the launches held to `sites` plus one
+    NMS per batch. Returns the launch counts."""
     val = write_dataset(str(tmp / name), "val", EVAL_IMAGES, seed=2)
     data = DataConfig(val_path=val, num_classes=model.num_classes,
                       img_size=SIZE, batch_size=BATCH, workers=8)
@@ -995,7 +1097,7 @@ def eval_launches(dev, tmp: Path, model: YOLO, sites: dict,
     print(f"  val loader alone (decode, letterbox, f32 batches): "
           f"{n / (time.perf_counter() - t0):.1f} images/s")
     ev = Evaluator(model, create_dataloader(val, data, "val"),
-                   compute_dtype="bfloat16", device=dev)
+                   compute_dtype=dtype, device=dev)
     sd = model.state_dict()
     ev.evaluate(sd)                       # warm-up (cuDNN algorithm choice)
     torch.cuda.synchronize()
@@ -1007,7 +1109,7 @@ def eval_launches(dev, tmp: Path, model: YOLO, sites: dict,
     counts = counts_now()
     batches = EVAL_IMAGES // BATCH
     want = {k: v * batches for k, v in {**sites, "nms": 1}.items()}
-    print(f"  {name} bf16 eval, {EVAL_IMAGES} images at {SIZE} px, batch "
+    print(f"  {name} {dtype} eval, {EVAL_IMAGES} images at {SIZE} px, batch "
           f"{BATCH}: {EVAL_IMAGES / dt:.1f} images/s (host clock, loader "
           f"included), Evaluator images_per_sec "
           f"{out['images_per_sec']:.1f}; mAP50 {out['map50']:.4f} mAP "
@@ -1273,14 +1375,150 @@ def phase_export(dev, tmp: Path, model: YOLO, sites: dict) -> dict:
     return counts
 
 
+def phase_more_configs(dev, tmp: Path) -> dict:
+    """Phase 13: gelan-e and gelan-c-d2 at full width and depth (random
+    weights from seed 0, class biases 0): (a) phase 5's f32 check, the
+    launches held to the sites of GELAN_E_SITES / GELAN_C_D2_SITES; (b)
+    serving as phase 5; (c) eval as phase 9 (b), bf16 and f32; (d)
+    gelan-e training, bf16 and f32, batch 32 (16 if 32 does not fit), a
+    warm-up and GELAN_E_TRAIN_STEPS counted steps of one stem pair and
+    five ADown pairs. Returns the launch counts by model and path."""
+    counts = {}
+    for name, expect in (("gelan-e", GELAN_E_SITES),
+                         ("gelan-c-d2", GELAN_C_D2_SITES)):
+        print(f"  {name} (a): f32, cuda against the CPU")
+        model = random_model(name)
+        sites = f32_forward(dev, model, name, expect)
+        print(f"  {name} (b): serving")
+        c = {"serving": serve_requests(dev, model, sites, name)}
+        print(f"  {name}: launches per request "
+              f"{ {k: v // REQUESTS for k, v in c['serving'].items()} }")
+        print(f"  {name} (c): eval")
+        for dtype in ("bfloat16", "float32"):
+            c[f"eval {dtype}"] = eval_launches(dev, tmp, model, sites, name,
+                                               dtype)
+        del model
+        if name == "gelan-e":
+            for dtype in ("bfloat16", "float32"):
+                print(f"  {name} (d): training, {dtype}")
+                c[f"train {dtype}"], _ = train_full(
+                    dev, tmp, name, GELAN_E_TRAIN_STEPS, (BATCH, BATCH // 2),
+                    {"stem": 1, "adown": 5}, dtype=dtype)
+                torch.cuda.empty_cache()
+        counts[name] = c
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_clis(dev, tmp: Path) -> dict:
+    """Phase 14: the CLIs on the card. The trained tiny fixture written as
+    an upstream-schema `.pt` (TINY_YAML in a file named gelan-c.yaml: its
+    layers are a subset of gelan-c's, by name, so gelan-c's layer map
+    places them); cli.convert_weights to an .npz; cli.detect on
+    CLI_IMAGES synthetic images with --device cuda (launches held to the
+    fused model's sites and one NMS an image) and --device cpu (none),
+    equal detections; cli.train, one epoch on the card from a written set
+    (the train launches held to a stem pair and four ADown pairs a step);
+    cli.val on the checkpoint it wrote, fused (held to the sites and one
+    NMS a batch). Returns the launch counts of the three."""
+    cfg = str(tmp / "gelan-c.yaml")
+    Path(cfg).write_text(TINY_YAML)
+    tiny = YOLO.from_yaml(cfg)
+    sd = state_dict_from_jax(tiny.plan, *load_weights(
+        str(ROOT / "assets" / "dryrun_tiny.npz")))
+    torch.save(upstream.reference_to_upstream_sd(sd, "gelan-c"),
+               tmp / "up.pt")
+    convert_weights.main(["--weights", str(tmp / "up.pt"), "--config", cfg,
+                          "--output", str(tmp / "up.npz")])
+    sites = kernel_sites(tiny.fuse(), expect={"stem": 1, "adown": 4,
+                                              "csp_chain": 0, "conv3": 1})
+    val_dir = write_dataset(str(tmp / "data"), "val", CLI_IMAGES, seed=3)
+    found, counts = {}, {}
+    for d in ("cuda", "cpu"):
+        reset_counts()
+        detect.main(["--weights", str(tmp / "up.npz"), "--config", cfg,
+                     "--source", val_dir, "--output", str(tmp / d),
+                     "--img-size", "160", "--num-classes", "4", "--device",
+                     d, "--json", str(tmp / f"{d}.json")])
+        found[d] = json.loads((tmp / f"{d}.json").read_text())
+        counts[f"detect {d}"] = counts_now()
+    print(f"  detect launches: {counts}")
+    want = {k: v * CLI_IMAGES for k, v in {**sites, "nms": 1}.items()}
+    if counts["detect cuda"] != want or any(counts["detect cpu"].values()):
+        raise AssertionError(f"detect launch counts {counts}, expected "
+                             f"{want} on cuda and none on the CPU")
+    n, box_err, score_err = 0, 0.0, 0.0
+    for name, ref in found["cpu"].items():
+        got = np.asarray(found["cuda"][name], np.float32).reshape(-1, 6)
+        ref = np.asarray(ref, np.float32).reshape(-1, 6)
+        if got.shape != ref.shape or not np.array_equal(got[:, 5],
+                                                        ref[:, 5]):
+            raise AssertionError(f"detect {name}: cuda {got} against cpu "
+                                 f"{ref}")
+        n += len(ref)
+        if len(ref):
+            box_err = max(box_err, float(np.abs(got[:, :4] - ref[:, :4])
+                                         .max()))
+            score_err = max(score_err, float(np.abs(got[:, 4] - ref[:, 4])
+                                             .max()))
+    print(f"  detect: {n} detections on {CLI_IMAGES} images, cuda against "
+          f"cpu: classes equal, boxes {box_err:.3e} px (tol 1e-2), scores "
+          f"{score_err:.3e} (tol 1e-4)")
+    if n == 0 or found["cpu"].keys() != found["cuda"].keys() or \
+            box_err > 1e-2 or score_err > 1e-4:
+        raise AssertionError("detect: cuda and cpu detections differ")
+
+    train_dir = write_dataset(str(tmp / "data"), "train", CLI_TRAIN_IMAGES,
+                              seed=4)
+    stem.raw_launches = stem.wgrad_launches = 0
+    adown.raw_launches = adown.bwd_launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["--data", train_dir, "--val", val_dir, "--num-classes",
+                    "4", "--config", cfg, "--epochs", "1", "--batch",
+                    str(CLI_BATCH), "--img-size", "160", "--workers", "4",
+                    "--augment", "minimal", "--output", str(tmp / "train"),
+                    "--device", "cuda"])
+    steps = CLI_TRAIN_IMAGES // CLI_BATCH
+    counts["train"] = {"stem_raw": stem.raw_launches,
+                       "stem_wgrad": stem.wgrad_launches,
+                       "adown_raw": adown.raw_launches,
+                       "adown_bwd": adown.bwd_launches}
+    print(f"  train: {steps} steps and validation in "
+          f"{time.perf_counter() - t0:.1f} s; launches {counts['train']}")
+    if counts["train"] != {"stem_raw": steps, "stem_wgrad": steps,
+                           "adown_raw": 4 * steps, "adown_bwd": 4 * steps}:
+        raise AssertionError(f"train launch counts {counts['train']}")
+
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        val_cli.main(["--weights", str(tmp / "train" / "last.npz"),
+                      "--config", cfg, "--data", val_dir, "--num-classes",
+                      "4", "--img-size", "160", "--batch", str(CLI_BATCH),
+                      "--workers", "4", "--device", "cuda", "--fuse"])
+    counts["val"] = counts_now()
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"  val of the trained checkpoint: {line}; launches "
+          f"{counts['val']}")
+    values = dict(kv.split("=") for kv in line.split())
+    batches = -(-CLI_IMAGES // CLI_BATCH)
+    if counts["val"] != {k: v * batches for k, v in
+                         {**sites, "nms": 1}.items()} or \
+            not all(np.isfinite(float(v)) for v in values.values()):
+        raise AssertionError(f"val: {line}, launches {counts['val']}")
+    return counts
+
+
 def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
-                 v9c: dict, aug: dict, exported: dict) -> list[dict]:
+                 v9c: dict, aug: dict, exported: dict, more: dict,
+                 clis: dict) -> list[dict]:
     """The kernels JSON line's entries from phases 3 and 6's numbers and
     the launch counts of phases 5 and 8 (`launches`, gelan-c), of phase
     10 (`launches_yolov9_c`: serving, eval and train), of phase 11 (b)
-    (`launches_device_augment`, per dtype) and of phase 12
-    (`launches_exported`: the loaded archive's requests); prints each
-    dtype's fractions of the bound."""
+    (`launches_device_augment`, per dtype), of phase 12
+    (`launches_exported`: the loaded archive's requests), of phase 13
+    (`launches_gelan_e`, `launches_gelan_c_d2`: serving, eval and train
+    per dtype) and of phase 14 (`launches_cli`: detect on cuda, train,
+    val); prints each dtype's fractions of the bound."""
     # (name, source, TPU kernel, launches, {dtype: numbers}); NMS runs in
     # f32 only
     rows = (
@@ -1293,7 +1531,7 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
         ("stem_conv_raw", "stem.cu", "stem_kernel.py:265",
          tcounts["stem_raw"], tres["stem_raw"]),
         ("stem_wgrad", "stem_wgrad.cu", "stem_kernel.py:331",
-         tcounts["stem_wgrad"], {t: tres["stem_wgrad"][(BATCH, t)]
+         tcounts["stem_wgrad"], {t: tres["stem_wgrad"][(BATCH, 64, t)]
                                  for t in ("bf16", "f32")}),
         ("adown_raw", "adown.cu", "adown_kernel.py:233",
          tcounts["adown_raw"], tres["adown_raw"]),
@@ -1324,6 +1562,9 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
         return {path: v9c[path].get(key, 0)
                 for path in ("serving", "eval", "train")}
 
+    def by_path(paths: dict, name: str) -> dict:
+        return {path: c.get(v9c_key[name], 0) for path, c in paths.items()}
+
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"yolo_re_tpu_torch/csrc/{src}",
@@ -1332,8 +1573,19 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
         "launches_device_augment": {
             tag: aug[tag].get(v9c_key[name], 0) for tag in aug},
         "launches_exported": exported.get(v9c_key[name], 0),
+        "launches_gelan_e": by_path(more["gelan-e"], name),
+        "launches_gelan_c_d2": by_path(more["gelan-c-d2"], name),
+        "launches_cli": by_path({k: v for k, v in clis.items()
+                                 if k != "detect cpu"}, name),
         **numbers(r["bf16"]), "f32": numbers(r["f32"])}
         for name, src, tpu, launches, r in rows]
+    # the ADown kernels' sums over gelan-e's five sites
+    for k in kernels:
+        if k["name"] in ("adown", "adown_raw", "adown_bwd"):
+            src = res if k["name"] == "adown" else tres
+            for tag in ("bf16", "f32"):
+                (k if tag == "bf16" else k["f32"])["gelan_e"] = numbers(
+                    src[k["name"]][("gelan-e", tag)])
 
     # the stage1 kernels, the stem weight gradient and ADown at every shape
     # phases 3 and 6 ran
@@ -1345,13 +1597,17 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
             "conv3_silu": {f"{hw[0]}x{hw[1]}": res["conv3"][(hw, tag)]
                            for hw in CONV3_HW},
             "nms_select": res["nms"],
-            "stem_wgrad": {f"{b}x3x{SIZE}x{SIZE}":
-                           tres["stem_wgrad"][(b, tag)]
-                           for b in WGRAD_BATCHES
-                           if (b, tag) in tres["stem_wgrad"]},
-            "adown": res["adown"][tag]["sites"],
-            "adown_raw": tres["adown_raw"][tag]["sites"],
-            "adown_bwd": tres["adown_bwd"][tag]["sites"]}
+            "stem_conv": {f"C={c}": res["stem_shapes"][(c, tag)]
+                          for c in STEM_WIDTHS},
+            "stem_conv_raw": {f"C={c}": tres["stem_raw_shapes"][(c, tag)]
+                              for c in STEM_WIDTHS},
+            "stem_wgrad": {f"{b}x3x{SIZE}x{SIZE} C={c}": r
+                           for (b, c, t), r in tres["stem_wgrad"].items()
+                           if t == tag},
+            **{k: {f"{model} {site}": r for model in ADOWN_MODELS
+                   for site, r in (res if k == "adown" else tres)[k][
+                       (model, tag)]["sites"].items()}
+               for k in ("adown", "adown_raw", "adown_bwd")}}
 
     for tag in ("bf16", "f32"):
         shapes = per_shape(tag)
@@ -1398,6 +1654,7 @@ def main() -> int:
                 torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
     smi = nvidia_smi()
 
     print("phase 1: environment")
@@ -1452,8 +1709,18 @@ def main() -> int:
         print("phase 12: the serving export")
         exported = phase_export(dev, Path(td), gelan_c, sites)
     del gelan_c
+    torch.cuda.empty_cache()
 
-    kernels = kernels_line(res, tres, counts, tcounts, v9c, aug, exported)
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 13: gelan-e and gelan-c-d2")
+        more = phase_more_configs(dev, Path(td))
+
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 14: the CLIs on the card")
+        clis = phase_clis(dev, Path(td))
+
+    kernels = kernels_line(res, tres, counts, tcounts, v9c, aug, exported,
+                           more, clis)
     print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "
           f"the serving, eval and train shapes, library calls with TF32 "
           f"off; adown kernels are the sum of gelan-c's five ADown shapes "
@@ -1479,7 +1746,17 @@ def main() -> int:
           f"{EVAL_IMAGES // BATCH} eval batches and {V9C_TRAIN_STEPS} "
           f"counted train steps; launches_device_augment: phase 11 (b)'s "
           f"{AUG_TRAIN_BATCHES} counted steps per dtype; launches_exported: "
-          f"phase 12's {REQUESTS} requests through the loaded archive)")
+          f"phase 12's {REQUESTS} requests through the loaded archive; "
+          f"launches_gelan_e, launches_gelan_c_d2: phase 13's {REQUESTS} "
+          f"requests, {EVAL_IMAGES // BATCH} eval batches per dtype and "
+          f"gelan-e's {GELAN_E_TRAIN_STEPS} counted train steps per dtype; "
+          f"launches_cli: phase 14's detect on cuda ({CLI_IMAGES} images), "
+          f"train ({CLI_TRAIN_IMAGES // CLI_BATCH} steps) and val; the ADown "
+          f"kernels' sums over gelan-e's five sites under 'gelan_e', and "
+          f"the stem kernels at C=64 (gelan-c) and C=80 (gelan-e) under "
+          f"'shapes')")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"kernels' build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

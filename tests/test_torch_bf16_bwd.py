@@ -14,7 +14,7 @@ backward; summing each 64-deep chunk apart and adding the chunks in f32
 (the f32 kernels' way) moves the weight gradients by less than the f32
 kernels' own tolerance (relative L2 1e-5). The
 slab count of the bf16 weight gradient (`adown._bwd_slabs`) is checked at
-gelan-c's five ADown sites on an H100's SM count.
+gelan-c's and gelan-e's five ADown sites on an H100's SM count.
 """
 
 from types import SimpleNamespace
@@ -39,6 +39,10 @@ H100_SMS = 132
 GELAN_C = {"down1": (256, 160, 160, 256), "down2": (512, 80, 80, 512),
            "down3": (512, 40, 40, 512), "pan_down1": (256, 80, 80, 256),
            "pan_down2": (512, 40, 40, 512)}
+# gelan-e's (width 1.25): Co = 160 and 320 a branch
+GELAN_E = {"down1": (320, 160, 160, 320), "down2": (640, 80, 80, 640),
+           "down3": (640, 40, 40, 640), "pan_down1": (320, 80, 80, 320),
+           "pan_down2": (640, 40, 40, 640)}
 
 
 def bf(t: torch.Tensor) -> torch.Tensor:
@@ -180,14 +184,13 @@ def test_m_rounded_after_the_max_is_the_max_of_the_rounded_avg(kind):
     assert not torch.equal(after, F.max_pool2d(a, 3, 2, 1))
 
 
-def test_bf16_slabs_fill_the_rounds_of_resident_blocks(h100):
-    """dw_bf16's slab count at gelan-c's five sites on an H100 (2 blocks
-    an SM): its blocks never exceed the rounds of resident blocks that
-    4096-pixel slabs take, and fill more of them; a small call keeps at
-    least one 64-pixel chunk a slab."""
+def _site_slabs(sites: dict) -> dict:
+    """dw_bf16's slab count at each ADown site (batch 32) on an H100 (2
+    blocks an SM), checked: its blocks never exceed the rounds of resident
+    blocks that 4096-pixel slabs take, and fill more of them."""
     resident = adown.BWD_BF16_BLOCKS_PER_SM * H100_SMS
     got = {}
-    for name, (cin, h, w, cout) in GELAN_C.items():
+    for name, (cin, h, w, cout) in sites.items():
         ch, co, n = cin // 2, cout // 2, 32 * (h // 2) * (w // 2)
         slabs = adown._bwd_slabs(n, ch, co, torch.device("cuda"))
         per_slab = 10 * -(-ch // 128) * -(-co // 128)
@@ -198,25 +201,44 @@ def test_bf16_slabs_fill_the_rounds_of_resident_blocks(h100):
         assert (slabs + 1) * per_slab > rounds * resident or \
             slabs == adown.BWD_MAX_SLABS
         got[name] = slabs
-    assert got == {"down1": 52, "down2": 13, "down3": 6, "pan_down1": 26,
-                   "pan_down2": 6}
+    return got
+
+
+def test_bf16_slabs_fill_the_rounds_of_resident_blocks(h100):
+    """dw_bf16's slab count at gelan-c's five sites on an H100 (2 blocks
+    an SM): its blocks never exceed the rounds of resident blocks that
+    4096-pixel slabs take, and fill more of them; a small call keeps at
+    least one 64-pixel chunk a slab."""
+    assert _site_slabs(GELAN_C) == {"down1": 52, "down2": 13, "down3": 6,
+                                    "pan_down1": 26, "pan_down2": 6}
     assert adown._bwd_slabs(300, 16, 24, torch.device("cuda")) == 5
     assert adown._bwd_slabs(30, 8, 8, torch.device("cuda")) == 1
+
+
+def test_bf16_slabs_at_gelan_e_sites(h100):
+    """The same at gelan-e's five sites: Ch = Co = 160 (two 128-channel
+    tiles of each, the second partial: 40 blocks a slab) at down1 and
+    pan_down1, 320 (three tiles: 90 blocks a slab) at the other three."""
+    assert _site_slabs(GELAN_E) == {"down1": 52, "down2": 14, "down3": 5,
+                                    "pan_down1": 13, "pan_down2": 5}
 
 
 @pytest.mark.parametrize("chunked", [False, True],
                          ids=["tensor_cores", "chunk_sums"])
 @pytest.mark.parametrize("shape,co,halves", [((2, 256, 96, 96), 128, True),
                                              ((2, 256, 96, 96), 128, False),
-                                             ((1, 32, 19, 23), 24, True)])
+                                             ((1, 32, 19, 23), 24, True),
+                                             ((1, 320, 24, 20), 160, False),
+                                             ((1, 640, 12, 10), 320, True)])
 def test_bf16_products_meet_the_bf16_tolerance(h100, shape, co, halves,
                                                chunked):
     """Against the f64 backward of the same bf16 values. (2, 256, 96, 96)
     -> 128: gelan-c's branch width, 4608 output pixels in the H100's 26
     slabs of 178, x quantized to halves (exact in bf16: the avg and M are
     too) and standard normal (the avg and M rounded); (1, 32, 19, 23) ->
-    24: Ch = 16, Co = 24 (a partial 64-channel chunk), odd H and W. The
-    two ways of summing differ by less than the f32 tolerance."""
+    24: Ch = 16, Co = 24 (a partial 64-channel chunk), odd H and W;
+    gelan-e's widths, Ch = Co = 160 and 320 (partial 128-channel tiles of
+    dW). The two ways of summing differ by less than the f32 tolerance."""
     x, g, w1, w2 = _inputs(len(shape) + co + halves, shape, co, halves)
     bsz, cin, h, w = shape
     slabs = adown._bwd_slabs(bsz * (h // 2) * (w // 2), cin // 2, co,

@@ -60,10 +60,11 @@ def _rand(g, *shape, scale=1.0, dtype=torch.float32, cl=False):
 # (x shape, C): odd H and W (input rows that are not 16-byte aligned, the
 # conv's zero column on the right, a ragged last tile), 2 x 2 (one output
 # pixel), C = 80 (gelan-e's stem: two warp ranges of 40 channels) and the
-# main path's batch 32 at 640 px
+# main path's batch 32 at 640 px, at gelan-c's C = 64 and gelan-e's 80
 STEM_SHAPES = [((2, 3, 32, 48), 64), ((1, 3, 25, 31), 16),
                ((3, 3, 37, 53), 64), ((1, 3, 2, 2), 16),
-               ((4, 3, 160, 160), 80), ((32, 3, 640, 640), 64)]
+               ((4, 3, 160, 160), 80), ((32, 3, 640, 640), 64),
+               ((3, 3, 37, 53), 80), ((32, 3, 640, 640), 80)]
 
 
 def _stem_case(dev, shape, c, dtype, raw):
@@ -102,15 +103,20 @@ def test_stem_kernel_matches_plain(cuda, dtype, shape, c, raw):
 # instance) at odd H, W; Ho = 21, which no tile height divides; more tiles
 # than persistent CTAs, the last round ragged; Co = 512 per branch (two
 # n-blocks); 2 x 2 and 3 x 5 inputs (one output row, an avg domain of one
-# row). The wide cases draw their weights at 1/sqrt(fan-in), as the
-# model's init does, the others at 0.05 (3x3) and 0.1 (1x1).
+# row); gelan-e's widths, Co = 160 and 320 per branch, which pack to N =
+# 256 and 512 with a zero tail in the last n-block (small, at odd H and
+# W, and at gelan-e's down3 site, 20 x 20 outputs). The wide cases draw
+# their weights at 1/sqrt(fan-in), as the model's init does, the others
+# at 0.05 (3x3) and 0.1 (1x1).
 ADOWN_SHAPES = [((1, 32, 8, 24), 32, False), ((2, 48, 10, 10), 64, False),
                 ((1, 64, 9, 7), 64, False), ((1, 40, 8, 10), 24, False),
                 ((2, 48, 20, 18), 48, False), ((2, 512, 37, 41), 512, True),
                 ((1, 256, 42, 36), 256, True), ((3, 256, 66, 70), 256, True),
                 ((3, 256, 160, 168), 256, True),
                 ((1, 1024, 12, 14), 1024, True), ((2, 32, 2, 2), 32, False),
-                ((2, 32, 3, 5), 32, False)]
+                ((2, 32, 3, 5), 32, False), ((2, 320, 12, 14), 320, True),
+                ((1, 640, 10, 8), 640, True), ((2, 320, 37, 41), 320, True),
+                ((1, 640, 23, 19), 640, True), ((4, 640, 40, 40), 640, True)]
 
 
 def _w_scales(ch: int, fan_in: bool) -> tuple[float, float]:
@@ -620,7 +626,12 @@ def test_stem_wgrad_f32_kernel_matches_plain(cuda, c, bsz):
                                                ((2, 16, 12, 14), 16, False),
                                                ((1, 32, 10, 12), 48, False),
                                                ((2, 64, 130, 98), 64, True),
-                                               ((2, 128, 24, 20), 512, True)])
+                                               ((2, 128, 24, 20), 512, True),
+                                               ((2, 320, 12, 14), 320, True),
+                                               ((1, 640, 10, 8), 640, True),
+                                               ((2, 320, 37, 41), 320, True),
+                                               ((4, 640, 40, 40), 640, True),
+                                               ((2, 320, 80, 80), 320, False)])
 def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
     """Channel counts 32 and 48 are TINY_YAML's (48: 24 input channels a
     branch, half a k-step of zero padding in the tensor-core forward), 256
@@ -643,7 +654,10 @@ def test_adown_train_kernels_match_plain(cuda, dtype, shape, cout, fan_in):
     = 24, 6370 output pixels (f32: 2 slabs of 3185; bf16 on an H100: 26
     of 245; neither a whole number of 64-pixel chunks), and Co = 256 a
     branch with Ch = 64 (two output-channel tiles of dW, a partial
-    input-channel tile). Inputs are
+    input-channel tile); last, gelan-e's widths, Co = 160 and 320 a
+    branch (N = 256 and 512 in the forward with a zero tail in the last
+    n-block; dW's 128-channel tiles partial), small, at odd H and W, at
+    gelan-e's down3 width and size, and at pan_down1's 80 x 80. Inputs are
     quantized to halves so that maxpool ties are common."""
     g0 = torch.Generator().manual_seed(4)
     cin = shape[1]

@@ -120,7 +120,7 @@ def test_make_eval_batch_copy_is_bit_equal():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["gelan-c", "TINY_YAML", "yolov9-c",
-                                  "TINY_DUAL_YAML"])
+                                  "TINY_DUAL_YAML", "gelan-e", "gelan-c-d2"])
 def test_plan_matches_jax(name, tiny_yaml, tiny_dual_yaml):
     path = _config_path(name, tiny_yaml, tiny_dual_yaml)
     tp, jp = YOLO.from_yaml(path).plan, JYOLO.from_yaml(path).plan
@@ -144,7 +144,7 @@ def _zeros_like_init(jmodel):
 
 
 @pytest.mark.parametrize("name", ["gelan-c", "TINY_YAML", "yolov9-c",
-                                  "TINY_DUAL_YAML"])
+                                  "TINY_DUAL_YAML", "gelan-e", "gelan-c-d2"])
 def test_state_dict_bridge_matches_export(name, tiny_yaml, tiny_dual_yaml):
     """state_dict_from_jax == export_state_dict key by key and value by
     value, apart from num_batches_tracked and the derived DFL convs (the

@@ -86,10 +86,13 @@ class Conv(nn.Module):
         self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS,
                                  momentum=BN_MOMENTUM)
         self.activation = activation
-        # the stem geometry the CUDA stem kernels compute
+        # the stem geometry the CUDA stem kernels compute (C a multiple of
+        # 16, at most stem_kernel.MAX_C: 64 in gelan-c, 80 in gelan-e)
         self.is_stem = (in_channels == 3 and kernel_size == 3 and stride == 2
                         and padding in (None, 1) and groups == 1
-                        and dilation == 1 and activation == "silu")
+                        and dilation == 1 and activation == "silu"
+                        and out_channels % 16 == 0
+                        and out_channels <= stem_kernel.MAX_C)
         # the geometry of the CUDA conv3 kernel (in gelan-c: stage1's two
         # block convs and the bottleneck convs of stage2's and fpn2's CSPs)
         self.is_conv3 = (in_channels == out_channels == conv3_kernel.C
