@@ -133,7 +133,32 @@ non-zero (no phase is caught):
    --device cuda (launches held to the fused model's sites and one NMS an
    image) and --device cpu (no launch), equal detections; cli.train, one
    epoch of four steps on the card (a stem pair and four ADown pairs a
-   step) with validation; cli.val, fused, on the checkpoint it wrote.
+   step) with validation; cli.val, fused, on the checkpoint it wrote;
+15. data parallelism (parallel/mesh.py): (a) gelan-c at full width and
+   depth, 640 px, batch 32, bf16 and f32, from one saved state (the
+   seed-0 init written by Trainer._save, loaded by load_checkpoint): a
+   warm-up and DDP_STEPS counted Trainer steps on synthetic batches in a
+   subprocess (`chip_smoke.py ddp-worker`) that joined a one-process NCCL
+   group on a free localhost port (init_distributed): twice with the plain
+   Trainer (the first run saves its state before each step), then with
+   Trainer(data_parallel=True), whose step runs the collectives (global
+   BN moments, the loss's global scale, the flat gradient all-reduce). The second plain run and the DDP run then take
+   each step again from the first run's state before it (the f32 free
+   curve is chaotic: two plain f32 runs part by ~1% in four steps, as
+   phase 10 (e) found for yolov9-c): their loss items and final
+   parameters and BN statistics are held against the first run, DDP
+   within the second plain run's spread (or DDP_FLOOR, tests/
+   test_parallel.py's tolerances, where that spread is smaller); the
+   train kernels' launches to one stem pair and five ADown pairs a step;
+   ms/step of both printed; (b) phase 5's bf16
+   gelan-c request (32 frames 720x1280) through Detector(mesh=Mesh((cuda:0,
+   cuda:0))) (two replicas, each packed buffer on the card) beside the
+   single Detector: f32 detections on 32 and 29 frames (padded to 30)
+   held to phase 5's cuda-against-cpu bounds, bf16 images/s of both and
+   the mesh's launches (twice the sites and NMS a request); (c) the
+   trained tiny fixture through Evaluator(mesh=) against the single
+   Evaluator (batches of 5: the last padded), mAP50 and mAP within phase 9
+   (a)'s 1e-3.
 The total seconds are printed before the last three lines.
 
 `bound_ms` in the kernels line is the least time the card could take for
@@ -155,8 +180,9 @@ sums under `gelan_e`). The last three lines are the card's nvidia-smi
 line, a JSON line with one entry per kernel (`launches_device_augment`:
 phase 11 (b)'s launches per dtype; `launches_exported`: phase 12's
 launches from the loaded archive; `launches_gelan_e`,
-`launches_gelan_c_d2`: phase 13's; `launches_cli`: phase 14's), and
-{"ok": true, "device": {...}}.
+`launches_gelan_c_d2`: phase 13's; `launches_cli`: phase 14's;
+`launches_data_parallel`: phase 15's DDP train steps and mesh serving
+requests), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -165,6 +191,7 @@ import contextlib
 import copy
 import io
 import json
+import socket
 import subprocess
 import sys
 import tempfile
@@ -174,6 +201,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from yolo_re_tpu_torch import upstream
@@ -202,6 +230,7 @@ from yolo_re_tpu_torch.ops.kernels import (
     nms,
     stem,
 )
+from yolo_re_tpu_torch.parallel.mesh import Mesh, init_distributed
 from yolo_re_tpu_torch.serving import Detector
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.trainer import Trainer
@@ -249,6 +278,19 @@ AUG_ATOL = {"full fast": 1e-6, "full general": 1e-4, "batch": 1e-6}
 # weight gradients, kernel vs plain: relative L2 (both sum f32 products in
 # another order; bf16 inputs are exact in f32)
 WGRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# phase 15: counted DDP steps (after one warm-up) per dtype; the mesh
+# Detector's batches (29: padded to 30 over two replicas); the mesh
+# Evaluator's batch (16 images: batches of 5, 5, 5, 1); DDP against the
+# plain Trainer where the two plain runs agree closer than this:
+# tests/test_parallel.py's N-process against 1-process tolerances (loss
+# items rtol 2e-3; parameters and BN statistics rtol 5e-3, atol 3e-4,
+# `excess` <= 1)
+DDP_STEPS = 3
+DDP_DTYPES = ("bfloat16", "float32")
+MESH_BATCHES = (BATCH, 29)
+MESH_EVAL_BATCH = 5
+DDP_FLOOR = {"items": 2e-3, "state": 1.0}
+DDP_STATE_TOL = (5e-3, 3e-4)
 # H100 SXM data sheet: HBM3 bytes/s; dense bf16 tensor-core, f32 (CUDA-
 # core) operations/s, and f32 operations/s in 3xTF32 (three TF32 products
 # per operation at 495 TFLOP/s)
@@ -1508,17 +1550,305 @@ def phase_clis(dev, tmp: Path) -> dict:
     return counts
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+_DDP_BATCHES: list = []
+
+
+def ddp_batches() -> list[dict]:
+    """Phase 15 (a)'s synthetic batches (numpy seeds 20...), made once per
+    process: a warm-up batch and DDP_STEPS counted ones."""
+    if not _DDP_BATCHES:
+        _DDP_BATCHES.extend(make_eval_batch(BATCH, SIZE, 20 + i)
+                            for i in range(DDP_STEPS + 1))
+    return _DDP_BATCHES
+
+
+def ddp_state(tmp: Path, dtype: str, k: int) -> Path:
+    """The saved state before step k of phase 15 (a)'s first plain run
+    (k = 0: the seed-0 init, the same for both dtypes)."""
+    return tmp / ("ddp_init.npz" if k == 0 else f"ddp_{dtype}_{k}.npz")
+
+
+def ddp_run(tmp: Path, dtype: str, data_parallel: bool,
+            record: bool = False) -> dict:
+    """gelan-c in `dtype` from the saved state `ddp_state(tmp, dtype, 0)`:
+    a warm-up Trainer.train_step, then DDP_STEPS counted ones (the free
+    run), the train kernels' launch counters set to 0 just before the
+    counted steps and read just after. `record`: save the state before
+    each later step (`ddp_state`; the saves are left out of the clock).
+    Otherwise each step is taken again from the recorded state before it
+    (`load_checkpoint`, so that a chaotic f32 curve is compared a step at
+    a time, as in phase 10 (e)). Returns the free run's loss items, ms/step
+    (host clock over the counted steps) and launches, and, the steps from
+    the recorded states' items (or, recording, the free run's again) and
+    the parameters and BN statistics after the last step (f32, host)."""
+    batches = ddp_batches()
+    model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
+    cfg = TrainConfig(epochs=1, compute_dtype=dtype,
+                      data_parallel=data_parallel, log_interval=1,
+                      output_dir=str(tmp / "ddp_out"))
+    trainer = Trainer(model, config=cfg, train_loader=batches[1:],
+                      device="cuda")
+    if data_parallel != (trainer._group is not None):
+        raise AssertionError(f"data_parallel={data_parallel}: the trainer's "
+                             f"group is {trainer._group}")
+    trainer.load_checkpoint(ddp_state(tmp, dtype, 0))
+
+    def step(b: dict) -> torch.Tensor:
+        return trainer.train_step(b["images"], b["targets"])[1]
+
+    def save(k: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._save(ddp_state(tmp, dtype, k), k - 1)
+        return time.perf_counter() - t0
+
+    items = [step(batches[0])]
+    if record:
+        save(1)
+    torch.cuda.synchronize()
+    stem.raw_launches = stem.wgrad_launches = 0
+    adown.raw_launches = adown.bwd_launches = 0
+    t0, paused = time.perf_counter(), 0.0
+    for k, b in enumerate(batches[1:], 1):
+        items.append(step(b))
+        if record and k < DDP_STEPS:
+            paused += save(k + 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0 - paused
+    counts = {"stem_raw": stem.raw_launches,
+              "stem_wgrad": stem.wgrad_launches,
+              "adown_raw": adown.raw_launches, "adown_bwd": adown.bwd_launches}
+    out = {"items": [[float(v) for v in it] for it in items],
+           "ms_per_step": dt / DDP_STEPS * 1e3, "counts": counts}
+    if not record:
+        items = []
+        for k, b in enumerate(batches):
+            trainer.load_checkpoint(ddp_state(tmp, dtype, k))
+            items.append(step(b))
+    out["one_state_items"] = [[float(v) for v in it] for it in items]
+    out["state"] = {k: v.detach().float().cpu() for k, v in
+                    {**trainer.params, **trainer.stats}.items()}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_items(a: list, b: list) -> float:
+    """Largest relative difference of the loss items, step by step."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-12)).max())
+
+
+def excess(a: dict, b: dict) -> float:
+    """Largest |a - b| / (atol + rtol |b|) over every element of the
+    tensors (DDP_STATE_TOL): at most 1 within the tolerances."""
+    rtol, atol = DDP_STATE_TOL
+    return max(float(((a[k] - v).abs() / (atol + rtol * v.abs())).max())
+               for k, v in b.items())
+
+
+def ddp_worker(tmp: Path, port: int) -> int:
+    """`chip_smoke.py ddp-worker TMP PORT`: phase 15 (a) in a process that
+    joined a one-process NCCL group. Per dtype a recording plain run (A),
+    a second plain run (B) and the data-parallel run (DDP), one after the
+    other in this process; B and DDP each step again from A's state
+    before it. DDP's loss items and final state are held against A
+    within B's spread (or DDP_FLOOR), every run's launches to a stem pair
+    and five ADown pairs a step. Writes the DDP runs' launches per dtype
+    to tmp/ddp.json."""
+    rank, world = init_distributed(f"127.0.0.1:{port}", 1, 0,
+                                   device="cuda")
+    print(f"  ddp-worker: process {rank}/{world}, backend "
+          f"{dist.get_backend()}")
+    want = {"stem_raw": DDP_STEPS, "stem_wgrad": DDP_STEPS,
+            "adown_raw": 5 * DDP_STEPS, "adown_bwd": 5 * DDP_STEPS}
+
+    def rounded(items: list) -> list:
+        return [[round(v, 5) for v in it] for it in items]
+
+    try:
+        launches = {}
+        for dtype in DDP_DTYPES:
+            a = ddp_run(tmp, dtype, False, record=True)
+            b = ddp_run(tmp, dtype, False)
+            d = ddp_run(tmp, dtype, True)
+            spread = {"items": rel_items(b["one_state_items"], a["items"]),
+                      "state": excess(b["state"], a["state"])}
+            gap = {"items": rel_items(d["one_state_items"], a["items"]),
+                   "state": excess(d["state"], a["state"])}
+            bound = {k: max(spread[k], DDP_FLOOR[k]) for k in spread}
+            print(f"  (a) gelan-c {dtype}, batch {BATCH}, {SIZE} px, a "
+                  f"warm-up + {DDP_STEPS} steps from one saved state: "
+                  f"ms/step plain {b['ms_per_step']:.1f} (recording run, "
+                  f"saves left out: {a['ms_per_step']:.1f}), DDP (world "
+                  f"size 1, NCCL) {d['ms_per_step']:.1f}; loss items plain "
+                  f"{rounded(a['items'])}, DDP from the same states "
+                  f"{rounded(d['one_state_items'])}; relative difference "
+                  f"of the items and excess of the final parameters and BN "
+                  f"statistics, each step from one state: plain-plain "
+                  f"{spread}, DDP-plain {gap} (bound {bound}); the free "
+                  f"curves' items: plain-plain "
+                  f"{rel_items(b['items'], a['items']):.3e}, DDP-plain "
+                  f"{rel_items(d['items'], a['items']):.3e}; DDP launches "
+                  f"{d['counts']}", flush=True)
+            if any(r["counts"] != want for r in (a, b, d)):
+                raise AssertionError(
+                    f"DDP {dtype}: launch counts {d['counts']} (plain "
+                    f"{a['counts']}, {b['counts']}), expected {want}")
+            if not all(np.isfinite(d["one_state_items"]).ravel()) or any(
+                    gap[k] > bound[k] for k in gap):
+                raise AssertionError(f"DDP {dtype}: differs from the plain "
+                                     f"Trainer by {gap}, bound {bound}")
+            launches[dtype] = d["counts"]
+        (tmp / "ddp.json").write_text(json.dumps(launches))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_ddp(tmp: Path) -> dict:
+    """Phase 15 (a): the seed-0 gelan-c state saved here, then
+    `ddp_worker` in a subprocess. Returns the DDP runs' launches per
+    dtype."""
+    model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
+    cfg = TrainConfig(epochs=1, data_parallel=False,
+                      output_dir=str(tmp / "ddp_out"))
+    Trainer(model, config=cfg, train_loader=[None], device="cuda")._save(
+        ddp_state(tmp, "", 0), -1)
+    del model
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "ddp-worker",
+         str(tmp), str(free_port())], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        raise AssertionError(f"ddp-worker exited {proc.returncode}: "
+                             f"{proc.stderr[-4000:]}")
+    return json.loads((tmp / "ddp.json").read_text())
+
+
+def detections_match(a: np.ndarray, b: np.ndarray) -> bool:
+    """Two images' (n, 6) detections [xyxy, score, class] are the same
+    set: each one of a has a twin in b and each one of b in a (the class
+    equal, the box within 1e-2 px, the score within 1e-4)."""
+    if len(a) != len(b):
+        return False
+    twin = ((np.abs(a[:, None, :4] - b[None, :, :4]).max(-1) <= 1e-2)
+            & (np.abs(a[:, None, 4] - b[None, :, 4]) <= 1e-4)
+            & (a[:, None, 5] == b[None, :, 5]))
+    return bool(twin.any(1).all() and twin.any(0).all())
+
+
+def phase_mesh_serving(dev, model: YOLO, sites: dict) -> dict:
+    """Phase 15 (b). Returns the mesh Detector's bf16 launch counts over
+    REQUESTS requests."""
+    mesh = Mesh((torch.device("cuda", 0), torch.device("cuda", 0)))
+    sd = model.state_dict()
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (BATCH, *FRAME_HW, 3), dtype=np.uint8)
+              for _ in range(REQUESTS)]
+    kw = {"img_size": SIZE, "compute_dtype": "float32"}
+    single = Detector(model, sd, device=dev, **kw)
+    meshed = Detector(model, sd, mesh=mesh, **kw)
+    for program in meshed.programs:
+        where = {str(t.device) for t in (*program.model.parameters(),
+                                         *program.model.buffers())}
+        if where != {"cuda:0"}:
+            raise AssertionError(f"a replica's tensors on {where}")
+    for n in MESH_BATCHES:
+        a = {k: v.cpu() for k, v in single(frames[0][:n]).items()}
+        b = {k: v.cpu() for k, v in meshed(frames[0][:n]).items()}
+        same_order = torch.equal(a["valid"], b["valid"]) and \
+            torch.equal(a["classes"], b["classes"])
+        box_err = float((a["boxes"] - b["boxes"]).abs().max())
+        score_err = float((a["scores"] - b["scores"]).abs().max())
+        # detections whose scores sit within f32 noise of each other may
+        # come out in another order: then every detection of each image
+        # must have its twin (class, box within 1e-2 px, score within 1e-4)
+        matched = same_order and box_err <= 1e-2 and score_err <= 1e-4
+        if not matched:
+            matched = all(detections_match(x, y) for x, y in zip(
+                Detector.to_list(single, a), Detector.to_list(single, b)))
+        print(f"  (b) f32, {n} frames: mesh against single, valid/classes "
+              f"equal {same_order}, boxes {box_err:.3e} px (tol 1e-2), "
+              f"scores {score_err:.3e} (tol 1e-4), each detection matched "
+              f"{matched}; {int(a['valid'].sum())} detections")
+        if not (a["boxes"].shape == b["boxes"].shape == (n, 300, 4)
+                and matched and int(a["valid"].sum()) > 0):
+            raise AssertionError(f"mesh Detector, {n} frames: differs from "
+                                 f"the single Detector")
+    del single, meshed
+    torch.cuda.empty_cache()
+
+    kw["compute_dtype"] = "bfloat16"
+    rates, counts = {}, {}
+    for name, det in (("single", Detector(model, sd, device=dev, **kw)),
+                      ("mesh", Detector(model, sd, mesh=mesh, **kw))):
+        det(frames[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for f in frames:
+            out = det(f)
+        torch.cuda.synchronize()
+        rates[name] = BATCH * REQUESTS / (time.perf_counter() - t0)
+        counts[name] = counts_now()
+        if int(out["valid"].sum()) == 0:
+            raise AssertionError(f"{name} bf16 Detector: no detections")
+    want = {k: v * REQUESTS * mesh.size
+            for k, v in {**sites, "nms": 1}.items()}
+    print(f"  (b) bf16, {REQUESTS} requests of {BATCH} frames "
+          f"{FRAME_HW[0]}x{FRAME_HW[1]}: single {rates['single']:.1f} "
+          f"images/s, mesh (two replicas on one card) {rates['mesh']:.1f}; "
+          f"mesh launches {counts['mesh']}")
+    if counts["mesh"] != want:
+        raise AssertionError(f"mesh launch counts {counts['mesh']}, "
+                             f"expected {want}")
+    return counts["mesh"]
+
+
+def phase_mesh_eval(dev, tmp: Path) -> None:
+    """Phase 15 (c)."""
+    path = tmp / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    val = write_dataset(str(tmp / "tiny"), "val", 16, seed=1)
+    data = DataConfig(val_path=val, num_classes=4, img_size=160,
+                      batch_size=MESH_EVAL_BATCH, workers=4)
+    weights = load_weights(str(ROOT / "assets" / "dryrun_tiny.npz"))
+    mesh = Mesh((torch.device("cuda", 0), torch.device("cuda", 0)))
+    single, meshed = (Evaluator(YOLO.from_yaml(path),
+                                create_dataloader(val, data, "val"), **kw)
+                      .evaluate(weights)
+                      for kw in ({"device": dev}, {"mesh": mesh}))
+    gap = {k: abs(single[k] - meshed[k]) for k in ("map50", "map")}
+    print(f"  (c) tiny fixture, 160 px f32, 16 images in batches of "
+          f"{MESH_EVAL_BATCH}: single mAP50 {single['map50']:.4f} mAP "
+          f"{single['map']:.4f}; mesh mAP50 {meshed['map50']:.4f} mAP "
+          f"{meshed['map']:.4f}; gap {gap} (tol 1e-3)")
+    if max(gap.values()) > 1e-3 or meshed["map50"] <= 0.5:
+        raise AssertionError("mesh eval: differs from the single Evaluator")
+
+
 def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
                  v9c: dict, aug: dict, exported: dict, more: dict,
-                 clis: dict) -> list[dict]:
+                 clis: dict, dp: dict) -> list[dict]:
     """The kernels JSON line's entries from phases 3 and 6's numbers and
     the launch counts of phases 5 and 8 (`launches`, gelan-c), of phase
     10 (`launches_yolov9_c`: serving, eval and train), of phase 11 (b)
     (`launches_device_augment`, per dtype), of phase 12
     (`launches_exported`: the loaded archive's requests), of phase 13
     (`launches_gelan_e`, `launches_gelan_c_d2`: serving, eval and train
-    per dtype) and of phase 14 (`launches_cli`: detect on cuda, train,
-    val); prints each dtype's fractions of the bound."""
+    per dtype), of phase 14 (`launches_cli`: detect on cuda, train,
+    val) and of phase 15 (`launches_data_parallel`: the DDP train steps
+    per dtype, the mesh Detector's requests); prints each dtype's
+    fractions of the bound."""
     # (name, source, TPU kernel, launches, {dtype: numbers}); NMS runs in
     # f32 only
     rows = (
@@ -1577,6 +1907,7 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
         "launches_gelan_c_d2": by_path(more["gelan-c-d2"], name),
         "launches_cli": by_path({k: v for k, v in clis.items()
                                  if k != "detect cpu"}, name),
+        "launches_data_parallel": by_path(dp, name),
         **numbers(r["bf16"]), "f32": numbers(r["f32"])}
         for name, src, tpu, launches, r in rows]
     # the ADown kernels' sums over gelan-e's five sites
@@ -1719,8 +2050,15 @@ def main() -> int:
         print("phase 14: the CLIs on the card")
         clis = phase_clis(dev, Path(td))
 
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 15: data parallelism")
+        dp = {f"train {d}": c for d, c in phase_ddp(Path(td)).items()}
+        dp["serving"] = phase_mesh_serving(dev, random_model("gelan-c"),
+                                           sites)
+        phase_mesh_eval(dev, Path(td))
+
     kernels = kernels_line(res, tres, counts, tcounts, v9c, aug, exported,
-                           more, clis)
+                           more, clis, dp)
     print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "
           f"the serving, eval and train shapes, library calls with TF32 "
           f"off; adown kernels are the sum of gelan-c's five ADown shapes "
@@ -1751,7 +2089,10 @@ def main() -> int:
           f"requests, {EVAL_IMAGES // BATCH} eval batches per dtype and "
           f"gelan-e's {GELAN_E_TRAIN_STEPS} counted train steps per dtype; "
           f"launches_cli: phase 14's detect on cuda ({CLI_IMAGES} images), "
-          f"train ({CLI_TRAIN_IMAGES // CLI_BATCH} steps) and val; the ADown "
+          f"train ({CLI_TRAIN_IMAGES // CLI_BATCH} steps) and val; "
+          f"launches_data_parallel: phase 15's {DDP_STEPS} counted DDP "
+          f"train steps per dtype and {REQUESTS} mesh Detector requests "
+          f"(two replicas); the ADown "
           f"kernels' sums over gelan-e's five sites under 'gelan_e', and "
           f"the stem kernels at C=64 (gelan-c) and C=80 (gelan-e) under "
           f"'shapes')")
@@ -1766,4 +2107,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["ddp-worker"]:
+        sys.exit(ddp_worker(Path(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

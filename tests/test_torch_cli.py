@@ -188,10 +188,19 @@ def test_clis_default_to_cuda_and_refuse_what_is_not_ported(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--data", tiny["train"], "--config", tiny["config"],
                     "--num-classes", "4", "--workers", "1"])
-    for flags in (["--coordinator", "localhost:1234"],
-                  ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="DDP slice"):
+    # multi-process training: incomplete rendezvous flags are refused, and
+    # a cuda run without a card does not fall back to gloo
+    for flags, match in (
+            (["--coordinator", "localhost:1234"],
+             "num_processes and process_id"),
+            (["--num-processes", "2"], "coordinator address"),
+            (["--process-id", "0"], "coordinator address")):
+        with pytest.raises(ValueError, match=match):
             train.main(["--data", tiny["train"], "--device", "cpu"] + flags)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--data", tiny["train"], "--coordinator",
+                    "localhost:1234", "--num-processes", "1",
+                    "--process-id", "0"])
     with pytest.raises(SystemExit, match="Unsupported weights"):
         detect.main(["--weights", "w.onnx", "--config", tiny["config"],
                      "--source", tiny["val"], "--device", "cpu"])

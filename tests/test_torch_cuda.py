@@ -26,6 +26,7 @@ from yolo_re_tpu_torch.data.synth import TINY_DUAL_YAML, TINY_YAML, \
 from yolo_re_tpu_torch.eval.evaluator import Evaluator
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.kernels import adown, conv3, csp_chain, nms, stem
+from yolo_re_tpu_torch.parallel import mesh
 from yolo_re_tpu_torch.serving import Detector
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.trainer import Trainer
@@ -1298,3 +1299,78 @@ def test_exported_detector_cuda_equals_live(cuda, tmp_path, dtype):
             assert loaded[k].device.type == "cuda"
             assert torch.equal(live[k], loaded[k]), k
         assert int(loaded["valid"].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# data parallelism on the card: the mesh Detector, global moments over NCCL
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [8, 5])
+def test_mesh_detector_on_one_card_twice(cuda, tmp_path, n):
+    """Detector(mesh=Mesh((cuda:0, cuda:0))) on n frames (5: padded to 6)
+    against the single Detector, the trained fixture in f32: equal
+    detections, every replica tensor (the packed weights included) on the
+    card, and each replica's kernels launched."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    model = YOLO.from_yaml(path)
+    card = torch.device("cuda", 0)
+    kw = {"img_size": 160, "compute_dtype": "float32"}
+    single = Detector.from_checkpoint(model, str(FIXTURE), device=card, **kw)
+    meshed = Detector.from_checkpoint(model, str(FIXTURE),
+                                      mesh=mesh.Mesh((card, card)), **kw)
+    for program in meshed.programs:
+        for t in (*program.model.parameters(), *program.model.buffers()):
+            assert t.device == card
+    images = make_eval_batch(n, 160, 0)["images"]
+    a = {k: v.cpu() for k, v in single(images).items()}
+    nms.launches = 0
+    b = {k: v.cpu() for k, v in meshed(images).items()}
+    assert nms.launches == 2
+    for k in ("valid", "classes"):
+        assert torch.equal(a[k], b[k])
+    np.testing.assert_allclose(a["boxes"], b["boxes"], atol=1e-4)
+    np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-4)
+    assert a["valid"].sum(1).min() >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_moments_over_a_one_process_nccl_group(cuda, dtype):
+    """batch_moments inside global_batch over a one-process NCCL group
+    (init_distributed, a free localhost port) equals batch_moments without
+    a group, and so does dx; the group is gone afterwards."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from yolo_re_tpu_torch.ops.conv import batch_moments
+
+    g = torch.Generator().manual_seed(3)
+    y0 = (torch.randn(4, 64, 20, 20, generator=g) * 2 + 0.5).to(cuda, dtype)
+    gm, gv = torch.randn(2, 64, generator=g).to(cuda)
+
+    def moments(group):
+        y = y0.clone().requires_grad_()
+        with mesh.global_batch(group):
+            mean, var = batch_moments(y)
+        (mean * gm + var * gv).sum().backward()
+        return mean.detach(), var.detach(), y.grad.float()
+
+    ref = moments(None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert mesh.init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda",
+                                 timeout=datetime.timedelta(seconds=60)) \
+        == (0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        got = moments(dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
+    rtol = 1e-6 if dtype == torch.float32 else 1e-5
+    for x, r in zip(got, ref):
+        torch.testing.assert_close(x, r, rtol=rtol,
+                                   atol=rtol * float(r.abs().max()))

@@ -280,13 +280,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(
 
 
 def test_eval_slice_refuses_what_is_not_ported(tiny_yaml, fixture_val):
+    """Sharded eval, the loader's shard= and the val CLI's --data-parallel
+    are ported (tests/test_torch_parallel.py holds each to the single
+    path, the CLI in a subprocess): what is refused is a mesh that is not
+    a Mesh and a global batch that does not split."""
     model = YOLO.from_yaml(tiny_yaml)
-    with pytest.raises(NotImplementedError, match="scale slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         Evaluator(model, [None], mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="scale slice"):
-        create_dataloader(fixture_val, DataConfig(), "val", shard=(0, 2))
-    out = subprocess.run(
-        [sys.executable, "-m", "yolo_re_tpu_torch.cli.val", "--weights",
-         str(FIXTURE), "--data", fixture_val, "--data-parallel"],
-        cwd=ROOT, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "scale slice" in out.stderr
+    with pytest.raises(ValueError, match="not divisible"):
+        create_dataloader(fixture_val, DataConfig(), "val", shard=(0, 3))
+    assert len(create_dataloader(fixture_val, DataConfig(batch_size=8),
+                                 "val", shard=(1, 2))) == VAL_IMAGES // 8

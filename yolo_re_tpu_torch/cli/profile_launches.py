@@ -4,7 +4,7 @@ augmentation.
 
     python -m yolo_re_tpu_torch.cli.profile_launches \
         [kernels|train [f32] [aug] [MODEL]|eval [bf16] [MODEL]|
-         augment [f32]|roof]
+         augment [f32]|ddp [f32]|roof]
 
 MODEL names a file of configs/models/ (`gelan-c`, the default, or
 `yolov9-c`, whose train step runs both branches and the dual loss and
@@ -57,6 +57,14 @@ and of all, and the NMS kernel's time and share of all.
 `augment`: the device time by kernel of one call of augment_batch_full
 (fast and general path) and of augment_batch at gelan-c's train shape,
 bf16 (`augment f32`: f32), as chip_smoke.py's phase 11 (a) calls them.
+
+`ddp`: gelan-c, bf16 (`ddp f32`: f32), batch 32, 640 px, one batch on
+the card: a plain Trainer and a data-parallel one in a one-process NCCL
+group (`parallel.mesh.init_distributed` on a free localhost port), two
+warm-up steps each, then the host time of one step of each by op
+(torch.profiler, CPU activity only: the largest self CPU times and their
+calls), which shows where the host time of a DDP step's collectives goes
+at world size 1. The steps' ms/step are chip_smoke.py's phase 15 (a).
 
 `roof`: the memory rate the card reaches on the stem's output at 640 px,
 batch 32 ((32, 64, 320, 320), bf16 and f32): `fill_` (writes only) and
@@ -387,6 +395,56 @@ def train_step(dtype: str, name: str, aug: bool = False) -> None:
           f"{bool(n) and not copies & kernels}")
 
 
+def ddp_step(dtype: str) -> None:
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_re_tpu_torch.data.synth import make_eval_batch
+    from yolo_re_tpu_torch.models.yolo import YOLO
+    from yolo_re_tpu_torch.parallel.mesh import init_distributed
+    from yolo_re_tpu_torch.train.config import TrainConfig
+    from yolo_re_tpu_torch.train.trainer import Trainer
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        b = make_eval_batch(BATCH, 640, 0)
+        x = torch.as_tensor(b["images"]).cuda()
+        t = torch.as_tensor(b["targets"]).cuda()
+        trainers = {}
+        for mode in ("plain", "ddp"):
+            cfg = TrainConfig(epochs=1, compute_dtype=dtype,
+                              data_parallel=mode == "ddp",
+                              output_dir=tempfile.mkdtemp(prefix="profile_"))
+            trainers[mode] = Trainer(YOLO.from_yaml(CONFIGS / "gelan-c.yaml"),
+                                     config=cfg, train_loader=[None],
+                                     device="cuda")
+            for _ in range(2):
+                trainers[mode].train_step(x, t)
+        torch.cuda.synchronize()
+        print(f"gelan-c {dtype} train step, batch {BATCH}, 640 px, the batch "
+              f"on the card; DDP at world size 1 (NCCL)")
+        for mode, trainer in trainers.items():
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                trainer.train_step(x, t)
+                torch.cuda.synchronize()
+            rows = sorted(prof.key_averages(),
+                          key=lambda e: -e.self_cpu_time_total)
+            total = sum(e.self_cpu_time_total for e in rows) / 1e3
+            print(f"  {mode}: host time of one profiled step {total:.1f} ms;"
+                  f" by op (self CPU ms, calls):")
+            for e in rows[:12]:
+                print(f"    {e.self_cpu_time_total / 1e3:9.3f} "
+                      f"{e.count:6d}  {e.key}")
+    finally:
+        dist.destroy_process_group()
+
+
 def eval_batch(dtype: str, name: str) -> None:
     from yolo_re_tpu_torch.eval.evaluator import Evaluator
     from yolo_re_tpu_torch.serving import inference_model
@@ -437,13 +495,14 @@ def parse(what: list[str]) -> tuple[str, str, bool, str] | None:
     malformed."""
     if what in (["kernels"], ["roof"]):
         return what[0], "", False, ""
-    flag = {"train": "f32", "eval": "bf16", "augment": "f32"}.get(what[0])
+    flag = {"train": "f32", "eval": "bf16", "augment": "f32",
+            "ddp": "f32"}.get(what[0])
     if flag is None:
         return None
-    if what[0] == "augment":
+    if what[0] in ("augment", "ddp"):
         if what[1:] not in ([], [flag]):
             return None
-        return "augment", "".join(what[1:]), False, ""
+        return what[0], "".join(what[1:]), False, ""
     rest = what[1:]
     dtype = rest.pop(0) if rest[:1] == [flag] else ""
     aug = what[0] == "train" and rest[:1] == ["aug"]
@@ -459,7 +518,8 @@ def main(argv: list[str] | None = None) -> int:
     parsed = parse((sys.argv[1:] if argv is None else argv) or ["kernels"])
     if parsed is None:
         print("usage: profile_launches [kernels|train [f32] [aug] [MODEL]|"
-              "eval [bf16] [MODEL]|augment [f32]|roof]", file=sys.stderr)
+              "eval [bf16] [MODEL]|augment [f32]|ddp [f32]|roof]",
+              file=sys.stderr)
         return 2
     what, dtype, aug, name = parsed
     if not torch.cuda.is_available():
@@ -477,6 +537,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if what == "augment":
         augment_calls("float32" if dtype else "bfloat16")
+        return 0
+    if what == "ddp":
+        ddp_step("float32" if dtype else "bfloat16")
         return 0
     if what == "roof":
         memory_roof()

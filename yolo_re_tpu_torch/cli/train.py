@@ -8,10 +8,20 @@ Trains on the card (`--device cuda`, the default: the stem and ADown train
 kernels) or, when asked, on the CPU with the kernels' plain versions.
 `--weights` starts from an .npz of either package, `--resume` continues a
 training checkpoint of either; checkpoints (`last.npz`, `best.npz` when
-`--val` is given) go to `--output` in the JAX package's layout. One card
-means no data parallelism: `--no-dp` is accepted and changes nothing;
-several processes (`--coordinator`, `--num-processes`, `--process-id`)
-wait for the port's DDP slice.
+`--val` is given) go to `--output` in the JAX package's layout.
+
+Data parallelism runs one process per card. Start each with the
+coordinator (host:port where process 0 listens), the process count and
+its id:
+
+    python -m yolo_re_tpu_torch.cli.train --data ... --batch 64 \
+        --coordinator 10.0.0.1:29500 --num-processes 8 --process-id I
+
+or under torchrun (`torchrun --nproc-per-node 8 -m
+yolo_re_tpu_torch.cli.train --data ...`), which sets the environment
+`init_distributed` reads. `--batch` is the global batch; each process
+loads and steps on its slice, and process 0 alone validates and writes
+the outputs. `--no-dp` trains each process on its own (one card).
 """
 
 from __future__ import annotations
@@ -43,21 +53,39 @@ def main(argv: list[str] | None = None) -> None:
                          "HSV/flip, 'full' = also mosaic/zoom/mixup (the "
                          "host only decodes and letterboxes)")
     ap.add_argument("--no-dp", action="store_true",
-                    help="disable data parallelism (one card has none)")
+                    help="disable data parallelism")
     ap.add_argument("--coordinator", default=None,
-                    help="multi-host: coordinator host:port (not ported "
-                         "yet: the DDP slice)")
+                    help="multi-process: host:port where process 0 listens "
+                         "(launch one process per card with "
+                         "--num-processes and a distinct --process-id; "
+                         "under torchrun these can be omitted)")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (the kernels) or cpu (their plain versions)")
+                    help="cuda (the kernels; NCCL between processes) or "
+                         "cpu (their plain versions; gloo)")
     args = ap.parse_args(argv)
-    if args.coordinator or args.num_processes or args.process_id is not None:
-        raise NotImplementedError(
-            "--coordinator / --num-processes / --process-id are not ported "
-            "to yolo_re_tpu_torch yet: multi-process training waits for the "
-            "DDP slice of the port")
 
+    import torch.distributed as dist
+
+    from yolo_re_tpu_torch.parallel.mesh import init_distributed
+    from yolo_re_tpu_torch.utils.precision import full_f32
+
+    joined = not dist.is_initialized()
+    rank, world = init_distributed(args.coordinator, args.num_processes,
+                                   args.process_id, device=args.device)
+    joined = joined and dist.is_initialized()
+    if joined:
+        print(f"data parallel: process {rank}/{world}")
+    try:
+        with full_f32():
+            _train(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args) -> None:
     from yolo_re_tpu_torch.convert import load_weights
     from yolo_re_tpu_torch.data.config import AugmentConfig, DataConfig
     from yolo_re_tpu_torch.models.yolo import YOLO

@@ -8,7 +8,8 @@ Example:
 The weights are an .npz of either package (converter or checkpoint
 output). It runs on the card (`--device cuda`, the default) or, when
 asked, on the CPU with the kernels' plain versions, and prints one line of
-`k=v` results.
+`k=v` results. `--data-parallel` splits each batch over every local card
+(`parallel.mesh.make_mesh`; with `--device cpu`, the CPU alone).
 """
 
 from __future__ import annotations
@@ -37,22 +38,22 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--debug-dir", default=None,
                     help="dump GT/pred overlay images here")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard each val batch over all local devices (not "
-                         "ported yet: the scale slice)")
+                    help="shard each val batch over all local devices")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported to yolo_re_tpu_torch yet: it "
-            "waits for the scale slice of the port")
 
     from yolo_re_tpu_torch.convert import load_weights
     from yolo_re_tpu_torch.data.config import DataConfig
     from yolo_re_tpu_torch.data.dataset import create_dataloader
     from yolo_re_tpu_torch.eval.evaluator import Evaluator
     from yolo_re_tpu_torch.models.yolo import YOLO
+    from yolo_re_tpu_torch.parallel.mesh import make_mesh
 
+    mesh = None
+    if args.data_parallel:
+        mesh = make_mesh() if args.device == "cuda" \
+            else make_mesh(devices=(args.device,))
     model = YOLO.from_yaml(args.config, num_classes=args.num_classes)
     data = DataConfig(
         train_path=args.data, val_path=args.data,
@@ -65,6 +66,7 @@ def main(argv: list[str] | None = None) -> None:
         conf_thres=args.conf, iou_thres=args.iou,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         debug_dir=args.debug_dir, device=args.device, fuse=args.fuse,
+        mesh=mesh,
     )
     results = evaluator.evaluate(load_weights(args.weights))
     print(" ".join(f"{k}={v:.4f}" for k, v in results.items()))

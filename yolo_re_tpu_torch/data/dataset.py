@@ -1,7 +1,7 @@
 """YOLO dataset + prefetching host loader: a copy of
 yolo_re_tpu/data/dataset.py on its cv2/numpy branches (the optional native
-host kernels are not ported). The multi-host `shard=` split waits for the
-port's scale slice and raises. tests/test_torch_eval.py pins the batches
+host kernels are not ported), the multi-process `shard=` split included.
+tests/test_torch_eval.py and tests/test_torch_parallel.py pin the batches
 equal to the JAX package's.
 
 Dataset semantics follow the reference (src/yolo/data/dataset.py): file
@@ -39,6 +39,7 @@ from yolo_re_tpu_torch.data.transforms import (
     default_train_transforms,
     default_val_transforms,
 )
+from yolo_re_tpu_torch.parallel.mesh import local_rows
 
 IMG_EXTENSIONS = (".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp")
 
@@ -308,6 +309,16 @@ class DataLoader:
                  shard: tuple[int, int] | None = None):
         # uint8_images: emit (B, H, W, 3) uint8 RGB instead of float32/255 —
         # 4x less host->device transfer; the train step divides on device.
+        #
+        # shard=(index, count): multi-process data parallelism. batch_size
+        # stays the GLOBAL batch; every process builds the identical
+        # global batch order (same seed/epoch -> same permutation) and
+        # loads only its batch_size/count slice of each global batch, so
+        # process-local batches assemble into exactly the batches a
+        # single-process run would see (and per-sample augmentation RNG,
+        # keyed on the global index, is identical too). Partial final
+        # batches are always dropped when sharded — they cannot slice
+        # uniformly across processes.
         self.uint8_images = uint8_images
         self.dataset = dataset
         self.batch_size = batch_size
@@ -319,13 +330,14 @@ class DataLoader:
         self.prefetch = prefetch
         self.epoch = 0
         if shard is not None:
-            raise NotImplementedError(
-                "DataLoader(shard=...) (the multi-host split) is not ported "
-                "to yolo_re_tpu_torch yet: it waits for the scale slice of "
-                "the port")
+            shard = tuple(shard)
+            local_rows(batch_size, *shard)      # raises if it cannot split
+        self.shard = shard
 
     def __len__(self):
         n = len(self.dataset)
+        if self.shard is not None:
+            return n // self.batch_size
         return n // self.batch_size if self.drop_last else \
             (n + self.batch_size - 1) // self.batch_size
 
@@ -340,10 +352,15 @@ class DataLoader:
         else:
             order = np.arange(n)
         batches = []
-        stop = n - n % self.batch_size if self.drop_last else n
+        drop = self.drop_last or self.shard is not None
+        stop = n - n % self.batch_size if drop else n
         for i in range(0, stop, self.batch_size):
             batches.append(order[i:i + self.batch_size])
-        return [b for b in batches if len(b)]
+        batches = [b for b in batches if len(b)]
+        if self.shard is not None:
+            rows = local_rows(self.batch_size, *self.shard)
+            batches = [b[rows] for b in batches]
+        return batches
 
     def _make_batch(self, indices, pool):
         def load_one(i):
@@ -396,13 +413,8 @@ def create_dataloader(
     """Build dataset + loader from DataConfig
     (reference: src/yolo/data/dataset.py:330-399).
 
-    shard= (the multi-host split) waits for the port's scale slice and
-    raises NotImplementedError."""
-    if shard is not None:
-        raise NotImplementedError(
-            "create_dataloader(shard=...) (the multi-host split) is not "
-            "ported to yolo_re_tpu_torch yet: it waits for the scale slice "
-            "of the port")
+    shard=(process index, process count): this process's slice of every
+    global batch of config.batch_size (`DataLoader`)."""
     is_train = mode == "train"
     dataset = YOLODataset(
         path,
@@ -427,4 +439,5 @@ def create_dataloader(
         drop_last=is_train,
         workers=config.workers,
         uint8_images=config.uint8_images,
+        shard=shard,
     )

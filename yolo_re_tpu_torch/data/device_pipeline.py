@@ -387,7 +387,8 @@ def mosaic_affine(images: torch.Tensor, targets: torch.Tensor,
                   draws: dict[str, torch.Tensor], *, degrees: float = 0.0,
                   shear: float = 0.0, perspective: float = 0.0,
                   mosaic_p: float = 1.0, max_out: int | None = None,
-                  pad: float = _PAD) -> tuple[torch.Tensor, torch.Tensor]:
+                  pad: float = _PAD, rows: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batch-internal 4-image mosaic + random zoom / translate (and, when
     degrees, shear or perspective is nonzero, rotation / shear /
     perspective) on the device.
@@ -403,12 +404,19 @@ def mosaic_affine(images: torch.Tensor, targets: torch.Tensor,
     f32. draws: `draw_augment`'s partner, zoom, shift, angle, shear,
     persp and (mosaic_p < 1) mosaic. Returns (images (B, S, S, C),
     targets (B, max_out, 5)), max_out defaulting to 4M, kept boxes first.
+    rows (n,) int64: compute only these rows of the output (n rows come
+    back; a data-parallel process's own rows), their partners still taken
+    from the whole batch.
     """
-    b, s, _, c = images.shape
+    own, own_t = images, targets
+    if rows is not None:
+        draws = {k: v[rows] for k, v in draws.items()}
+        own, own_t = images[rows], targets[rows]
+    b, s, _, c = own.shape
     m = targets.shape[1]
     partner, zoom, shift = draws["partner"], draws["zoom"], draws["shift"]
     canvas = images.new_empty(b, 2 * s, 2 * s, c)
-    canvas[:, :s, :s] = images
+    canvas[:, :s, :s] = own
     canvas[:, :s, s:] = images[partner[:, 0]]
     canvas[:, s:, :s] = images[partner[:, 1]]
     canvas[:, s:, s:] = images[partner[:, 2]]
@@ -434,7 +442,7 @@ def mosaic_affine(images: torch.Tensor, targets: torch.Tensor,
         out = out.to(images.dtype)
 
     # labels: tile offset -> canvas pixels -> warp -> normalized
-    tile_t = torch.stack([targets, targets[partner[:, 0]],
+    tile_t = torch.stack([own_t, targets[partner[:, 0]],
                           targets[partner[:, 1]], targets[partner[:, 2]]],
                          1)                                    # (B, 4, M, 5)
     off = torch.tensor([[0.0, 0.0], [0.0, 1.0], [1.0, 0.0], [1.0, 1.0]],
@@ -476,8 +484,8 @@ def mosaic_affine(images: torch.Tensor, targets: torch.Tensor,
     if mosaic_p < 1.0:
         do = draws["mosaic"]
         plain_t = targets.new_zeros(b, max_out, 5)
-        plain_t[:, :min(m, max_out)] = targets[:, :max_out]
-        out = torch.where(do[:, None, None, None], out, images)
+        plain_t[:, :min(m, max_out)] = own_t[:, :max_out]
+        out = torch.where(do[:, None, None, None], out, own)
         flat = torch.where(do[:, None, None], flat, plain_t)
     return out, flat
 
@@ -491,18 +499,24 @@ def cap_targets(targets: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def mixup(images: torch.Tensor, targets: torch.Tensor, r: torch.Tensor,
-          do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+          do: torch.Tensor,
+          partners: tuple[torch.Tensor, torch.Tensor] | None = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
     """MixUp with the batch rolled by one, where `do` (B,) holds: an f32
     blend at ratio r (B,) (`draw_augment`'s Beta(32, 32) "mixup_r"), cast
     back. Target capacity doubles; the partner's rows are zero where no
-    mix happened."""
+    mix happened. `partners`: each row's partner (images, targets), when
+    the rows are a slice of the batch (default: the batch rolled by
+    one)."""
+    if partners is None:
+        partners = (images.roll(1, 0), targets.roll(1, 0))
+    partner, partner_t = partners
     r4 = r.to(torch.float32)[:, None, None, None]
-    partner = images.roll(1, 0)
     blend = (images.to(torch.float32) * r4
              + partner.to(torch.float32) * (1 - r4))
     images = torch.where(do[:, None, None, None], blend.to(images.dtype),
                          images)
-    partner_t = targets.roll(1, 0) * do[:, None, None]
+    partner_t = partner_t * do[:, None, None]
     return images, torch.cat([targets, partner_t], 1)
 
 
@@ -513,21 +527,44 @@ def augment_batch_full(images: torch.Tensor, targets: torch.Tensor,
                        mixup_p: float = 0.15, hsv_h: float = 0.015,
                        hsv_s: float = 0.7, hsv_v: float = 0.4,
                        flip_lr: float = 0.5, flip_ud: float = 0.0,
-                       max_out: int | None = None
+                       max_out: int | None = None, rows: slice | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole train-time augmentation on the device (the Trainer's
     device_augment="full"): mosaic + random_perspective warp, mixup, one
     compaction back to the batch's GT capacity (or max_out), then HSV and
     flips. The hyperparameters here only switch stages and paths; the
-    draws carry the rest (`draw_augment` takes scale and translate)."""
+    draws carry the rest (`draw_augment` takes scale and translate).
+
+    rows: a data-parallel process's slice of the global batch. images,
+    targets and draws are then the global batch's (mosaic and mixup
+    partners index it), and only these rows of the output are computed
+    and returned, equal to the same rows of the whole batch's output
+    (mixup blends a row with the mosaic of the row before it, so that
+    row's mosaic is computed too)."""
     cap = max_out or targets.shape[1]
+    idx = partners = None
+    extra = False
+    if rows is not None:
+        n = images.shape[0]
+        idx = torch.arange(rows.start, rows.stop, device=images.device)
+        extra = mixup_p > 0 and len(idx) < n
+        if extra:
+            idx = torch.cat([(idx[:1] - 1) % n, idx])
     if mosaic_p > 0:
         images, targets = mosaic_affine(
             images, targets, draws, degrees=degrees, shear=shear,
-            perspective=perspective, mosaic_p=mosaic_p)
+            perspective=perspective, mosaic_p=mosaic_p, rows=idx)
+    elif idx is not None:
+        images, targets = images[idx], targets[idx]
+    if idx is not None:
+        draws = {k: v[idx] for k, v in draws.items()}
+    if extra:
+        partners = (images[:-1], targets[:-1])
+        images, targets = images[1:], targets[1:]
+        draws = {k: v[1:] for k, v in draws.items()}
     if mixup_p > 0:
         images, targets = mixup(images, targets, draws["mixup_r"],
-                                draws["mixup"])
+                                draws["mixup"], partners)
     targets = cap_targets(targets, cap)
     return augment_batch(images, targets, draws, hsv_h=hsv_h, hsv_s=hsv_s,
                          hsv_v=hsv_v, flip_lr=flip_lr, flip_ud=flip_ud)

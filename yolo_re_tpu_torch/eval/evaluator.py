@@ -8,8 +8,11 @@ all-anchor NMS (ops/nms.py, one NMS kernel call) -> the padded
 (B, max_det) dict, the only thing that crosses to the host. The host
 matches batch i - 1 against its GT while the device runs batch i: the
 padded output goes by a non-blocking copy into pinned host memory, and a
-CUDA event marks when it has landed. `mesh=` (sharded validation) waits
-for the port's scale slice.
+CUDA event marks when it has landed. With `mesh=` (a `parallel.mesh.
+Mesh`) each batch is padded to a multiple of the mesh's size, split, run
+on one replica of the fused, cast model per mesh device, and the padded
+NMS outputs are gathered on the first device with the padding sliced off
+(yolo_re_tpu/eval/evaluator.py:102-125).
 """
 
 from __future__ import annotations
@@ -25,6 +28,12 @@ import torch
 from yolo_re_tpu_torch.eval.metrics import compute_map
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.nms import nms_to_list, non_max_suppression
+from yolo_re_tpu_torch.parallel.mesh import (
+    Mesh,
+    device_context,
+    replicate,
+    run_replicas,
+)
 from yolo_re_tpu_torch.serving import DTYPES, inference_model
 from yolo_re_tpu_torch.utils.precision import full_f32
 
@@ -45,21 +54,26 @@ class Evaluator:
     yields {"images" (B, H, W, 3) uint8 RGB or float in [0, 1],
     "targets" (B, M, 5) [cls, xywh normalized], "nboxes" (B,)}, numpy or
     torch. `device` defaults to "cuda" and raises without a card; pass
-    "cpu" to run the kernels' plain versions. `fuse` folds BN and RepConv
-    before evaluating (the kernels run only on the fused model).
+    "cpu" to run the kernels' plain versions; with `mesh` the devices are
+    the mesh's (the first one holds the outputs) and `device` is not
+    read. `fuse` folds BN and RepConv before evaluating (the kernels run
+    only on the fused model).
     """
 
     def __init__(self, model: YOLO, loader, num_classes: int | None = None,
                  conf_thres: float = 0.001, iou_thres: float = 0.6,
                  max_det: int = 300, compute_dtype: str = "float32",
-                 debug_dir: str | None = None, mesh=None,
+                 debug_dir: str | None = None, mesh: Mesh | None = None,
                  device: str | torch.device = "cuda", fuse: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Evaluator(mesh=...) is not ported to yolo_re_tpu_torch yet: "
-                "it waits for the scale slice of the port")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None \
+            else torch.device(device)
+        devices = mesh.devices if mesh is not None else (self.device,)
+        if any(d.type == "cuda" for d in devices) and \
+                not torch.cuda.is_available():
             raise RuntimeError("Evaluator(device='cuda'): no CUDA device")
         if compute_dtype not in DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}")
@@ -75,36 +89,50 @@ class Evaluator:
 
     @torch.inference_mode()
     @full_f32()
-    def _dispatch(self, model: YOLO, batch) -> tuple[dict, Any]:
+    def _dispatch(self, model: YOLO | list[YOLO], batch
+                  ) -> tuple[dict, Any]:
         """Enqueue one batch; returns (padded NMS output on the host, the
-        CUDA event that marks its arrival or None). Runs with TF32 off
+        CUDA event that marks its arrival or None). `model`: the model, or
+        with a mesh one replica per mesh device. Runs with TF32 off
         (`utils.precision.full_f32`): the JAX package's f32 convs run at
         HIGHEST precision."""
         images = torch.as_tensor(np.asarray(batch["images"]))
-        x = images.to(self.device, non_blocking=True)
+        if self.mesh is None:
+            out = self._forward(model, images, self.device)
+        else:
+            out = run_replicas(self._forward, model, self.mesh, images)
+        if self.device.type != "cuda":
+            return out, None
+        with device_context(self.device):
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    .copy_(v, non_blocking=True) for k, v in out.items()}
+            event = torch.cuda.Event()
+            event.record()
+        return host, event
+
+    def _forward(self, model: YOLO, images: torch.Tensor,
+                 device: torch.device) -> dict[str, torch.Tensor]:
+        """Host images -> the padded NMS dict on `device`."""
+        x = images.to(device, non_blocking=True)
         x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \
             else x.to(self.dtype)
         # a dual head: its main branch alone (yolo_re_tpu/eval/
         # evaluator.py:86-87; reference evaluator.py:105-113)
         decoded, _ = model(x.permute(0, 3, 1, 2), main_only=True)
-        out = non_max_suppression(decoded, conf_thres=self.conf_thres,
-                                  iou_thres=self.iou_thres,
-                                  max_det=self.max_det)
-        if self.device.type != "cuda":
-            return out, None
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                .copy_(v, non_blocking=True) for k, v in out.items()}
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
+        return non_max_suppression(decoded, conf_thres=self.conf_thres,
+                                   iou_thres=self.iou_thres,
+                                   max_det=self.max_det)
 
     def evaluate(self, state_dict_or_params: Any,
                  epoch: int = 0) -> dict[str, float]:
         """mAP of the weights over the loader. `state_dict_or_params`: a
         state dict of the (unfused) model, or the JAX package's
         (params, stats) pytrees."""
-        model = inference_model(self.model, state_dict_or_params,
-                                self.device, self.dtype, fuse=self.fuse)
+        with device_context(self.device):
+            model = inference_model(self.model, state_dict_or_params,
+                                    self.device, self.dtype, fuse=self.fuse)
+        if self.mesh is not None:
+            model = replicate(model, self.mesh)
         acc: dict[str, list] = {k: [] for k in (
             "pred_boxes", "pred_scores", "pred_classes", "gt_boxes",
             "gt_classes")}

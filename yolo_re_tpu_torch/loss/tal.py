@@ -7,6 +7,14 @@ w, h) with xywh normalized to [0, 1]; padding rows are all zero (w == h ==
 per-level (box (B, 4*reg_max, H, W), cls (B, nc, H, W)) pairs, NCHW; a
 dual head's {"aux": pairs, "main": pairs} goes to `forward_dual` (aux
 weighted 0.25).
+
+Data parallel (inside `parallel.mesh.global_batch(group)`, W processes
+each with its slice of the global batch B): the JAX loss is
+`sum of gained items * B`, each item a sum over the global batch divided
+by the global target-score sum `tss` (clamped at 1 after the sum). Rank
+r's loss is `S_r * B * W / tss`, S_r its own gained terms, so that the
+gradient averaged over the W processes is the JAX gradient; the items
+returned (for logging) are the global batch's on every process.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from yolo_re_tpu_torch.loss.assigner import TaskAlignedAssigner
@@ -24,6 +33,7 @@ from yolo_re_tpu_torch.ops.boxes import (
     make_anchors_np,
     xywh2xyxy,
 )
+from yolo_re_tpu_torch.parallel.mesh import batch_group
 
 
 @dataclass
@@ -127,7 +137,12 @@ class TALoss:
             anchor_points * stride_col,
             gt_labels, gt_bboxes, mask_gt)
         target_bboxes = target_bboxes / stride_col[None]
-        tss = target_scores.sum().clamp(min=1.0)
+        tss = target_scores.sum()
+        group = batch_group()
+        if group is not None:    # the global batch's (no gradient flows)
+            tss = tss.detach().clone()
+            dist.all_reduce(tss, group=group)
+        tss = tss.clamp(min=1.0)
 
         cls_loss = bce_with_logits(pred_scores, target_scores,
                                    self.config.cls_pw).sum() / tss
@@ -162,6 +177,19 @@ class TALoss:
                             cls_l * self.config.cls_gain,
                             dfl_l * self.config.dfl_gain])
 
+    @staticmethod
+    def _total(loss: torch.Tensor, batch: int):
+        """(loss.sum() * batch, items): one process's gained items; inside
+        `global_batch` its slice's terms over the global tss, scaled to
+        `S_r * B_global * W` and the items summed over the processes."""
+        group = batch_group()
+        if group is None:
+            return loss.sum() * batch, loss.detach()
+        world = dist.get_world_size(group)
+        items = loss.detach().clone()
+        dist.all_reduce(items, group=group)
+        return loss.sum() * (batch * world * world), items
+
     def forward_single(self, feats, targets: torch.Tensor):
         """feats: per-level (box, cls) NCHW pairs (reference:
         tal.py:135-190). Returns (sum of gained items * batch size, items
@@ -169,7 +197,7 @@ class TALoss:
         anchor_points, stride_col, *gt = self._setup(feats, targets)
         loss = self._gained(*self._branch_losses(feats, *gt, anchor_points,
                                                  stride_col))
-        return loss.sum() * feats[0][0].shape[0], loss.detach()
+        return self._total(loss, feats[0][0].shape[0])
 
     def forward_dual(self, preds, targets: torch.Tensor):
         """preds: {"aux": pairs, "main": pairs}; anchors and targets from
@@ -180,7 +208,7 @@ class TALoss:
         aux, main = (self._branch_losses(preds[k], *gt, anchor_points,
                                          stride_col) for k in ("aux", "main"))
         loss = self._gained(*(a * 0.25 + m for a, m in zip(aux, main)))
-        return loss.sum() * feats_main[0][0].shape[0], loss.detach()
+        return self._total(loss, feats_main[0][0].shape[0])
 
 
 def pad_targets(labels_list, max_boxes: int | None = None):

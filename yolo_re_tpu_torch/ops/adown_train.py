@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from yolo_re_tpu_torch.ops.conv import (
+    batch_count,
     batch_moments,
     bn_affine,
     silu,
@@ -60,7 +61,7 @@ def adown_train(x: torch.Tensor, conv_stride, conv_pool) -> torch.Tensor:
                        cs.conv.weight, cp.conv.weight)
     half = y.shape[1] // 2
     mean, var = batch_moments(y)
-    n = y.numel() // y.shape[1]
+    n = batch_count(y)
     update_running_stats(cs.bn, mean[:half], var[:half], n)
     update_running_stats(cp.bn, mean[half:], var[half:], n)
     y = bn_affine(y, mean, var, torch.cat([cs.bn.weight, cp.bn.weight]),

@@ -11,7 +11,9 @@ is written out (`batch_moments`, `update_running_stats`, `bn_affine`) with
 the JAX package's rounding points (yolo_re_tpu/ops/conv.py:conv_bn_act):
 bf16 activations take one-pass f32 moments of the bf16 conv output, f32
 activations two-pass moments; the running variance gets the unbiased batch
-variance.
+variance. Inside `parallel.mesh.global_batch(group)` (the Trainer's
+data-parallel step) the moments and the count are the global batch's, as
+XLA's sharded reductions make them in the JAX package.
 
 Compute dtype: parameters stay f32 (the master copy); activations carry
 the compute dtype (float32 or bfloat16), and every op casts its weights to
@@ -23,7 +25,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from yolo_re_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -60,14 +65,43 @@ def batch_moments(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel batch (mean, biased var) of a pre-BN (B, C, H, W)
     tensor, f32 and differentiable. bf16: one pass, E[y^2] - E[y]^2
     clamped at 0, over the bf16 values; f32: two passes
-    (yolo_re_tpu/ops/conv.py:258-282)."""
+    (yolo_re_tpu/ops/conv.py:258-282).
+
+    Inside `global_batch(group)`, y is this process's slice of the global
+    batch and the moments are the global batch's: bf16 all-reduces
+    (sum y, sum y^2) in f32 once; f32 all-reduces sum y, then
+    sum (y - mean)^2. The all-reduces are differentiable (their backward
+    all-reduces the gradient), so dx is the single-process dx."""
+    group = batch_group()
     yf = y.float()
-    mean = yf.mean(dim=(0, 2, 3))
+    if group is None:
+        mean = yf.mean(dim=(0, 2, 3))
+        if y.dtype == torch.bfloat16:
+            var = (yf.square().mean(dim=(0, 2, 3))
+                   - mean.square()).clamp(min=0)
+        else:
+            var = (yf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        return mean, var
+    n = batch_count(y)
     if y.dtype == torch.bfloat16:
-        var = (yf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0)
-    else:
-        var = (yf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+        sums = all_reduce_sum(torch.stack([yf.sum(dim=(0, 2, 3)),
+                                           yf.square().sum(dim=(0, 2, 3))]),
+                              group)
+        mean = sums[0] / n
+        return mean, (sums[1] / n - mean.square()).clamp(min=0)
+    mean = all_reduce_sum(yf.sum(dim=(0, 2, 3)), group) / n
+    var = all_reduce_sum((yf - mean[:, None, None]).square()
+                         .sum(dim=(0, 2, 3)), group) / n
     return mean, var
+
+
+def batch_count(y: torch.Tensor) -> int:
+    """Samples per channel of a (B, C, H, W) batch: B * H * W, times the
+    group's size inside `global_batch` (every process holds an equal
+    slice)."""
+    n = y.numel() // y.shape[1]
+    group = batch_group()
+    return n if group is None else n * dist.get_world_size(group)
 
 
 @torch.no_grad()
@@ -100,7 +134,7 @@ def batch_norm(y: torch.Tensor, bn: torch.nn.BatchNorm2d) -> torch.Tensor:
         return bn_affine(y, bn.running_mean, bn.running_var, bn.weight,
                          bn.bias)
     mean, var = batch_moments(y)
-    update_running_stats(bn, mean, var, y.numel() // y.shape[1])
+    update_running_stats(bn, mean, var, batch_count(y))
     return bn_affine(y, mean, var, bn.weight, bn.bias)
 
 

@@ -12,7 +12,11 @@ through the NMS kernel. The pipeline is one module, `ServingProgram`:
 and `Detector.export` writes it, weights included, to one `torch.export`
 archive that `Detector.load_exported` runs again. The kernels are custom
 ops (`yolo_torch::*`, registered when their modules are imported), so the
-archive calls the same kernels. Mesh serving waits for a later slice.
+archive calls the same kernels. `Detector(mesh=)` serves over a
+`parallel.mesh.Mesh` of local devices: one program per device, a batch
+padded to a multiple of the mesh's size, split, run, and the outputs
+gathered on the first device with the padding sliced off
+(yolo_re_tpu/serving.py:128-149).
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ from yolo_re_tpu_torch.convert import load_weights, state_dict_from_jax
 from yolo_re_tpu_torch.data.device_pipeline import batched_letterbox
 from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.ops.nms import nms_to_list, non_max_suppression
+from yolo_re_tpu_torch.parallel.mesh import (
+    Mesh,
+    device_context,
+    replicate,
+    run_replicas,
+)
 from yolo_re_tpu_torch.utils.precision import full_f32
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -92,28 +102,44 @@ class Detector:
     fuse=False: then the kernels of the fused blocks do not run); the
     caller's model is left as it was. `device` defaults to "cuda" and
     raises without a CUDA device; pass "cpu" to run the kernels' plain
-    versions. The thresholds are fixed at construction.
+    versions. With `mesh` the devices are the mesh's (the first one holds
+    `model`, `program` and the outputs) and `device` is not read; each
+    other device gets a copy of the fused model, its packed weights
+    moved with it. The thresholds are fixed at construction.
     """
 
     def __init__(self, model: YOLO, state_dict_or_params: Any, *,
                  device: str | torch.device = "cuda", img_size: int = 640,
                  conf_thres: float = 0.25, iou_thres: float = 0.45,
                  max_det: int = 300, compute_dtype: str = "bfloat16",
-                 fuse: bool = True):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 fuse: bool = True, mesh: Mesh | None = None):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None \
+            else torch.device(device)
+        devices = mesh.devices if mesh is not None else (self.device,)
+        if any(d.type == "cuda" for d in devices) and \
+                not torch.cuda.is_available():
             raise RuntimeError("Detector(device='cuda'): no CUDA device")
         if compute_dtype not in DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}")
         self.dtype = DTYPES[compute_dtype]
-        self.model = inference_model(model, state_dict_or_params,
-                                     self.device, self.dtype, fuse=fuse)
+        with device_context(self.device):
+            self.model = inference_model(model, state_dict_or_params,
+                                         self.device, self.dtype, fuse=fuse)
         self.img_size = img_size
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
         self.max_det = max_det
-        self.program = ServingProgram(self.model, img_size, self.dtype,
-                                      conf_thres, iou_thres, max_det)
+        # one program per mesh device (the first is `program`)
+        self.programs = [
+            ServingProgram(m, img_size, self.dtype, conf_thres, iou_thres,
+                           max_det)
+            for m in (replicate(self.model, mesh) if mesh is not None
+                      else [self.model])]
+        self.program = self.programs[0]
 
     @classmethod
     def from_checkpoint(cls, model: YOLO, path: str, **kwargs) -> "Detector":
@@ -128,8 +154,16 @@ class Detector:
         Returns padded tensors on the detector's device: boxes
         (B, max_det, 4) xyxy in letterbox-canvas pixels, scores, classes,
         valid. Runs with TF32 off (`utils.precision.full_f32`), so an f32
-        detector's library convs compute in full f32."""
-        return self.program(torch.as_tensor(images_u8).to(self.device))
+        detector's library convs compute in full f32. With a mesh each
+        device runs its part of the batch padded to a multiple of the
+        mesh's size, under that device's context (the kernels launch on
+        the current device's stream); the outputs come back on the first
+        device, padding sliced off."""
+        frames = torch.as_tensor(images_u8)
+        if self.mesh is None:
+            return self.program(frames.to(self.device))
+        return run_replicas(lambda program, part, dev: program(part.to(dev)),
+                            self.programs, self.mesh, frames)
 
     def export(self, path: str, batch: int, *, height: int | None = None,
                width: int | None = None) -> None:

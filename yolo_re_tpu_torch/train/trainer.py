@@ -22,10 +22,21 @@ computes. uint8 images are normalized on the device, then, with
 `device_augment` (True: HSV + flips; "full": also mosaic, the
 random_perspective warp and mixup; data/device_pipeline.py) augmented
 there. `validate()` runs the Evaluator (eval/evaluator.py) on the EMA
-weights, and `train()` keeps the best map50 in output_dir/best.npz. What
-waits for later slices raises NotImplementedError naming the slice:
-injected optimizers, multi-card data parallelism, remat and orbax
-checkpoints.
+weights, and `train()` keeps the best map50 in output_dir/best.npz.
+Injected optimizers, remat and orbax checkpoints are not ported and raise
+NotImplementedError.
+
+Data parallelism (`data_parallel=True` after `parallel.mesh.
+init_distributed`): one process per card, each stepping on its slice of
+every global batch (`data=` builds the loader with `shard=(rank,
+world)`). The forward runs inside `global_batch`, so BN moments and the
+loss's scale are the global batch's; the gradients are all-reduced (one
+flat buffer) and averaged after the backward, so clip, SGD and EMA run
+the same on every process. Device augmentation draws for the global
+batch on every process; "full" all-gathers the global batch's images and
+targets for mosaic and mixup partners and computes the process's own
+rows. Process 0 alone validates (its own EMA weights, no mesh) and
+writes checkpoints, metrics and debug images.
 """
 
 from __future__ import annotations
@@ -39,6 +50,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from yolo_re_tpu_torch.convert import jax_from_state_dict, state_dict_from_jax
 from yolo_re_tpu_torch.data.dataset import create_dataloader
@@ -54,6 +66,13 @@ from yolo_re_tpu_torch.data.device_pipeline import (
 from yolo_re_tpu_torch.eval.evaluator import Evaluator
 from yolo_re_tpu_torch.loss.tal import LossConfig, TALoss
 from yolo_re_tpu_torch.models.yolo import YOLO
+from yolo_re_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    global_batch,
+    local_rows,
+    process_count,
+    process_index,
+)
 from yolo_re_tpu_torch.serving import DTYPES
 from yolo_re_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from yolo_re_tpu_torch.train.config import TrainConfig
@@ -89,7 +108,8 @@ def _not_ported(what: str, slice_: str) -> NotImplementedError:
 
 
 class Trainer:
-    """Single-device trainer (reference: src/yolo/train/trainer.py:34-371).
+    """The trainer, on one device per process (reference:
+    src/yolo/train/trainer.py:34-371).
 
     Example:
         trainer = Trainer(model, config=TrainConfig(compute_dtype="bfloat16",
@@ -98,8 +118,12 @@ class Trainer:
 
     `params`/`stats`: the JAX package's (params, stats) pytrees to start
     from; without them the model is initialized from `config.seed`, as the
-    JAX Trainer does. `device` defaults to "cuda" and raises without a
+    JAX Trainer does. `device` defaults to "cuda" (the card
+    `init_distributed` chose, in a process group) and raises without a
     card; pass "cpu" to train on the kernels' plain versions.
+    `data_parallel` in an initialized process group steps on this
+    process's slice of each global batch (module docstring); a custom
+    loader must then carry `.shard == (rank, world)`, as in JAX.
     """
 
     def __init__(self, model: YOLO, data=None,
@@ -129,20 +153,45 @@ class Trainer:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer(device='cuda'): no CUDA device")
+        self._setup_data_parallel()
         data = self._setup_device_augment(data)
+        shard = (self.rank, self.world) if self.world > 1 else None
         if train_loader is None:
             if data is None or not data.train_path:
                 raise ValueError(
                     "train_loader (an iterable of {'images', 'targets'} "
                     "batches) or data with a train_path is required")
-            train_loader = create_dataloader(data.train_path, data, "train")
+            train_loader = create_dataloader(data.train_path, data, "train",
+                                             shard=shard)
+        elif shard is not None:
+            # a custom loader must yield THIS process's slice; an unsharded
+            # one would train on world-times duplicated samples
+            # (yolo_re_tpu/train/trainer.py:159-175)
+            own = getattr(train_loader, "shard", None)
+            if own is None or tuple(own) != shard:
+                raise ValueError(
+                    f"data-parallel training (process {self.rank}/"
+                    f"{self.world}) needs a per-process-sharded loader: "
+                    f"construct it with DataLoader(..., shard={shard}), "
+                    f"pass data= and let Trainer build it, or mark a custom "
+                    f"pre-sharded iterable with loader.shard = {shard}")
+        if self._group is not None:
+            # padding would enter the global BN statistics and the loss's
+            # batch scaling: refuse, and drop the partial last batch
+            # (yolo_re_tpu/train/trainer.py:208-228)
+            bs = getattr(train_loader, "batch_size", None)
+            if bs is not None and bs % self.world:
+                raise ValueError(
+                    f"batch_size {bs} is not divisible by the {self.world} "
+                    f"processes; BN statistics and loss scaling would be "
+                    f"computed over zero-padding")
+            if not getattr(train_loader, "drop_last", True):
+                log.warning("forcing drop_last on the train loader: a "
+                            "partial final batch cannot split over %d "
+                            "processes", self.world)
+                train_loader.drop_last = True
         if val_loader is None and data is not None and data.val_path:
             val_loader = create_dataloader(data.val_path, data, "val")
-        if cfg.data_parallel and self.device.type == "cuda" and \
-                torch.cuda.device_count() > 1:
-            raise _not_ported(
-                f"data_parallel over {torch.cuda.device_count()} cards "
-                f"(set data_parallel=False for one card)", "scale")
         self.dtype = DTYPES[cfg.compute_dtype]
 
         nc, reg_max, strides = detect_info(model)
@@ -178,6 +227,29 @@ class Trainer:
         self.global_step = 0
         self.start_epoch = 0
         self.best_fitness = 0.0
+
+    def _setup_data_parallel(self) -> None:
+        """`self._group` (the process group the step spans, or None),
+        `self.rank`, `self.world`. One process with several cards and no
+        group is refused: the port runs one process per card."""
+        self._group, self.rank, self.world = None, 0, 1
+        if not self.config.data_parallel:
+            return
+        if dist.is_available() and dist.is_initialized():
+            if dist.get_backend() == "nccl" and self.device.type != "cuda":
+                raise ValueError("an NCCL process group needs "
+                                 "device='cuda'")
+            self._group = dist.group.WORLD
+            self.rank, self.world = process_index(), process_count()
+            log.info("data parallel: process %d of %d on %s", self.rank,
+                     self.world, self.device)
+        elif self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            raise ValueError(
+                f"data_parallel over {torch.cuda.device_count()} cards "
+                f"needs one process per card: start them with python -m "
+                f"yolo_re_tpu_torch.cli.train --num-processes N "
+                f"--coordinator HOST:PORT --process-id I (or torchrun), or "
+                f"set data_parallel=False for one card")
 
     # -- device augmentation ---------------------------------------------
 
@@ -217,13 +289,22 @@ class Trainer:
     def _augment(self, x: torch.Tensor,
                  t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Device augmentation of NHWC images in the compute dtype and f32
-        targets (the JAX step's `_step_body`, trainer.py:294-308)."""
-        draws = draws_to(self._aug_draws(self.global_step, x.shape[0],
-                                         x.shape[1]), self.device)
-        fn = augment_batch_full if self._device_aug_full else augment_batch
+        targets (the JAX step's `_step_body`, trainer.py:294-308). Data
+        parallel: the draws are the global batch's on every process;
+        "full" gets the global batch (`_step` gathered it) and returns
+        this process's rows, True gets and returns them."""
+        n = x.shape[0] * (1 if self._device_aug_full else self.world)
+        draws = draws_to(self._aug_draws(self.global_step, n, x.shape[1]),
+                         self.device)
         hyps = {k: v for k, v in self._device_aug.items()
                 if k not in DRAW_ONLY}
-        return fn(x, t, draws, **hyps)
+        rows = None if self._group is None \
+            else local_rows(n, self.rank, self.world)
+        if self._device_aug_full:
+            return augment_batch_full(x, t, draws, rows=rows, **hyps)
+        if rows is not None:
+            draws = {k: v[rows] for k, v in draws.items()}
+        return augment_batch(x, t, draws, **hyps)
 
     # -- one step ------------------------------------------------------------
 
@@ -265,18 +346,21 @@ class Trainer:
         normalize (uint8: cast to the compute dtype, then / 255, as the JAX
         step does), augment (NHWC), then the forward on NCHW in
         channels_last memory. The whole step, augmentation included, runs
-        with TF32 off (`utils.precision.full_f32`)."""
+        with TF32 off (`utils.precision.full_f32`). Data parallel: x and t
+        are this process's slice; the forward and loss run inside
+        `global_batch` and the gradients are averaged over the processes
+        before the clip."""
         cfg = self.config
         if ready is not None:
             torch.cuda.current_stream(self.device).wait_event(ready)
-        x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \
-            else x.to(self.dtype)
-        if self._device_aug is not None:
-            x, t = self._augment(x, t)
+        x, t = self._inputs(x, t)
         x = x.contiguous().permute(0, 3, 1, 2)
-        total, items = self.loss_fn(self.model(x), t)
+        with global_batch(self._group):
+            total, items = self.loss_fn(self.model(x), t)
         names = list(self.params)
         grads = torch.autograd.grad(total, [self.params[k] for k in names])
+        if self._group is not None:
+            grads = self._mean_over_processes(grads)
         grads, gnorm = clip_by_global_norm(dict(zip(names, grads)),
                                            cfg.grad_clip_norm)
         lr, bias_lr, momentum = self.schedule(self.global_step)
@@ -287,6 +371,33 @@ class Trainer:
                    tau=cfg.ema_tau)
         self.global_step += 1
         return total.detach(), items, gnorm
+
+    def _inputs(self, x: torch.Tensor,
+                t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """A batch on the device -> NHWC images in the compute dtype,
+        augmented, and their targets: uint8 is cast, then / 255, as the
+        JAX step does. Data parallel with "full" augmentation: the global
+        batch is gathered first (mosaic and mixup partners index it), as
+        it came from the loader (uint8: 4x fewer bytes than f32), and this
+        process's rows come back."""
+        if self._group is not None and self._device_aug is not None \
+                and self._device_aug_full:
+            x = all_gather_rows(x, self._group)
+            t = all_gather_rows(t, self._group)
+        x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \
+            else x.to(self.dtype)
+        if self._device_aug is not None:
+            x, t = self._augment(x, t)
+        return x, t
+
+    def _mean_over_processes(self, grads) -> list[torch.Tensor]:
+        """The gradients averaged over the group: one all-reduce of one
+        flat f32 buffer, so every process gets the same bits."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self._group)
+        flat /= self.world
+        return [v.view_as(g) for v, g in
+                zip(flat.split([g.numel() for g in grads]), grads)]
 
     # -- epochs --------------------------------------------------------------
 
@@ -314,7 +425,7 @@ class Trainer:
             _, items, _ = self._step(x, t, ready)
             sum_items = items if sum_items is None else sum_items + items
             n_batches += 1
-            n_images += len(batch["images"])
+            n_images += len(batch["images"]) * self.world
             if n_batches % cfg.log_interval == 0 or n_batches == 1:
                 box, cls_, dfl = items.tolist()
                 log.info("epoch %d step %d | box %.4f cls %.4f dfl %.4f | "
@@ -330,8 +441,11 @@ class Trainer:
     def validate(self, epoch: int = 0) -> dict[str, float]:
         """Validate on the EMA weights (reference: trainer.py:315-334),
         with per-epoch debug images (GT red / preds green) under
-        output_dir/debug/."""
-        if self.val_loader is None:
+        output_dir/debug/. Data parallel: process 0's work, on its own
+        EMA weights (the same on every process) and device, without a
+        mesh; the others return {} and wait at their next collective
+        (yolo_re_tpu/train/trainer.py:402-411)."""
+        if self.val_loader is None or self.rank:
             return {}
         if self._evaluator is None:
             self._evaluator = Evaluator(
@@ -363,7 +477,10 @@ class Trainer:
 
     def _log_metrics(self, out_dir: Path, epoch: int, items,
                      results: dict[str, float]) -> None:
-        """One JSON line per epoch in output_dir/metrics.jsonl."""
+        """One JSON line per epoch in output_dir/metrics.jsonl (process 0
+        alone writes)."""
+        if self.rank:
+            return
         out_dir.mkdir(parents=True, exist_ok=True)
         lr, _, momentum = self.schedule(self.global_step)
         record = {"epoch": epoch, "global_step": self.global_step,
@@ -383,6 +500,8 @@ class Trainer:
         return jax_from_state_dict(self.model.plan, sd)
 
     def _save(self, path: Path, epoch: int) -> None:
+        if self.rank:                   # one writer per group
+            return
         params, stats = self._pytrees({})
         ema_params, ema_stats = self._pytrees(
             {**self.ema["params"], **self.ema["stats"]})
