@@ -158,7 +158,38 @@ non-zero (no phase is caught):
    the mesh's launches (twice the sites and NMS a request); (c) the
    trained tiny fixture through Evaluator(mesh=) against the single
    Evaluator (batches of 5: the last padded), mAP50 and mAP within phase 9
-   (a)'s 1e-3.
+   (a)'s 1e-3;
+16. train tooling and lazy-decode NMS: (a) gelan-c bf16, batch 32, 640
+   px, from the seed-0 state: remat off (twice: the spread), True and
+   "early", each a warm-up and REMAT_STEPS counted steps every one from
+   that state, loss items and the BN running statistics after a step
+   held to remat off's within the two remat-off runs' spread (or
+   REMAT_FLOOR), ms/step, peak memory and the train kernels' launches a
+   step held to REMAT_PAIRS; one "early" step at batch 64 (peak memory);
+   an f32 "early" step against f32 without remat; (b) two steps with a
+   torch.optim.Adam factory (finite losses) and two with a hand-written
+   SGD (init_fn, step_fn) pair (stem1's weight moved by exactly -lr *
+   the gradient handed to step_fn); (c) (a)'s "early" Trainer saved as a
+   checkpoint directory (checkpoint_format "orbax": torch.distributed.
+   checkpoint; seconds and bytes) and as an .npz, loaded by a fresh
+   Trainer (every tensor equal), the next step's items of both within
+   (a)'s bound, Detector.from_checkpoint of the directory and of the .npz
+   serving phase 5's first request torch.equal; (d) phase 5's bf16
+   Detector model (its weights with unit-scale BN statistics: at the
+   init's (0, 1) every score is 0.5) on phase 5's first request
+   letterboxed: predict_split + non_max_suppression_raw against the
+   decoded forward + non_max_suppression at conf 0.25 (K = 512) and 1e-3
+   (all 8400 anchors), detections equal within tests/test_torch_nms_raw.
+   py's tolerance with the anchors whose largest logit and largest
+   rounded sigmoid disagree left out of both (printed), the lazy path's
+   launches held to the fused sites plus one NMS, the device ms of both
+   post-processing paths (utils.profiling.device_timer); (e)
+   run by phase 15's ddp-worker in its one-process NCCL group: the DDP
+   Trainer in bf16 with remat "early", each step from one state against
+   the plain Trainer within phase 15's bound, its launches held to (a)'s
+   "early" ones, and its BN all-reduces to one a BN call of the forward
+   and one of each recomputed block's (the recompute reduces over the
+   group, from autograd's device thread). Phase 16's seconds are printed.
 The total seconds are printed before the last three lines.
 
 `bound_ms` in the kernels line is the least time the card could take for
@@ -182,7 +213,8 @@ phase 11 (b)'s launches per dtype; `launches_exported`: phase 12's
 launches from the loaded archive; `launches_gelan_e`,
 `launches_gelan_c_d2`: phase 13's; `launches_cli`: phase 14's;
 `launches_data_parallel`: phase 15's DDP train steps and mesh serving
-requests), and {"ok": true, "device": {...}}.
+requests; `launches_remat`, `launches_lazy_nms`: phase 16's), and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -221,7 +253,9 @@ from yolo_re_tpu_torch.data.synth import (
 )
 from yolo_re_tpu_torch.eval.evaluator import Evaluator
 from yolo_re_tpu_torch.models import blocks
-from yolo_re_tpu_torch.models.yolo import YOLO
+from yolo_re_tpu_torch.models.yolo import YOLO, remat_step
+from yolo_re_tpu_torch.ops import conv as conv_ops
+from yolo_re_tpu_torch.ops.boxes import dfl_decode, dist2bbox, make_anchors_np
 from yolo_re_tpu_torch.ops.kernels import (
     adown,
     build,
@@ -230,10 +264,15 @@ from yolo_re_tpu_torch.ops.kernels import (
     nms,
     stem,
 )
+from yolo_re_tpu_torch.ops.nms import (
+    non_max_suppression,
+    non_max_suppression_raw,
+)
 from yolo_re_tpu_torch.parallel.mesh import Mesh, init_distributed
 from yolo_re_tpu_torch.serving import Detector
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.trainer import Trainer
+from yolo_re_tpu_torch.utils.profiling import device_timer
 
 ROOT = Path(__file__).resolve().parent
 BATCH, SIZE, FRAME_HW, REQUESTS = 32, 640, (720, 1280), 4
@@ -291,6 +330,25 @@ MESH_BATCHES = (BATCH, 29)
 MESH_EVAL_BATCH = 5
 DDP_FLOOR = {"items": 2e-3, "state": 1.0}
 DDP_STATE_TOL = (5e-3, 3e-4)
+# phase 16: counted steps per remat mode (after one warm-up), each from the
+# seed-0 state; the train kernels' launches a step per mode (stem raw,
+# stem weight gradient, ADown raw, ADown backward): the recomputed blocks
+# launch their forward kernels again (stem1 under both modes, the five
+# ADowns under True, down1 under "early"), the backward kernels once;
+# (a)'s larger batch; the injected rules' lr; the floor of (a)'s parity
+# bound where two remat-off runs agree closer; (d)'s confidences (K = 512,
+# every anchor) and tolerance (tests/test_torch_nms_raw.py's 1e-4, plus
+# 1e-6 of the coordinate: a few f32 ulps at 640 px, where the DFL GEMM
+# over K or over every anchor sums in another order)
+REMAT_STEPS = 3
+REMAT_MODES = {"off": False, "True": True, "early": "early"}
+REMAT_PAIRS = {"off": (1, 1, 5, 5), "True": (2, 1, 10, 5),
+               "early": (2, 1, 6, 5)}
+REMAT_BIG_BATCH = 64
+REMAT_FLOOR = 1e-6
+OPT_LR = 1e-3
+LAZY_NMS_CONFS = (0.25, 1e-3)
+NMS_RAW_ATOL, NMS_RAW_RTOL = 1e-4, 1e-6
 # H100 SXM data sheet: HBM3 bytes/s; dense bf16 tensor-core, f32 (CUDA-
 # core) operations/s, and f32 operations/s in 3xTF32 (three TF32 products
 # per operation at 495 TFLOP/s)
@@ -930,15 +988,12 @@ def counted_epoch(trainer: Trainer, name: str, steps: int, batch: int,
     items. Returns (items, counts, {ms_per_step, images_per_s, peak_gib})
     and prints them (the host clock over the epoch; the peak since the
     caller's reset)."""
-    stem.raw_launches = stem.wgrad_launches = 0
-    adown.raw_launches = adown.bwd_launches = 0
+    reset_train_counts()
     t0 = time.perf_counter()
     items = trainer.train_one_epoch(0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {"stem_raw": stem.raw_launches,
-              "stem_wgrad": stem.wgrad_launches,
-              "adown_raw": adown.raw_launches, "adown_bwd": adown.bwd_launches}
+    counts = train_counts()
     print(f"  launches {counts} over {steps} steps")
     want = {"stem_raw": pairs["stem"] * steps,
             "stem_wgrad": pairs["stem"] * steps,
@@ -985,6 +1040,16 @@ def counts_now() -> dict:
     return {"stem": stem.launches, "adown": adown.launches,
             "csp_chain": csp_chain.launches, "conv3": conv3.launches,
             "nms": nms.launches}
+
+
+def train_counts() -> dict:
+    return {"stem_raw": stem.raw_launches, "stem_wgrad": stem.wgrad_launches,
+            "adown_raw": adown.raw_launches, "adown_bwd": adown.bwd_launches}
+
+
+def reset_train_counts() -> None:
+    stem.raw_launches = stem.wgrad_launches = 0
+    adown.raw_launches = adown.bwd_launches = 0
 
 
 def reset_counts() -> None:
@@ -1512,8 +1577,7 @@ def phase_clis(dev, tmp: Path) -> dict:
 
     train_dir = write_dataset(str(tmp / "data"), "train", CLI_TRAIN_IMAGES,
                               seed=4)
-    stem.raw_launches = stem.wgrad_launches = 0
-    adown.raw_launches = adown.bwd_launches = 0
+    reset_train_counts()
     t0 = time.perf_counter()
     train_cli.main(["--data", train_dir, "--val", val_dir, "--num-classes",
                     "4", "--config", cfg, "--epochs", "1", "--batch",
@@ -1521,10 +1585,7 @@ def phase_clis(dev, tmp: Path) -> dict:
                     "--augment", "minimal", "--output", str(tmp / "train"),
                     "--device", "cuda"])
     steps = CLI_TRAIN_IMAGES // CLI_BATCH
-    counts["train"] = {"stem_raw": stem.raw_launches,
-                       "stem_wgrad": stem.wgrad_launches,
-                       "adown_raw": adown.raw_launches,
-                       "adown_bwd": adown.bwd_launches}
+    counts["train"] = train_counts()
     print(f"  train: {steps} steps and validation in "
           f"{time.perf_counter() - t0:.1f} s; launches {counts['train']}")
     if counts["train"] != {"stem_raw": steps, "stem_wgrad": steps,
@@ -1575,23 +1636,26 @@ def ddp_state(tmp: Path, dtype: str, k: int) -> Path:
 
 
 def ddp_run(tmp: Path, dtype: str, data_parallel: bool,
-            record: bool = False) -> dict:
+            record: bool = False, remat=False) -> dict:
     """gelan-c in `dtype` from the saved state `ddp_state(tmp, dtype, 0)`:
     a warm-up Trainer.train_step, then DDP_STEPS counted ones (the free
-    run), the train kernels' launch counters set to 0 just before the
-    counted steps and read just after. `record`: save the state before
-    each later step (`ddp_state`; the saves are left out of the clock).
-    Otherwise each step is taken again from the recorded state before it
-    (`load_checkpoint`, so that a chaotic f32 curve is compared a step at
-    a time, as in phase 10 (e)). Returns the free run's loss items, ms/step
-    (host clock over the counted steps) and launches, and, the steps from
-    the recorded states' items (or, recording, the free run's again) and
-    the parameters and BN statistics after the last step (f32, host)."""
+    run), the train kernels' launch counters (and `ALLREDUCES`) set to 0
+    just before the counted steps and read just after. `record`: save the
+    state before each later step (`ddp_state`; the saves are left out of
+    the clock). Otherwise each step is taken again from the recorded state
+    before it (`load_checkpoint`, so that a chaotic f32 curve is compared
+    a step at a time, as in phase 10 (e)). Returns the free run's loss
+    items, ms/step (host clock over the counted steps), launches and BN
+    all-reduces, and, the steps from the recorded states' items (or,
+    recording, the free run's again) and the parameters and BN statistics
+    after the last step (f32, host). `remat`: the Trainer's remat mode;
+    the BN calls a forward of the whole model and of the recomputed steps
+    come back under "bn_calls"."""
     batches = ddp_batches()
     model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
     cfg = TrainConfig(epochs=1, compute_dtype=dtype,
                       data_parallel=data_parallel, log_interval=1,
-                      output_dir=str(tmp / "ddp_out"))
+                      output_dir=str(tmp / "ddp_out"), remat=remat)
     trainer = Trainer(model, config=cfg, train_loader=batches[1:],
                       device="cuda")
     if data_parallel != (trainer._group is not None):
@@ -1612,8 +1676,8 @@ def ddp_run(tmp: Path, dtype: str, data_parallel: bool,
     if record:
         save(1)
     torch.cuda.synchronize()
-    stem.raw_launches = stem.wgrad_launches = 0
-    adown.raw_launches = adown.bwd_launches = 0
+    reset_train_counts()
+    ALLREDUCES.update(dict.fromkeys(ALLREDUCES, 0))
     t0, paused = time.perf_counter(), 0.0
     for k, b in enumerate(batches[1:], 1):
         items.append(step(b))
@@ -1621,11 +1685,13 @@ def ddp_run(tmp: Path, dtype: str, data_parallel: bool,
             paused += save(k + 1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0 - paused
-    counts = {"stem_raw": stem.raw_launches,
-              "stem_wgrad": stem.wgrad_launches,
-              "adown_raw": adown.raw_launches, "adown_bwd": adown.bwd_launches}
     out = {"items": [[float(v) for v in it] for it in items],
-           "ms_per_step": dt / DDP_STEPS * 1e3, "counts": counts}
+           "ms_per_step": dt / DDP_STEPS * 1e3, "counts": train_counts(),
+           "allreduces": dict(ALLREDUCES),
+           "bn_calls": {"all": bn_calls(model, model.plan.steps),
+                        "recomputed": bn_calls(model, [
+                            s for s in model.plan.steps
+                            if remat and remat_step(s, remat)])}}
     if not record:
         items = []
         for k, b in enumerate(batches):
@@ -1637,6 +1703,42 @@ def ddp_run(tmp: Path, dtype: str, data_parallel: bool,
     del trainer, model
     torch.cuda.empty_cache()
     return out
+
+
+# phase 16 (e): calls of the BN moments' all-reduce (ops/conv.py), in the
+# forward and in a recompute of the backward (the latter also counted when
+# off the calling thread: autograd's device thread, where the caller's
+# `global_batch` is not set); counted by `count_allreduces`
+ALLREDUCES = {"forward": 0, "recompute": 0, "recompute_off_thread": 0}
+
+
+def count_allreduces() -> None:
+    """Count each call of ops/conv.py's all_reduce_sum in ALLREDUCES."""
+    import threading
+
+    inner = conv_ops.all_reduce_sum
+
+    def counted(x, group):
+        if conv_ops._RECOMPUTING.get():
+            ALLREDUCES["recompute"] += 1
+            if threading.current_thread() is not threading.main_thread():
+                ALLREDUCES["recompute_off_thread"] += 1
+        else:
+            ALLREDUCES["forward"] += 1
+        return inner(x, group)
+
+    conv_ops.all_reduce_sum = counted
+
+
+def bn_calls(model: YOLO, steps) -> int:
+    """batch_moments calls of a train forward of `steps`: one a BN, one for
+    an ADown's two."""
+    n = 0
+    for step in steps:
+        mods = list(model.layers[step.name].modules())
+        n += sum(isinstance(m, torch.nn.BatchNorm2d) for m in mods) - \
+            sum(isinstance(m, blocks.ADown) for m in mods)
+    return n
 
 
 def rel_items(a: list, b: list) -> float:
@@ -1660,20 +1762,27 @@ def ddp_worker(tmp: Path, port: int) -> int:
     other in this process; B and DDP each step again from A's state
     before it. DDP's loss items and final state are held against A
     within B's spread (or DDP_FLOOR), every run's launches to a stem pair
-    and five ADown pairs a step. Writes the DDP runs' launches per dtype
-    to tmp/ddp.json."""
+    and five ADown pairs a step. Then phase 16 (e): the data-parallel run
+    in bf16 with remat "early", held so against bf16's A, its launches
+    to (a)'s "early" ones, and its BN all-reduces to one a BN call of the
+    forward and one of each recomputed block's (the recompute's moments
+    are the group's). Writes the DDP runs' launches per dtype and (e)'s
+    results to tmp/ddp.json."""
     rank, world = init_distributed(f"127.0.0.1:{port}", 1, 0,
                                    device="cuda")
     print(f"  ddp-worker: process {rank}/{world}, backend "
           f"{dist.get_backend()}")
-    want = {"stem_raw": DDP_STEPS, "stem_wgrad": DDP_STEPS,
-            "adown_raw": 5 * DDP_STEPS, "adown_bwd": 5 * DDP_STEPS}
+    count_allreduces()
+
+    def want(pairs: tuple) -> dict:
+        return {k: n * DDP_STEPS for k, n in zip(
+            ("stem_raw", "stem_wgrad", "adown_raw", "adown_bwd"), pairs)}
 
     def rounded(items: list) -> list:
         return [[round(v, 5) for v in it] for it in items]
 
     try:
-        launches = {}
+        launches, ref = {}, {}
         for dtype in DDP_DTYPES:
             a = ddp_run(tmp, dtype, False, record=True)
             b = ddp_run(tmp, dtype, False)
@@ -1697,25 +1806,59 @@ def ddp_worker(tmp: Path, port: int) -> int:
                   f"{rel_items(b['items'], a['items']):.3e}, DDP-plain "
                   f"{rel_items(d['items'], a['items']):.3e}; DDP launches "
                   f"{d['counts']}", flush=True)
-            if any(r["counts"] != want for r in (a, b, d)):
+            if any(r["counts"] != want(REMAT_PAIRS["off"])
+                   for r in (a, b, d)):
                 raise AssertionError(
                     f"DDP {dtype}: launch counts {d['counts']} (plain "
-                    f"{a['counts']}, {b['counts']}), expected {want}")
+                    f"{a['counts']}, {b['counts']}), expected "
+                    f"{want(REMAT_PAIRS['off'])}")
             if not all(np.isfinite(d["one_state_items"]).ravel()) or any(
                     gap[k] > bound[k] for k in gap):
                 raise AssertionError(f"DDP {dtype}: differs from the plain "
                                      f"Trainer by {gap}, bound {bound}")
             launches[dtype] = d["counts"]
-        (tmp / "ddp.json").write_text(json.dumps(launches))
+            ref[dtype] = (a, bound)
+        remat = ddp_remat(tmp, *ref["bfloat16"], want(REMAT_PAIRS["early"]))
+        (tmp / "ddp.json").write_text(json.dumps({"launches": launches,
+                                                  "remat": remat}))
     finally:
         dist.destroy_process_group()
     return 0
 
 
+def ddp_remat(tmp: Path, a: dict, bound: dict, want: dict) -> dict:
+    """Phase 16 (e) in the ddp-worker (see there). Returns its counts and
+    the line phase 16 prints."""
+    e = ddp_run(tmp, "bfloat16", True, remat="early")
+    gap = {"items": rel_items(e["one_state_items"], a["items"]),
+           "state": excess(e["state"], a["state"])}
+    calls = {"forward": e["bn_calls"]["all"] * DDP_STEPS,
+             "recompute": e["bn_calls"]["recomputed"] * DDP_STEPS}
+    got = {k: e["allreduces"][k] for k in calls}
+    line = (f"DDP (world size 1, NCCL) bf16 with remat 'early', "
+            f"{DDP_STEPS} steps: {e['ms_per_step']:.1f} ms/step; against "
+            f"the plain Trainer each step from one state: {gap} (phase 15's "
+            f"bound {bound}); launches {e['counts']}; BN all-reduces "
+            f"{e['allreduces']} (expected {calls}: the recomputed blocks' "
+            f"moments over the group)")
+    print(f"  phase 16 (e): {line}", flush=True)
+    if e["counts"] != want:
+        raise AssertionError(f"DDP remat: launches {e['counts']}, "
+                             f"expected {want}")
+    if got != calls or not calls["recompute"]:
+        raise AssertionError(f"DDP remat: BN all-reduces {got}, "
+                             f"expected {calls}")
+    if not all(np.isfinite(e["one_state_items"]).ravel()) or any(
+            gap[k] > bound[k] for k in gap):
+        raise AssertionError(f"DDP remat: differs from the plain Trainer "
+                             f"by {gap}, bound {bound}")
+    return {"counts": e["counts"], "line": line}
+
+
 def phase_ddp(tmp: Path) -> dict:
     """Phase 15 (a): the seed-0 gelan-c state saved here, then
-    `ddp_worker` in a subprocess. Returns the DDP runs' launches per
-    dtype."""
+    `ddp_worker` in a subprocess. Returns {"launches": the DDP runs'
+    launches per dtype, "remat": phase 16 (e)'s counts and line}."""
     model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
     cfg = TrainConfig(epochs=1, data_parallel=False,
                       output_dir=str(tmp / "ddp_out"))
@@ -1836,9 +1979,396 @@ def phase_mesh_eval(dev, tmp: Path) -> None:
         raise AssertionError("mesh eval: differs from the single Evaluator")
 
 
+# -- phase 16: train tooling and lazy-decode NMS ------------------------------
+
+def snapshot(trainer: Trainer) -> dict:
+    """The Trainer's state as copies on its device: parameters, BN
+    statistics, the default SGD's buffers, the EMA and the step."""
+    return {"params": {k: v.detach().clone()
+                       for k, v in trainer.params.items()},
+            "stats": {k: v.clone() for k, v in trainer.stats.items()},
+            "opt": {k: v.clone() for k, v in trainer.opt_bufs.items()},
+            "ema_params": {k: v.clone()
+                           for k, v in trainer.ema["params"].items()},
+            "ema_stats": {k: v.clone()
+                          for k, v in trainer.ema["stats"].items()},
+            "updates": trainer.ema["updates"], "step": trainer.global_step}
+
+
+@torch.no_grad()
+def restore(trainer: Trainer, snap: dict) -> None:
+    """`snapshot`'s state back into a Trainer of the same model."""
+    for key, dst in (("params", trainer.params), ("stats", trainer.stats),
+                     ("opt", trainer.opt_bufs),
+                     ("ema_params", trainer.ema["params"]),
+                     ("ema_stats", trainer.ema["stats"])):
+        for k, v in dst.items():
+            v.copy_(snap[key][k])
+    trainer.ema["updates"], trainer.global_step = snap["updates"], snap["step"]
+
+
+def gelan_c_trainer(dev, tmp: Path, batches: list, dtype: str = "bfloat16",
+                    optimizer=None, **config) -> Trainer:
+    """gelan-c at full width from the seed-0 init (every Trainer of phase
+    16 starts from the same state); `config`: more TrainConfig fields."""
+    cfg = TrainConfig(epochs=1, compute_dtype=dtype, data_parallel=False,
+                      output_dir=str(tmp / "tooling"), log_interval=1,
+                      **config)
+    return Trainer(YOLO.from_yaml(ROOT / "configs" / "models" /
+                                  "gelan-c.yaml"), config=cfg,
+                   train_loader=batches[1:], device=dev,
+                   optimizer=optimizer)
+
+
+def items_of(trainer: Trainer, b: dict) -> list[float]:
+    return [float(v) for v in trainer.train_step(b["images"],
+                                                 b["targets"])[1]]
+
+
+def remat_run(trainer: Trainer, batches: list, snap: dict, steps: int
+              ) -> dict:
+    """A warm-up step, then `steps` counted steps, every one from `snap`
+    (the launch counters set to 0 just before the counted steps and read
+    just after; the peak memory over the counted steps). Returns the
+    items, ms/step (host clock around each step), the peak GiB, the
+    launches a step and the BN running statistics after the first
+    counted step."""
+    restore(trainer, snap)
+    items_of(trainer, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    items, seconds, stats = [], 0.0, None
+    for b in batches[1:steps + 1]:
+        restore(trainer, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items.append(items_of(trainer, b))
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        if stats is None:
+            stats = {k: v.clone() for k, v in trainer.stats.items()}
+    total = train_counts()
+    if any(v % steps for v in total.values()):
+        raise AssertionError(f"remat launches {total} over {steps} steps")
+    return {"items": items, "ms": seconds / steps * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "counts": {k: v // steps for k, v in total.items()},
+            "stats": stats}
+
+
+def stats_gap(a: dict, b: dict) -> float:
+    """Largest |a - b| over the BN statistics, relative to the tensor's
+    largest |b| (at least 1)."""
+    return max(float((a[k] - v).abs().max()) / max(float(v.abs().max()), 1.0)
+               for k, v in b.items())
+
+
+def check_remat(name: str, run: dict, ref: dict, bound: dict,
+                pairs: tuple) -> dict:
+    """One remat run against remat off's: its launches a step (stem raw,
+    stem weight gradient, ADown raw, ADown backward) `pairs`, its loss
+    items and statistics within `bound`. Returns the gaps."""
+    want = dict(zip(("stem_raw", "stem_wgrad", "adown_raw", "adown_bwd"),
+                    pairs))
+    gap = {"items": rel_items(run["items"], ref["items"]),
+           "stats": stats_gap(run["stats"], ref["stats"])}
+    print(f"  (a) {name}: {run['ms']:.1f} ms/step, peak "
+          f"{run['peak_gib']:.2f} GiB, launches a step {run['counts']}; "
+          f"against remat off: items {gap['items']:.3e}, BN statistics "
+          f"{gap['stats']:.3e} (bound {bound})", flush=True)
+    if run["counts"] != want:
+        raise AssertionError(f"remat {name}: launches {run['counts']}, "
+                             f"expected {want}")
+    if not np.isfinite(run["items"]).all() or any(
+            gap[k] > bound[k] for k in gap):
+        raise AssertionError(f"remat {name}: differs from remat off by {gap}")
+    return gap
+
+
+def phase_remat(dev, tmp: Path) -> tuple[dict, Trainer, dict, dict]:
+    """Phase 16 (a). Returns the launches a step per mode, the "early"
+    Trainer (for (c)), the seed-0 snapshot and the parity bound."""
+    batches = [make_eval_batch(BATCH, SIZE, 50 + i)
+               for i in range(REMAT_STEPS + 1)]
+    runs, snap, keep = {}, None, None
+    for name, mode in (("off", False), ("off, again", False),
+                       *((k, v) for k, v in REMAT_MODES.items() if v)):
+        trainer = gelan_c_trainer(dev, tmp, batches, remat=mode)
+        snap = snap or snapshot(trainer)
+        runs[name] = remat_run(trainer, batches, snap, REMAT_STEPS)
+        if mode == "early":
+            keep = trainer
+        else:
+            del trainer
+        torch.cuda.empty_cache()
+    off = runs["off"]
+    spread = {"items": rel_items(runs["off, again"]["items"], off["items"]),
+              "stats": stats_gap(runs["off, again"]["stats"], off["stats"])}
+    bound = {k: max(v, REMAT_FLOOR) for k, v in spread.items()}
+    print(f"  (a) gelan-c bf16, batch {BATCH}, {SIZE} px, a warm-up and "
+          f"{REMAT_STEPS} counted steps, each from the seed-0 state; loss "
+          f"items of remat off {[[round(v, 5) for v in it] for it in off['items']]}; "
+          f"two remat-off runs apart by {spread}")
+    counts = {}
+    for name in ("off", "off, again", *[k for k in REMAT_MODES if k != "off"]):
+        key = "off" if name.startswith("off") else name
+        check_remat(name, runs[name], off, bound, REMAT_PAIRS[key])
+        counts[key] = runs[name]["counts"]
+
+    big = [make_eval_batch(REMAT_BIG_BATCH, SIZE, 60 + i) for i in range(2)]
+    trainer = gelan_c_trainer(dev, tmp, big, remat="early")
+    run = remat_run(trainer, big, snap, 1)
+    print(f"  (a) batch {REMAT_BIG_BATCH}, remat 'early': {run['ms']:.1f} "
+          f"ms/step, peak {run['peak_gib']:.2f} GiB, launches "
+          f"{run['counts']}, items {[round(v, 5) for v in run['items'][0]]}")
+    if run["counts"] != counts["early"] or not np.isfinite(
+            run["items"]).all():
+        raise AssertionError(f"remat batch {REMAT_BIG_BATCH}: {run}")
+    del trainer
+    torch.cuda.empty_cache()
+    f32 = {}
+    for name, mode in (("off", False), ("early", "early")):
+        trainer = gelan_c_trainer(dev, tmp, batches, "float32", remat=mode)
+        f32[name] = remat_run(trainer, batches, snap, 1)
+        del trainer
+        torch.cuda.empty_cache()
+    check_remat("f32 early", f32["early"], f32["off"], bound,
+                REMAT_PAIRS["early"])
+    print(f"  (a) f32 remat off: {f32['off']['ms']:.1f} ms/step, peak "
+          f"{f32['off']['peak_gib']:.2f} GiB")
+    return counts, keep, snap, bound
+
+
+def phase_injected(dev, tmp: Path) -> None:
+    """Phase 16 (b): two steps with a torch.optim.Adam factory (finite
+    losses), two with a hand-written SGD (init_fn, step_fn) pair (stem1's
+    weight moved by exactly -lr * the gradient handed to step_fn)."""
+    batches = [make_eval_batch(BATCH, SIZE, 70 + i) for i in range(3)]
+    trainer = gelan_c_trainer(
+        dev, tmp, batches,
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=OPT_LR))
+    items = [items_of(trainer, b) for b in batches[1:]]
+    steps = {float(st["step"]) for st in trainer._torch_opt.state.values()}
+    print(f"  (b) torch.optim.Adam factory, 2 steps: items "
+          f"{[[round(v, 5) for v in it] for it in items]}, Adam's step "
+          f"{steps}")
+    if not np.isfinite(items).all() or steps != {2.0}:
+        raise AssertionError("injected Adam: non-finite loss or no step")
+    del trainer
+    torch.cuda.empty_cache()
+    key, seen = "layers.stem1.conv.weight", []
+
+    def step_fn(params, grads, state, step):
+        seen.append((params[key].detach().clone(), grads[key].clone()))
+        return {k: p - OPT_LR * grads[k] for k, p in params.items()}, state
+
+    trainer = gelan_c_trainer(dev, tmp, batches,
+                              optimizer=(lambda params: {}, step_fn))
+    moved = []
+    for b in batches[1:]:
+        items_of(trainer, b)
+        p0, g = seen[-1]
+        moved.append(torch.equal(trainer.params[key].detach(),
+                                 p0 - OPT_LR * g))
+    print(f"  (b) SGD (init_fn, step_fn) pair, 2 steps: stem1's weight "
+          f"moved by exactly -lr * grad: {moved}")
+    if not all(moved):
+        raise AssertionError("injected pair: stem1 did not move by -lr*grad")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def trainer_tensors(trainer: Trainer) -> dict:
+    return {**{f"p/{k}": v.detach() for k, v in trainer.params.items()},
+            **{f"s/{k}": v for k, v in trainer.stats.items()},
+            **{f"o/{k}": v for k, v in trainer.opt_bufs.items()},
+            **{f"e/{k}": v for k, v in trainer.ema["params"].items()},
+            **{f"es/{k}": v for k, v in trainer.ema["stats"].items()}}
+
+
+def phase_checkpoint_dir(dev, tmp: Path, trainer: Trainer, bound: dict
+                         ) -> None:
+    """Phase 16 (c): (a)'s "early" Trainer saved as a checkpoint directory
+    (seconds, bytes) and as an .npz, the directory loaded by a fresh
+    Trainer (every tensor equal), the next step's items of both within
+    (a)'s bound, and Detectors from the directory and from the .npz
+    serving phase 5's first request alike (at conf 0: the prior's class
+    biases keep every score of these few steps' EMA weights below 1e-4)."""
+    trainer.config.checkpoint_format = "orbax"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._save(tmp / "ckpt.npz", 0)
+    seconds = time.perf_counter() - t0
+    path = tmp / "ckpt"
+    size = sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    trainer.config.checkpoint_format = "npz"
+    trainer._save(tmp / "ckpt.npz", 0)
+    batches = [make_eval_batch(BATCH, SIZE, 80 + i) for i in range(2)]
+    fresh = gelan_c_trainer(dev, tmp, batches, remat="early")
+    t0 = time.perf_counter()
+    fresh.load_checkpoint(path)
+    load_s = time.perf_counter() - t0
+    a, b = trainer_tensors(trainer), trainer_tensors(fresh)
+    equal = a.keys() == b.keys() and all(torch.equal(v, b[k])
+                                         for k, v in a.items())
+    equal = equal and (trainer.global_step, trainer.ema["updates"]) == \
+        (fresh.global_step, fresh.ema["updates"])
+    items = [items_of(t, batches[1]) for t in (trainer, fresh)]
+    gap = rel_items([items[1]], [items[0]])
+    print(f"  (c) checkpoint directory {path.name}/: {len(list(path.iterdir()))} "
+          f"files, {size} bytes, saved in {seconds:.2f} s, loaded on the "
+          f"card in {load_s:.2f} s; {len(a)} tensors equal: {equal}; the "
+          f"next step's items apart by {gap:.3e} (bound {bound['items']})")
+    if not equal or gap > bound["items"]:
+        raise AssertionError("checkpoint directory: resume differs")
+    del fresh
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (BATCH, *FRAME_HW, 3), dtype=np.uint8)
+    model = YOLO.from_yaml(ROOT / "configs" / "models" / "gelan-c.yaml")
+    outs = [Detector.from_checkpoint(model, str(p), device=dev,
+                                     img_size=SIZE, conf_thres=0.0)(frames)
+            for p in (path, tmp / "ckpt.npz")]
+    same = all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+    print(f"  (c) Detector.from_checkpoint: directory against .npz, phase "
+          f"5's request: equal {same}, {int(outs[0]['valid'].sum())} "
+          f"detections")
+    if not same:
+        raise AssertionError("checkpoint directory: Detector differs")
+    torch.cuda.empty_cache()
+
+
+def phase_lazy_nms(dev, sites: dict) -> dict:
+    """Phase 16 (d): phase 5's bf16 gelan-c Detector model on phase 5's
+    first request, letterboxed: predict_split + non_max_suppression_raw
+    against the decoded forward + non_max_suppression at conf 0.25 (K =
+    512) and 1e-3 (every anchor), the launches of the lazy path held to
+    the model's kernel sites and one NMS; the device ms of both
+    post-processing paths from the same streams
+    (utils.profiling.device_timer). Phase 5's weights take unit-scale BN
+    statistics (`unit_scale_stats`): with the init's (0, 1) every class
+    logit of the random model is ~1e-7, every score 0.5, and the two
+    paths part by design on such ties (the dense argmax of the sigmoids
+    takes the first class, the lazy one the largest logit); the few
+    anchors where the two still disagree are left out of both (printed).
+    Returns the launches per setting."""
+    model = unit_scale_stats(random_model("gelan-c"))
+    det = Detector(model, model.state_dict(), device=dev, img_size=SIZE,
+                   compute_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (BATCH, *FRAME_HW, 3), dtype=np.uint8)).to(dev)
+    x = device_pipeline.batched_letterbox(frames, SIZE, dtype=torch.bfloat16) \
+        .permute(0, 3, 1, 2)
+    fused = det.model
+    shapes = [(SIZE // int(s), SIZE // int(s)) for s in fused.strides]
+    pts, col = (torch.from_numpy(v).to(dev)
+                for v in make_anchors_np(shapes, fused.strides))
+
+    def decode(box, cls):
+        dbox = dist2bbox(dfl_decode(box, 16), pts[None], xywh=True) * \
+            col[None]
+        return torch.cat([dbox, torch.sigmoid(cls.float())], -1)
+
+    def dense_post(box, cls, conf):
+        return non_max_suppression(decode(box, cls), conf_thres=conf)
+
+    def lazy_post(box, cls, conf):
+        return non_max_suppression_raw(box, cls, pts, col, conf_thres=conf)
+
+    counts = {}
+    for conf in LAZY_NMS_CONFS:
+        with torch.no_grad():
+            reset_counts()
+            box, cls = fused.predict_split(x)
+            lazy = lazy_post(box, cls, conf)
+            torch.cuda.synchronize()
+            counts[f"conf {conf}"] = counts_now()
+            decoded, _ = fused(x, main_only=True)
+            dense = non_max_suppression(decoded, conf_thres=conf)
+            stream_err = float((decode(box, cls) - decoded).abs().max())
+            # an anchor whose largest logit and largest rounded sigmoid
+            # disagree (the class, or the score by an ulp) is ranked by
+            # each path's own definition, and NMS then parts in a cascade:
+            # the comparison leaves such anchors out of both paths
+            scores = torch.sigmoid(cls)
+            ties = (scores.argmax(-1) != cls.argmax(-1)) | \
+                (scores.amax(-1) != torch.sigmoid(cls.amax(-1)))
+            if ties.any():
+                held = cls.masked_fill(ties[..., None], -1e4)
+                lazy, dense = (lazy_post(box, held, conf),
+                               dense_post(box, held, conf))
+            dense_ms = device_timer(dense_post, box, cls, conf,
+                                    iters=20) * 1e3
+            lazy_ms = device_timer(lazy_post, box, cls, conf,
+                                   iters=20) * 1e3
+        box_err = float((lazy["boxes"] - dense["boxes"]).abs().max())
+        tol = NMS_RAW_ATOL + NMS_RAW_RTOL * float(dense["boxes"].abs().max())
+        score_err = float((lazy["scores"] - dense["scores"]).abs().max())
+        same = torch.equal(lazy["valid"], dense["valid"]) and \
+            torch.equal(lazy["classes"], dense["classes"])
+        n = int(lazy["valid"].sum())
+        k = 512 if conf >= 0.1 else box.shape[1]
+        print(f"  (d) conf {conf} (K = {k}): the streams decoded against "
+              f"the decoded forward {stream_err:.3e}; {int(ties.sum())} of "
+              f"{ties.numel()} anchors whose largest logit and largest "
+              f"sigmoid disagree, left out of both paths; {n} detections, "
+              f"valid and classes equal {same}, boxes {box_err:.3e} px (tol "
+              f"{tol:.3e}), scores {score_err:.3e} (tol {NMS_RAW_ATOL}); "
+              f"post-processing of the {tuple(box.shape)} and "
+              f"{tuple(cls.shape)} streams, device ms: decode + "
+              f"non_max_suppression {dense_ms:.4f}, non_max_suppression_raw "
+              f"{lazy_ms:.4f}; launches {counts[f'conf {conf}']}", flush=True)
+        if not (same and box_err <= tol and score_err <= NMS_RAW_ATOL
+                and stream_err <= tol and n > 0):
+            raise AssertionError(f"lazy-decode NMS at conf {conf} differs "
+                                 f"from the dense path")
+        if counts[f"conf {conf}"] != {**sites, "nms": 1}:
+            raise AssertionError(f"lazy NMS launches {counts}")
+    del det, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+@torch.no_grad()
+def unit_scale_stats(model: YOLO) -> YOLO:
+    """BN running statistics at the scale the init's convs give
+    (tests/test_torch_dual.py: a U(-1/sqrt(fan_in), +) conv divides its
+    input's variance by 3, so var ~ U(0.25, 0.4), mean ~ U(-0.1, 0.1)
+    keeps the activations at unit scale through the depth), from seed 0.
+    Returns the model."""
+    g = torch.Generator().manual_seed(0)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.copy_(torch.rand(m.running_mean.shape,
+                                            generator=g) * 0.2 - 0.1)
+            m.running_var.copy_(torch.rand(m.running_var.shape,
+                                           generator=g) * 0.15 + 0.25)
+    return model
+
+
+def phase_tooling(dev, tmp: Path, sites: dict, ddp_remat: dict
+                  ) -> tuple[dict, dict]:
+    """Phase 16 (module docstring). Returns the launches a step per remat
+    mode and the lazy-decode NMS launches per setting."""
+    t0 = time.perf_counter()
+    remat, trainer, _, bound = phase_remat(dev, tmp)
+    phase_injected(dev, tmp)
+    phase_checkpoint_dir(dev, tmp, trainer, bound)
+    del trainer
+    torch.cuda.empty_cache()
+    lazy = phase_lazy_nms(dev, sites)
+    print(f"  (e) from phase 15's one-process NCCL group: {ddp_remat['line']}")
+    remat["data parallel early"] = {
+        k: v // DDP_STEPS for k, v in ddp_remat["counts"].items()}
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s")
+    return remat, lazy
+
+
 def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
                  v9c: dict, aug: dict, exported: dict, more: dict,
-                 clis: dict, dp: dict) -> list[dict]:
+                 clis: dict, dp: dict, remat: dict, lazy: dict
+                 ) -> list[dict]:
     """The kernels JSON line's entries from phases 3 and 6's numbers and
     the launch counts of phases 5 and 8 (`launches`, gelan-c), of phase
     10 (`launches_yolov9_c`: serving, eval and train), of phase 11 (b)
@@ -1846,9 +2376,11 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
     (`launches_exported`: the loaded archive's requests), of phase 13
     (`launches_gelan_e`, `launches_gelan_c_d2`: serving, eval and train
     per dtype), of phase 14 (`launches_cli`: detect on cuda, train,
-    val) and of phase 15 (`launches_data_parallel`: the DDP train steps
-    per dtype, the mesh Detector's requests); prints each dtype's
-    fractions of the bound."""
+    val), of phase 15 (`launches_data_parallel`: the DDP train steps
+    per dtype, the mesh Detector's requests) and of phase 16
+    (`launches_remat`: a step per remat mode, and of the DDP step with
+    "early"; `launches_lazy_nms`: predict_split + non_max_suppression_raw
+    per confidence); prints each dtype's fractions of the bound."""
     # (name, source, TPU kernel, launches, {dtype: numbers}); NMS runs in
     # f32 only
     rows = (
@@ -1908,6 +2440,8 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
         "launches_cli": by_path({k: v for k, v in clis.items()
                                  if k != "detect cpu"}, name),
         "launches_data_parallel": by_path(dp, name),
+        "launches_remat": by_path(remat, name),
+        "launches_lazy_nms": by_path(lazy, name),
         **numbers(r["bf16"]), "f32": numbers(r["f32"])}
         for name, src, tpu, launches, r in rows]
     # the ADown kernels' sums over gelan-e's five sites
@@ -2052,13 +2586,18 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as td:
         print("phase 15: data parallelism")
-        dp = {f"train {d}": c for d, c in phase_ddp(Path(td)).items()}
+        ddp = phase_ddp(Path(td))
+        dp = {f"train {d}": c for d, c in ddp["launches"].items()}
         dp["serving"] = phase_mesh_serving(dev, random_model("gelan-c"),
                                            sites)
         phase_mesh_eval(dev, Path(td))
 
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 16: train tooling and lazy-decode NMS")
+        remat, lazy = phase_tooling(dev, Path(td), sites, ddp["remat"])
+
     kernels = kernels_line(res, tres, counts, tcounts, v9c, aug, exported,
-                           more, clis, dp)
+                           more, clis, dp, remat, lazy)
     print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "
           f"the serving, eval and train shapes, library calls with TF32 "
           f"off; adown kernels are the sum of gelan-c's five ADown shapes "
@@ -2092,7 +2631,10 @@ def main() -> int:
           f"train ({CLI_TRAIN_IMAGES // CLI_BATCH} steps) and val; "
           f"launches_data_parallel: phase 15's {DDP_STEPS} counted DDP "
           f"train steps per dtype and {REQUESTS} mesh Detector requests "
-          f"(two replicas); the ADown "
+          f"(two replicas); launches_remat: phase 16's launches a train "
+          f"step per remat mode (and of the DDP step with 'early'); "
+          f"launches_lazy_nms: phase 16 (d)'s predict_split + "
+          f"non_max_suppression_raw per confidence; the ADown "
           f"kernels' sums over gelan-e's five sites under 'gelan_e', and "
           f"the stem kernels at C=64 (gelan-c) and C=80 (gelan-e) under "
           f"'shapes')")

@@ -1374,3 +1374,126 @@ def test_batch_moments_over_a_one_process_nccl_group(cuda, dtype):
     for x, r in zip(got, ref):
         torch.testing.assert_close(x, r, rtol=rtol,
                                    atol=rtol * float(r.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# train tooling and lazy-decode NMS
+# ---------------------------------------------------------------------------
+
+def _train_counts() -> tuple[int, int, int, int]:
+    return (stem.raw_launches, stem.wgrad_launches, adown.raw_launches,
+            adown.bwd_launches)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_launch_counts_and_running_stats(cuda, tmp_path, dtype):
+    """One TINY_YAML train step per remat mode from the same init on the
+    card: the recomputed blocks launch their forward kernels again (the
+    stem at scale 2 under both modes, the four ADowns under True, down1
+    and pan_down1 under "early": stem raw 1/2/2, ADown raw 4/8/6), the
+    backward kernels once (1/1/1, 4/4/4); the loss items and the BN
+    running statistics after the step equal remat off's (the forward
+    kernels are bit-stable; the recompute updates no statistic)."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    batch = make_eval_batch(4, 96, 5)
+    want = {False: (1, 1, 4, 4), True: (2, 1, 8, 4), "early": (2, 1, 6, 4)}
+    out = {}
+    for mode in want:
+        cfg = TrainConfig(data_parallel=False, output_dir=str(tmp_path),
+                          remat=mode, compute_dtype=dtype)
+        tr = Trainer(YOLO.from_yaml(path), config=cfg, train_loader=[batch],
+                     device=cuda)
+        before = _train_counts()
+        _, items, _ = tr.train_step(batch["images"], batch["targets"])
+        torch.cuda.synchronize()
+        got = tuple(a - b for a, b in zip(_train_counts(), before))
+        assert got == want[mode], (mode, got)
+        out[mode] = (items.cpu(), {k: v.cpu() for k, v in tr.stats.items()})
+    for mode in (True, "early"):
+        assert torch.equal(out[mode][0], out[False][0]), mode
+        for k, v in out[False][1].items():
+            assert torch.equal(out[mode][1][k], v), (mode, k)
+
+
+@pytest.mark.parametrize("conf", [0.25, 1e-3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_raw_cuda_matches_cpu(cuda, tmp_path, conf, dtype):
+    """non_max_suppression_raw on the trained fixture's split streams
+    (160 px, 2100 anchors; K = 512 and every anchor) on the card (one NMS
+    launch) against the CPU (the plain version), f32 and bf16 logits."""
+    from yolo_re_tpu_torch.convert import state_dict_from_jax
+    from yolo_re_tpu_torch.ops.boxes import make_anchors_np
+    from yolo_re_tpu_torch.ops.nms import non_max_suppression_raw
+
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    model = YOLO.from_yaml(path)
+    model.load_state_dict(state_dict_from_jax(
+        model.plan, *load_weights(str(FIXTURE))), strict=True)
+    model.eval()
+    x = make_eval_batch(2, 160, 3)["images"].astype(np.float32) / 255
+    pts, col = make_anchors_np([(160 // int(s),) * 2 for s in model.strides],
+                               model.strides)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        model.to(dev)
+        with torch.no_grad():
+            box, cls = model.predict_split(torch.from_numpy(x).to(dev)
+                                           .permute(0, 3, 1, 2))
+        before = nms.launches
+        r = non_max_suppression_raw(
+            box.to(dtype), cls.to(dtype), torch.from_numpy(pts).to(dev),
+            torch.from_numpy(col).to(dev), conf_thres=conf)
+        assert nms.launches == before + (dev.type == "cuda")
+        out.append((box.cpu(), cls.cpu(), {k: v.cpu() for k, v in r.items()}))
+    (bc, cc, a), (bh, ch, b) = out
+    torch.testing.assert_close(bc, bh, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(cc, ch, atol=1e-4, rtol=1e-5)
+    for k in ("valid", "classes"):
+        assert torch.equal(a[k], b[k]), k
+    np.testing.assert_allclose(a["boxes"], b["boxes"], atol=1e-3)
+    np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-4)
+    assert a["valid"].sum() > 0
+
+
+def test_checkpoint_dir_saved_on_cuda_loads_on_cpu(cuda, tmp_path):
+    """A TINY_YAML Trainer on the card, a step with an injected Adam, saved
+    as a checkpoint directory (checkpoint_format "orbax"), resumed by a CPU
+    Trainer: every parameter, statistic, EMA tensor and Adam state equal;
+    load_weights(dir) gives the EMA."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    batch = make_eval_batch(4, 96, 5)
+
+    def adam(ps):
+        return torch.optim.Adam(ps, lr=1e-3)
+
+    trainers = []
+    for dev in (cuda, torch.device("cpu")):
+        cfg = TrainConfig(data_parallel=False, output_dir=str(tmp_path),
+                          checkpoint_format="orbax")
+        trainers.append(Trainer(YOLO.from_yaml(path), config=cfg,
+                                train_loader=[batch], device=dev,
+                                optimizer=adam))
+    card, host = trainers
+    card.train_step(batch["images"], batch["targets"])
+    card._save(tmp_path / "ckpt.npz", 0)
+    assert (tmp_path / "ckpt" / ".metadata").is_file()
+    host.load_checkpoint(tmp_path / "ckpt")
+    for a, b in ((card.params, host.params), (card.stats, host.stats),
+                 (card.ema["params"], host.ema["params"])):
+        for k, v in a.items():
+            assert torch.equal(v.detach().cpu(), b[k].detach()), k
+    for k, p in host.params.items():
+        mine = host._torch_opt.state[p]
+        theirs = card._torch_opt.state[card.params[k]]
+        assert mine.keys() == theirs.keys() and mine, k
+        for s, v in mine.items():
+            assert torch.equal(torch.as_tensor(v).cpu(),
+                               torch.as_tensor(theirs[s]).cpu()), (k, s)
+    params, _ = load_weights(tmp_path / "ckpt")
+    np.testing.assert_array_equal(
+        params["stem1"]["w"], np.transpose(
+            card.ema["params"]["layers.stem1.conv.weight"].cpu().numpy(),
+            (2, 3, 1, 0)))

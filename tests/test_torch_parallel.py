@@ -7,7 +7,8 @@ imports neither jax nor yolo_re_tpu: both are blocked) carries the
 multi-process checks: global BN moments and their gradient, the loss's
 scale (`TALoss.forward` and `forward_dual`), a data-parallel Trainer epoch
 (custom sharded loader), sharded device augmentation ("full") and its
-epoch (`data=`, the loader's `shard=`), and the refusals. Each rank writes
+epoch (`data=`, the loader's `shard=`), a data-parallel epoch with
+remat="early", and the refusals. Each rank writes
 what it computed to an .npz; the tests below hold it against the
 single-process port and against the JAX package on the whole batch
 (`conv_bn_act`, `TALoss`, the JAX Trainer's step from the same init on
@@ -259,6 +260,15 @@ def recorded(x, t):
 trainer._inputs = recorded
 trainer.train()
 state("aug", trainer)
+
+# 5. remat="early": the blocks recomputed in the backward take the global
+# batch's BN moments too (the group is captured at the forward)
+cfg = TrainConfig(epochs=1, data_parallel=True, remat="early",
+                  log_interval=1, output_dir=str(root / f"remat{rank}"))
+trainer = Trainer(YOLO.from_yaml(tiny), config=cfg, device="cpu",
+                  train_loader=sharded(batches, spec["batch"]), **init)
+trainer.train()
+state("remat", trainer)
 
 np.savez(root / f"rank{rank}.npz", **out)
 dist.destroy_process_group()
@@ -624,6 +634,33 @@ def test_data_parallel_epoch_matches_one_process(ddp, tiny_yaml, init,
     np.testing.assert_allclose(_metrics(root / "ddp0" / "metrics.jsonl"),
                                _metrics(tmp_path / "metrics.jsonl"),
                                rtol=ITEMS_RTOL)
+
+
+def test_data_parallel_remat_matches_one_process(ddp, tiny_yaml, init,
+                                                tmp_path):
+    """Trainer(data_parallel=True, remat="early") on two processes
+    against the one-process port Trainer without remat from the same
+    init and batches (tests/test_parallel.py's tolerances): the backward
+    recomputes the early blocks with the global batch's BN moments and
+    leaves the running statistics as the forward set them."""
+    root, inp, ranks, _ = ddp
+    cfg = TrainConfig(epochs=1, data_parallel=True, log_interval=1,
+                      output_dir=str(tmp_path))
+    one = Trainer(YOLO.from_yaml(tiny_yaml), config=cfg, device="cpu",
+                  train_loader=_global_batches(inp), **init)
+    # two torch threads: the tier-1 run's six test processes would
+    # oversubscribe the cores with a thread per core each
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        one.train()
+    finally:
+        torch.set_num_threads(threads)
+    _assert_state_close(ranks, "remat", one)
+    np.testing.assert_allclose(
+        _metrics(root / "remat0" / "metrics.jsonl"),
+        _metrics(tmp_path / "metrics.jsonl"), rtol=ITEMS_RTOL)
+    assert not (root / "remat1").exists()
 
 
 def test_only_process_zero_writes(ddp):

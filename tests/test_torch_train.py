@@ -630,13 +630,23 @@ def test_jax_checkpoint_resumes_in_port(trained_pair, tiny_yaml):
 
 
 def test_trainer_refuses_what_is_not_ported(tiny_yaml):
+    """Remat, injected optimizers and checkpoint directories are ported
+    (tests/test_torch_remat.py, test_torch_optim.py,
+    test_torch_checkpoint_dir.py); what neither package takes is refused:
+    an optimizer that is no factory or pair, a remat mode but True and
+    "early", a checkpoint format but npz and orbax."""
     model = YOLO.from_yaml(tiny_yaml)
     cfg = {"data_parallel": False}
-    for kw in ({"optimizer": object()}, {"remat": True},
-               {"checkpoint_format": "orbax"}):
-        with pytest.raises(NotImplementedError, match="slice"):
+    for kw, error in (({"optimizer": object()}, TypeError),
+                      ({"remat": "late"}, ValueError),
+                      ({"checkpoint_format": "zarr"}, ValueError)):
+        with pytest.raises(error, match=next(iter(kw)).split("_")[0]):
             Trainer(model, config=TrainConfig(**cfg), train_loader=[None],
                     device="cpu", **kw)
+    for kw in ({"remat": "early"}, {"checkpoint_format": "orbax"},
+               {"optimizer": lambda ps: torch.optim.SGD(ps, lr=0.1)}):
+        Trainer(model, config=TrainConfig(**cfg), train_loader=[None],
+                device="cpu", **kw)
 
 
 def test_train_step_runs_with_jax_blocked():

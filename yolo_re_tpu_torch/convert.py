@@ -77,8 +77,14 @@ def unflatten_tree(flat: dict[str, np.ndarray]) -> Any:
 
 
 def load_weights(path: str | Path) -> tuple[dict, dict]:
-    """(params, stats) numpy pytrees from a JAX-package `.npz`: the EMA
-    weights of a training checkpoint, or bare converted weights."""
+    """(params, stats) numpy pytrees from a JAX-package `.npz` (the EMA
+    weights of a training checkpoint, or bare converted weights) or from
+    the port's checkpoint directory (its EMA weights; train/checkpoint.py)."""
+    if Path(path).is_dir():
+        from yolo_re_tpu_torch.train.checkpoint import load_checkpoint
+
+        ckpt = load_checkpoint(path)
+        return ckpt["ema"]["params"], ckpt["ema"]["stats"]
     with np.load(path) as data:
         files = list(data.files)
         if any(k.startswith("ema_params/") for k in files):

@@ -18,6 +18,12 @@ anchors; its output is the JAX package's dict contract: train
 {"aux": raw, "main": raw}). Called with `main_only=True` (eval) it takes
 the main feature maps alone and runs only its main towers, returning what
 the full call returns under "main".
+
+`mode="split"` (eval) returns the flat raw streams instead, for
+lazy-decode NMS (ops/nms.py: non_max_suppression_raw): box logits
+(B, A, 4*reg_max) and class logits (B, A, nc), f32, anchors in the decoded
+output's order (yolo_re_tpu/models/heads.py:127-135, 234-236); a dual head
+gives its main branch's, running only its main towers.
 """
 
 from __future__ import annotations
@@ -64,11 +70,25 @@ def _decode(levels, num_classes: int, reg_max: int,
     """(box, cls) raw maps per level -> (B, A, 4+nc) decoded predictions
     (semantics of reference src/yolo/heads/detect.py:87-109)."""
     anchor_points, stride_col = anchors
-    box_logits = flatten_levels([yb for yb, _ in levels], 4 * reg_max)
-    cls_logits = flatten_levels([yc for _, yc in levels], num_classes)
+    box_logits, cls_logits = split_streams(levels, num_classes, reg_max)
     dist = dfl_decode(box_logits, reg_max)
     dbox = dist2bbox(dist, anchor_points[None], xywh=True) * stride_col[None]
     return torch.cat([dbox, torch.sigmoid(cls_logits.float())], dim=-1)
+
+
+def split_streams(levels, num_classes: int, reg_max: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-level (box, cls) maps -> flat (box logits (B, A, 4*reg_max),
+    class logits (B, A, nc)) (yolo_re_tpu/models/heads.py:flatten_pairs)."""
+    return (flatten_levels([yb for yb, _ in levels], 4 * reg_max),
+            flatten_levels([yc for _, yc in levels], num_classes))
+
+
+def _check_mode(mode: str, training: bool) -> None:
+    if mode not in ("full", "split"):
+        raise ValueError(f"head mode must be 'full' or 'split', got {mode!r}")
+    if mode == "split" and training:
+        raise ValueError("head mode 'split' is an eval forward")
 
 
 def _towers(in_channels: tuple[int, ...], num_classes: int, reg_max: int
@@ -145,11 +165,17 @@ class DetectDFL(_DFLHead):
     def init_bias(self) -> None:
         self._init_bias(self.box_convs, self.cls_convs)
 
-    def forward(self, feats: list[torch.Tensor], main_only: bool = False):
+    def forward(self, feats: list[torch.Tensor], main_only: bool = False,
+                mode: str = "full"):
         """`main_only` changes nothing: a single head is its own main
-        branch."""
+        branch. mode "split" (eval): the flat raw streams."""
+        _check_mode(mode, self.training)
         levels = _run_towers(feats, self.box_convs, self.cls_convs)
-        return levels if self.training else self._eval_output(levels)
+        if self.training:
+            return levels
+        if mode == "split":
+            return split_streams(levels, self.num_classes, self.reg_max)
+        return self._eval_output(levels)
 
 
 class DualDetectDFL(_DFLHead):
@@ -174,16 +200,22 @@ class DualDetectDFL(_DFLHead):
         self._init_bias(self.aux_box_convs, self.aux_cls_convs)
         self._init_bias(self.main_box_convs, self.main_cls_convs)
 
-    def forward(self, feats: list[torch.Tensor], main_only: bool = False):
+    def forward(self, feats: list[torch.Tensor], main_only: bool = False,
+                mode: str = "full"):
         """feats: the aux maps, then the main maps; with `main_only` (eval)
         the main maps alone, and the output is the full call's "main"
-        (decoded, raw)."""
-        if main_only:
-            if self.training:
-                raise ValueError("main_only is an eval forward")
-            return self._eval_output(_run_towers(
-                feats, self.main_box_convs, self.main_cls_convs))
+        (decoded, raw). mode "split" (eval): the main branch's flat raw
+        streams, from its towers alone."""
+        _check_mode(mode, self.training)
+        if main_only and self.training:
+            raise ValueError("main_only is an eval forward")
         n = self.num_levels
+        if main_only or mode == "split":
+            main = _run_towers(feats if main_only else feats[n:],
+                               self.main_box_convs, self.main_cls_convs)
+            if mode == "split":
+                return split_streams(main, self.num_classes, self.reg_max)
+            return self._eval_output(main)
         aux = _run_towers(feats[:n], self.aux_box_convs, self.aux_cls_convs)
         main = _run_towers(feats[n:], self.main_box_convs,
                            self.main_cls_convs)

@@ -8,24 +8,60 @@ decoded predictions; in train mode (`model.train()`: BN batch statistics
 and running-stat updates) the head's per-level (box, cls) pairs that the
 TAL loss takes (a dual head: both as {"aux", "main"} dicts).
 `forward(x, main_only=True)` runs only what the head's main branch needs
-(the serving and eval forward). `param_labels` groups the parameters for
+(the serving and eval forward); `head_mode="split"` (eval,
+`predict_split`) returns the head's flat raw streams for lazy-decode NMS.
+`forward(x, remat=True | "early")` in train mode recomputes each block
+(every block, or those at a downscale <= 8) in the backward instead of
+keeping its activations (torch.utils.checkpoint; the JAX package's
+`jax.checkpoint` per plan step). `param_labels` groups the parameters for
 the optimizer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from pathlib import Path
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from yolo_re_tpu_torch.models import blocks as B
 from yolo_re_tpu_torch.models.builder import INPUT, Plan, build_plan
 from yolo_re_tpu_torch.models.config import ModelConfig, parse_yaml
 from yolo_re_tpu_torch.models.fuse import fuse_model
 from yolo_re_tpu_torch.models.heads import HEADS, DualDetectDFL
+from yolo_re_tpu_torch.ops.conv import recomputing
+from yolo_re_tpu_torch.parallel.mesh import batch_group, global_batch
+
+
+def check_remat(remat) -> bool | str:
+    """yolo_re_tpu/models/yolo.py:104-108: a bool (ints by truthiness, as
+    from YAML or a CLI) or "early"; any other string raises."""
+    if not isinstance(remat, str):
+        return bool(remat)
+    if remat != "early":
+        raise ValueError(f"remat must be a bool or 'early', got {remat!r}")
+    return remat
+
+
+def remat_step(step, remat: bool | str) -> bool:
+    """Whether `remat` recomputes this plan step: every step for True; for
+    "early" the steps whose output is at a downscale <= 8, which hold most
+    of the activation memory and a minority of the operations."""
+    return remat is True or (remat == "early" and 0 < step.scale <= 8)
+
+
+@contextlib.contextmanager
+def _recompute(group):
+    """The checkpoint's recompute context: the running statistics stay as
+    the first run left them, and the batch reductions span the group the
+    first run saw. On a card autograd runs the backward on its own
+    thread, where the caller's `global_batch` is not set."""
+    with global_batch(group), recomputing():
+        yield
 
 
 def param_labels(model: nn.Module) -> dict[str, str]:
@@ -145,7 +181,8 @@ class YOLO(nn.Module):
 
     # -- execution ----------------------------------------------------------
 
-    def forward(self, x: torch.Tensor, main_only: bool = False):
+    def forward(self, x: torch.Tensor, main_only: bool = False,
+                head_mode: str = "full", remat: bool | str = False):
         """x: (B, 3, H, W) float; run in torch.channels_last memory.
 
         Eval: (decoded (B, A, 4+nc) f32, raw per-level maps); a dual head:
@@ -158,13 +195,33 @@ class YOLO(nn.Module):
         `model(x)`'s "main" entries: the eager stand-in for XLA's
         dead-code elimination in the JAX Detector and Evaluator, which
         keep only `decoded["main"]`. For a single head it is the full
-        forward."""
+        forward.
+
+        head_mode "split" (eval only): the head's flat (box logits
+        (B, A, 4*reg_max), class logits (B, A, nc)) f32 streams, a dual
+        head's main branch (`predict_split`).
+
+        remat (train; eval ignores it): True or "early" runs the chosen
+        plan steps (`remat_step`) under torch.utils.checkpoint, so the
+        backward recomputes their activations from the step's inputs. The
+        recompute updates no running statistic and reduces the batch over
+        the `global_batch` group of this call."""
+        remat = check_remat(remat)
         if self.training and self.fused:
             raise RuntimeError(
                 "a fused model has no BN to train: call .eval(), or train "
                 "the unfused model")
         if self.training and main_only:
             raise ValueError("main_only is an eval forward")
+        if self.training and head_mode != "full":
+            raise ValueError(f"head_mode {head_mode!r} is an eval forward")
+        if not self.training:
+            remat = False
+        if remat:
+            group = batch_group()
+
+            def contexts():
+                return contextlib.nullcontext(), _recompute(group)
         x = x.contiguous(memory_format=torch.channels_last)
         outputs = {INPUT: x}
         out = x
@@ -176,12 +233,31 @@ class YOLO(nn.Module):
                 inp = outputs[step.inputs[0]]
             else:
                 inp = [outputs[n] for n in step.inputs]
+            layer = self.layers[step.name]
+            kw = {}
             if step.name == self.plan.detect_name:
                 if not isinstance(inp, list):
                     inp = [inp]
-                out = self.layers[step.name](inp, main_only=main_only)
+                kw = {"main_only": main_only, "mode": head_mode}
+            if remat and remat_step(step, remat):
+                # the forward draws no random numbers: no RNG state kept
+                out = checkpoint(layer, inp, use_reentrant=False,
+                                 preserve_rng_state=False,
+                                 context_fn=contexts, **kw)
             else:
-                out = self.layers[step.name](inp)
+                out = layer(inp, **kw)
             if step.name in self._save_names or step.name == last:
                 outputs[step.name] = out
         return out
+
+    @torch.no_grad()
+    def predict_split(self, x: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The eval forward's flat raw (box logits, class logits) streams
+        for lazy-decode NMS (ops/nms.py: non_max_suppression_raw); a dual
+        head's main branch, from its main steps alone. The model must be
+        in eval mode."""
+        if self.training:
+            raise ValueError("predict_split is an eval forward: call "
+                             ".eval() first")
+        return self.forward(x, main_only=True, head_mode="split")

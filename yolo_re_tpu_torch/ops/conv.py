@@ -15,6 +15,13 @@ variance. Inside `parallel.mesh.global_batch(group)` (the Trainer's
 data-parallel step) the moments and the count are the global batch's, as
 XLA's sharded reductions make them in the JAX package.
 
+Under per-block remat (`YOLO.forward(remat=...)`, torch.utils.checkpoint)
+a block's forward runs a second time inside the backward. The running
+statistics are updated once, in the first run: `update_running_stats`
+does nothing inside `recomputing()`, which the checkpoint's recompute
+context enters (JAX's `jax.checkpoint` is functional and never updates
+twice).
+
 Compute dtype: parameters stay f32 (the master copy); activations carry
 the compute dtype (float32 or bfloat16), and every op casts its weights to
 the activation's dtype (`w.to(x.dtype)`, differentiable: the gradient
@@ -22,6 +29,10 @@ lands on the f32 parameter). The convolutions accumulate in f32.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
+from collections.abc import Iterator
 
 import numpy as np
 import torch
@@ -104,11 +115,29 @@ def batch_count(y: torch.Tensor) -> int:
     return n if group is None else n * dist.get_world_size(group)
 
 
+_RECOMPUTING: contextvars.ContextVar = contextvars.ContextVar(
+    "recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """Within the block a checkpointed forward is being recomputed for the
+    backward: the running statistics are left as they are."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
 @torch.no_grad()
 def update_running_stats(bn: torch.nn.BatchNorm2d, mean: torch.Tensor,
                          var: torch.Tensor, n: int) -> None:
     """running = (1 - momentum) * running + momentum * batch, with the
-    unbiased batch variance (n samples per channel), in place."""
+    unbiased batch variance (n samples per channel), in place; nothing
+    inside `recomputing()` (the first run of the forward did it)."""
+    if _RECOMPUTING.get():
+        return
     unbiased = var * (n / max(n - 1, 1))
     bn.running_mean.copy_((1.0 - BN_MOMENTUM) * bn.running_mean
                           + BN_MOMENTUM * mean)

@@ -15,6 +15,15 @@ package's adaptive K buckets for the all-anchor path (a `lax.switch` on the
 count of conf-passing anchors) are exact by construction, identical to the
 all-anchor program; here that program runs as it is, one kernel call over
 every anchor with no device-to-host sync.
+
+`non_max_suppression_raw` starts from the head's raw streams
+(`YOLO.predict_split`) and decodes lazily: it ranks by the class logits
+and decodes only the K winners' boxes, then ends in the same kernel.
+
+The JAX functions' `backend=` and `mesh=` arguments have no counterpart:
+there is one suppression, the kernel (its plain version on a CPU tensor),
+and a mesh runs NMS on each replica's part (parallel/mesh.py), so neither
+function takes them.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from yolo_re_tpu_torch.ops.boxes import xywh2xyxy
+from yolo_re_tpu_torch.ops.boxes import dfl_decode, dist2bbox, xywh2xyxy
 from yolo_re_tpu_torch.ops.kernels.nms import nms_select
 
 # Class-offset constant for class-aware NMS. Must exceed any box coordinate.
@@ -52,27 +61,94 @@ def non_max_suppression(
         valid   (B, max_det) bool
     """
     num_anchors = predictions.shape[1]
-    if pre_topk is None:
-        pre_topk = num_anchors if conf_thres < 0.1 else 512
-    k = min(pre_topk, num_anchors)
-
+    k = _num_candidates(num_anchors, conf_thres, pre_topk)
     boxes_xywh = predictions[..., :4].float()
     cls_scores = predictions[..., 4:].float()
     conf = cls_scores.amax(dim=-1)
     cls_idx = cls_scores.argmax(dim=-1).to(torch.int32)  # first max on ties
+    conf_k, sel, cls_k = _preselect(conf, cls_idx, k, conf_thres, classes)
+    boxes = xywh2xyxy(torch.gather(boxes_xywh, 1,
+                                   sel[..., None].expand(-1, -1, 4)))
+    return _suppress(boxes, conf_k, cls_k, iou_thres, max_det, agnostic)
+
+
+def non_max_suppression_raw(
+    box_logits: torch.Tensor,
+    cls_logits: torch.Tensor,
+    anchors: torch.Tensor | np.ndarray,
+    stride_col: torch.Tensor | np.ndarray,
+    reg_max: int = 16,
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    max_det: int = 300,
+    pre_topk: int | None = None,
+    agnostic: bool = False,
+    classes: tuple[int, ...] | None = None,
+) -> dict[str, torch.Tensor]:
+    """NMS straight from the raw head streams with lazy box decode
+    (yolo_re_tpu/ops/nms.py:254-317): box_logits (B, A, 4*reg_max) and
+    cls_logits (B, A, nc) as `YOLO.predict_split` returns them, anchors
+    (A, 2) and stride_col (A, 1) from `ops.boxes.make_anchors_np`.
+
+    The sigmoid is monotonic, so the per-anchor max and argmax are taken
+    on the logits (in their dtype: bf16 logits take their max in bf16,
+    then f32) and only the max is sigmoided; the same conf_thres,
+    `classes` and default pre_topk as `non_max_suppression` pick the K
+    candidates (stable descending sort); the DFL expectation and
+    dist2bbox run on those K only; then the class offset and the NMS
+    kernel. Returns `non_max_suppression`'s dict. Where an anchor's
+    classes differ by less than the f32 sigmoid resolves, the dense path
+    takes the first of the equal rounded scores and this one the largest
+    logit, as the JAX functions do: there the two can part."""
+    num_anchors = box_logits.shape[1]
+    k = _num_candidates(num_anchors, conf_thres, pre_topk)
+    dev = box_logits.device
+    conf = torch.sigmoid(cls_logits.amax(dim=-1).float())
+    cls_idx = cls_logits.argmax(dim=-1).to(torch.int32)
+    conf_k, sel, cls_k = _preselect(conf, cls_idx, k, conf_thres, classes)
+    bl = torch.gather(box_logits, 1,
+                      sel[..., None].expand(-1, -1, box_logits.shape[-1]))
+    points = torch.as_tensor(anchors, dtype=torch.float32, device=dev)[sel]
+    strides = torch.as_tensor(stride_col, dtype=torch.float32,
+                              device=dev)[sel]
+    dist = dfl_decode(bl.float(), reg_max)
+    boxes = xywh2xyxy(dist2bbox(dist, points, xywh=True) * strides)
+    return _suppress(boxes, conf_k, cls_k, iou_thres, max_det, agnostic)
+
+
+def _num_candidates(num_anchors: int, conf_thres: float,
+                    pre_topk: int | None) -> int:
+    """K: `pre_topk`, or every anchor at mAP-eval thresholds (conf < 0.1)
+    and 512 otherwise, at most the anchors."""
+    if pre_topk is None:
+        pre_topk = num_anchors if conf_thres < 0.1 else 512
+    return min(pre_topk, num_anchors)
+
+
+def _preselect(conf: torch.Tensor, cls_idx: torch.Tensor, k: int,
+               conf_thres: float, classes: tuple[int, ...] | None):
+    """Per-anchor (B, A) f32 confidence and int32 class -> the top K
+    (scores, anchor indices, classes): scores at or under conf_thres and
+    classes outside `classes` are zeroed, then a stable descending sort
+    keeps equal scores in anchor order, as `lax.top_k` does."""
     conf = torch.where(conf > conf_thres, conf, 0.0)
     if classes is not None:
         wanted = torch.isin(cls_idx, torch.tensor(classes, dtype=torch.int32,
                                                   device=cls_idx.device))
         conf = torch.where(wanted, conf, 0.0)
-
     conf_sorted, order = torch.sort(conf, dim=1, descending=True, stable=True)
-    conf_k, sel = conf_sorted[:, :k].contiguous(), order[:, :k]
-    boxes = xywh2xyxy(torch.gather(boxes_xywh, 1, sel[..., None].expand(-1, -1, 4)))
-    cls_k = torch.gather(cls_idx, 1, sel)
+    sel = order[:, :k]
+    return conf_sorted[:, :k].contiguous(), sel, torch.gather(cls_idx, 1, sel)
+
+
+def _suppress(boxes: torch.Tensor, conf_k: torch.Tensor, cls_k: torch.Tensor,
+              iou_thres: float, max_det: int,
+              agnostic: bool) -> dict[str, torch.Tensor]:
+    """Greedy suppression of the K candidates (xyxy boxes, scores,
+    classes) in the NMS kernel, class-aware through the class offset;
+    the padded output dict."""
     boxes_off = boxes if agnostic else \
         boxes + (cls_k.float() * MAX_WH)[..., None]
-
     idx = nms_select(boxes_off.contiguous(), conf_k, iou_thres, max_det)
     valid = idx >= 0
     take = idx.clamp(min=0).long()

@@ -2,10 +2,11 @@
 
 A framework-free copy of yolo_re_tpu/train/config.py (this package never
 imports the JAX one); tests/test_torch_train.py pins the two equal. The
-port's Trainer takes every field; the ones whose paths are not ported
-(remat, orbax checkpoints) raise NotImplementedError there instead of
-being ignored. `data_parallel` in the port: one process per card over
-torch.distributed (parallel/mesh.py).
+port's Trainer takes every field. In the port `remat` runs
+torch.utils.checkpoint per block (models/yolo.py), `checkpoint_format=
+"orbax"` writes a torch.distributed.checkpoint directory, not an orbax
+one (train/checkpoint.py), and `data_parallel` runs one process per card
+over torch.distributed (parallel/mesh.py).
 
 The JAX package's deltas from the reference: `device`/`amp` are replaced by `compute_dtype` (bf16 needs no
 GradScaler on TPU — SURVEY §2.1) and `data_parallel` (shard the batch over

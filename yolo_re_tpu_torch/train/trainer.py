@@ -23,8 +23,14 @@ computes. uint8 images are normalized on the device, then, with
 random_perspective warp and mixup; data/device_pipeline.py) augmented
 there. `validate()` runs the Evaluator (eval/evaluator.py) on the EMA
 weights, and `train()` keeps the best map50 in output_dir/best.npz.
-Injected optimizers, remat and orbax checkpoints are not ported and raise
-NotImplementedError.
+
+`remat` (True | "early", `TrainConfig.remat`) runs the train forward with
+per-block recomputation (`YOLO.forward(remat=)`): the backward recomputes
+the chosen blocks' activations, the stem and ADown kernels included,
+instead of keeping them. `optimizer=` replaces the default grouped SGD
+(below); `checkpoint_format="orbax"` writes checkpoint directories
+(train/checkpoint.py: a torch.distributed.checkpoint directory, not
+orbax's).
 
 Data parallelism (`data_parallel=True` after `parallel.mesh.
 init_distributed`): one process per card, each stepping on its slice of
@@ -65,7 +71,7 @@ from yolo_re_tpu_torch.data.device_pipeline import (
 )
 from yolo_re_tpu_torch.eval.evaluator import Evaluator
 from yolo_re_tpu_torch.loss.tal import LossConfig, TALoss
-from yolo_re_tpu_torch.models.yolo import YOLO
+from yolo_re_tpu_torch.models.yolo import YOLO, check_remat
 from yolo_re_tpu_torch.parallel.mesh import (
     all_gather_rows,
     global_batch,
@@ -74,7 +80,11 @@ from yolo_re_tpu_torch.parallel.mesh import (
     process_index,
 )
 from yolo_re_tpu_torch.serving import DTYPES
-from yolo_re_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from yolo_re_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+    save_checkpoint_dir,
+)
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.ema import ema_update, init_ema
 from yolo_re_tpu_torch.train.optimizer import (
@@ -101,12 +111,6 @@ def detect_info(model: YOLO) -> tuple[int, int, tuple[float, ...]]:
     raise ValueError("Model has no detect head")
 
 
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to yolo_re_tpu_torch yet: it waits for the "
-        f"{slice_} slice of the port")
-
-
 class Trainer:
     """The trainer, on one device per process (reference:
     src/yolo/train/trainer.py:34-371).
@@ -124,6 +128,22 @@ class Trainer:
     `data_parallel` in an initialized process group steps on this
     process's slice of each global batch (module docstring); a custom
     loader must then carry `.shard == (rank, world)`, as in JAX.
+
+    `optimizer` makes the update rule injectable, in the port's forms of
+    the JAX Trainer's (yolo_re_tpu/train/trainer.py:86-96):
+    - a callable that takes the list of the model's parameters and
+      returns a `torch.optim.Optimizer` (the counterpart of an optax
+      transformation), e.g. `lambda ps: torch.optim.Adam(ps, lr=1e-3)`:
+      each step sets the parameters' `.grad` to the clipped gradients and
+      calls its `.step()`;
+    - an `(init_fn, step_fn)` pair over the {name: tensor} parameter dict:
+      `init_fn(params) -> state`, `step_fn(params, grads, state, step) ->
+      (params, state)`, run under no_grad; the returned parameters are
+      copied into the model.
+    None keeps the default: grouped SGD with the warmup-cosine schedule,
+    or `schedule` (step -> (lr, bias_lr, momentum)). An injected rule owns
+    its learning rate: `schedule` is unused and metrics.jsonl carries no
+    lr. The gradient clip and the EMA run as for SGD.
     """
 
     def __init__(self, model: YOLO, data=None,
@@ -139,13 +159,10 @@ class Trainer:
                 raise TypeError(f"Unknown TrainConfig field {k!r}")
             setattr(self.config, k, v)
         cfg = self.config
-        if optimizer is not None:
-            raise _not_ported("an injected optimizer", "train tooling")
-        if cfg.remat:
-            raise _not_ported("remat", "train tooling")
-        if cfg.checkpoint_format != "npz":
-            raise _not_ported(f"checkpoint_format={cfg.checkpoint_format!r} "
-                              f"(orbax)", "train tooling")
+        self._remat = check_remat(cfg.remat)
+        if cfg.checkpoint_format not in ("npz", "orbax"):
+            raise ValueError(f"checkpoint_format must be 'npz' or 'orbax', "
+                             f"got {cfg.checkpoint_format!r}")
         if cfg.compute_dtype not in DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}")
         if model.fused:
@@ -215,7 +232,7 @@ class Trainer:
         self.stats = {k: v for k, v in model.named_buffers()
                       if k.endswith(_STAT_SUFFIXES)}
         self.labels = model.param_labels()
-        self.opt_bufs = init_sgd_state(self.params)
+        self._setup_optimizer(optimizer)
         self.ema = init_ema(self.params, self.stats)
 
         steps_per_epoch = max(len(self.train_loader), 1)
@@ -227,6 +244,33 @@ class Trainer:
         self.global_step = 0
         self.start_epoch = 0
         self.best_fitness = 0.0
+
+    def _setup_optimizer(self, optimizer) -> None:
+        """`self.optimizer` (as given), and the update rule's state: the
+        default SGD's and a pair's in `self.opt_bufs`, a torch optimizer's
+        in itself (`self._torch_opt`, `self.opt_bufs` None)."""
+        self.optimizer = optimizer
+        self._torch_opt = self._step_fn = None
+        if optimizer is None:
+            self.opt_bufs = init_sgd_state(self.params)
+        elif isinstance(optimizer, (tuple, list)):
+            if len(optimizer) != 2 or not all(map(callable, optimizer)):
+                raise TypeError("an optimizer pair is (init_fn, step_fn)")
+            init_fn, self._step_fn = optimizer
+            self.opt_bufs = init_fn(self.params)
+        elif callable(optimizer):
+            self._torch_opt = optimizer(list(self.params.values()))
+            if not isinstance(self._torch_opt, torch.optim.Optimizer):
+                raise TypeError(
+                    f"the optimizer factory returned "
+                    f"{type(self._torch_opt).__name__}, not a "
+                    f"torch.optim.Optimizer")
+            self.opt_bufs = None
+        else:
+            raise TypeError(
+                f"optimizer must be None, a callable taking the parameter "
+                f"list and returning a torch.optim.Optimizer, or an "
+                f"(init_fn, step_fn) pair; got {type(optimizer).__name__}")
 
     def _setup_data_parallel(self) -> None:
         """`self._group` (the process group the step spans, or None),
@@ -356,21 +400,39 @@ class Trainer:
         x, t = self._inputs(x, t)
         x = x.contiguous().permute(0, 3, 1, 2)
         with global_batch(self._group):
-            total, items = self.loss_fn(self.model(x), t)
+            total, items = self.loss_fn(self.model(x, remat=self._remat), t)
         names = list(self.params)
         grads = torch.autograd.grad(total, [self.params[k] for k in names])
         if self._group is not None:
             grads = self._mean_over_processes(grads)
         grads, gnorm = clip_by_global_norm(dict(zip(names, grads)),
                                            cfg.grad_clip_norm)
-        lr, bias_lr, momentum = self.schedule(self.global_step)
-        sgd_step(self.params, grads, self.opt_bufs, self.labels, lr=lr,
-                 bias_lr=bias_lr, momentum=momentum,
-                 weight_decay=cfg.weight_decay)
+        self._update(grads)
         ema_update(self.ema, self.params, self.stats, decay=cfg.ema_decay,
                    tau=cfg.ema_tau)
         self.global_step += 1
         return total.detach(), items, gnorm
+
+    @torch.no_grad()
+    def _update(self, grads: dict[str, torch.Tensor]) -> None:
+        """The update rule on the clipped gradients, in place."""
+        if self._torch_opt is not None:
+            for k, p in self.params.items():
+                p.grad = grads[k]
+            self._torch_opt.step()
+            for p in self.params.values():
+                p.grad = None
+        elif self._step_fn is not None:
+            new, self.opt_bufs = self._step_fn(self.params, grads,
+                                               self.opt_bufs, self.global_step)
+            for k, p in self.params.items():
+                if new[k] is not p:
+                    p.copy_(new[k])
+        else:
+            lr, bias_lr, momentum = self.schedule(self.global_step)
+            sgd_step(self.params, grads, self.opt_bufs, self.labels, lr=lr,
+                     bias_lr=bias_lr, momentum=momentum,
+                     weight_decay=self.config.weight_decay)
 
     def _inputs(self, x: torch.Tensor,
                 t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -478,16 +540,18 @@ class Trainer:
     def _log_metrics(self, out_dir: Path, epoch: int, items,
                      results: dict[str, float]) -> None:
         """One JSON line per epoch in output_dir/metrics.jsonl (process 0
-        alone writes)."""
+        alone writes); an injected optimizer owns its lr, so none is
+        logged (yolo_re_tpu/train/trainer.py:461)."""
         if self.rank:
             return
         out_dir.mkdir(parents=True, exist_ok=True)
-        lr, _, momentum = self.schedule(self.global_step)
         record = {"epoch": epoch, "global_step": self.global_step,
                   "box_loss": float(items[0]), "cls_loss": float(items[1]),
                   "dfl_loss": float(items[2]),
-                  **{f"val_{k}": float(v) for k, v in results.items()},
-                  "lr": float(lr), "momentum": float(momentum)}
+                  **{f"val_{k}": float(v) for k, v in results.items()}}
+        if self.optimizer is None:
+            lr, _, momentum = self.schedule(self.global_step)
+            record["lr"], record["momentum"] = float(lr), float(momentum)
         with open(out_dir / "metrics.jsonl", "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -499,38 +563,158 @@ class Trainer:
         sd = {**self.model.state_dict(), **values}
         return jax_from_state_dict(self.model.plan, sd)
 
+    def _per_param(self, value) -> bool:
+        """A {parameter name: tensor of the parameter's shape} dict over
+        every parameter: saved as a params tree in the JAX layout."""
+        return (isinstance(value, dict) and value.keys() == self.params.keys()
+                and all(torch.is_tensor(v) and v.shape == self.params[k].shape
+                        for k, v in value.items()))
+
+    def _encode(self, value):
+        """An update rule's state -> numpy pytree: per-parameter dicts as
+        params trees (`_pytrees`), tensors and numbers as arrays."""
+        if self._per_param(value):
+            return self._pytrees(value)[0]
+        if isinstance(value, dict):
+            return {k: self._encode(v) for k, v in value.items()}
+        if isinstance(value, (list, tuple)):
+            return [self._encode(v) for v in value]
+        if torch.is_tensor(value):
+            return value.detach().cpu().numpy()
+        return np.asarray(value)
+
+    def _opt_tree(self):
+        """The checkpoint's opt/ section: the default SGD's momentum
+        buffers as a params tree (the layout both packages read), a pair's
+        state as `_encode` writes it, a torch optimizer's per-parameter
+        state by state name (opt/<state name>/...: tensors of the
+        parameter's shape as a params tree, scalars such as Adam's step as
+        one array in parameter order)."""
+        if self._torch_opt is None:
+            return self._encode(self.opt_bufs)
+        names = {id(p): k for k, p in self.params.items()}
+        by_state: dict[str, dict] = {}
+        for p, st in self._torch_opt.state.items():
+            for s, v in st.items():
+                by_state.setdefault(s, {})[names[id(p)]] = v
+        tree = {}
+        for s, vals in by_state.items():
+            if vals.keys() != self.params.keys():
+                raise ValueError(f"the optimizer's state {s!r} does not cover "
+                                 f"every parameter")
+            if self._per_param(vals):
+                tree[s] = self._pytrees(vals)[0]
+            else:
+                tree[s] = np.stack([np.asarray(torch.as_tensor(vals[k]).cpu())
+                                    for k in self.params])
+        return tree
+
     def _save(self, path: Path, epoch: int) -> None:
+        """The full training state to `path` (.npz), or, with
+        checkpoint_format "orbax", to the directory named `path` without
+        its suffix (train/checkpoint.py: save_checkpoint_dir)."""
         if self.rank:                   # one writer per group
             return
+        save = save_checkpoint
+        if self.config.checkpoint_format == "orbax":
+            save, path = save_checkpoint_dir, Path(path).with_suffix("")
         params, stats = self._pytrees({})
         ema_params, ema_stats = self._pytrees(
             {**self.ema["params"], **self.ema["stats"]})
-        opt, _ = self._pytrees(self.opt_bufs)
-        save_checkpoint(
-            path, params=params, stats=stats,
-            ema={"params": ema_params, "stats": ema_stats,
-                 "updates": self.ema["updates"]},
-            opt_bufs=opt, epoch=epoch, global_step=self.global_step,
-            best_fitness=self.best_fitness, config=vars(self.config))
+        save(path, params=params, stats=stats,
+             ema={"params": ema_params, "stats": ema_stats,
+                  "updates": self.ema["updates"]},
+             opt_bufs=self._opt_tree(), epoch=epoch,
+             global_step=self.global_step, best_fitness=self.best_fitness,
+             config=vars(self.config))
 
     @torch.no_grad()
     def load_checkpoint(self, path: str | Path) -> None:
-        """Full resume from a checkpoint of either package."""
+        """Full resume from a checkpoint of either package (an .npz), or
+        from this package's checkpoint directory. The optimizer state
+        must be the update rule's own: the default SGD's buffers, which
+        both packages write, or what this package wrote for the injected
+        rule; an optax state (the JAX Trainer's injected optimizer) maps
+        onto no torch optimizer and raises a ValueError."""
         ckpt = load_checkpoint(path)
         plan = self.model.plan
 
         def to_port(params, stats) -> dict[str, torch.Tensor]:
             return state_dict_from_jax(plan, params, stats)
 
+        self._load_opt(ckpt["opt"], ckpt["stats"])
         self.model.load_state_dict(to_port(ckpt["params"], ckpt["stats"]),
                                    strict=True)
         ema = to_port(ckpt["ema"]["params"], ckpt["ema"]["stats"])
-        opt = to_port(ckpt["opt"], ckpt["stats"])
-        for dst, src in ((self.ema["params"], ema), (self.ema["stats"], ema),
-                         (self.opt_bufs, opt)):
+        for dst in (self.ema["params"], self.ema["stats"]):
             for k, v in dst.items():
-                v.copy_(src[k])
+                v.copy_(ema[k])
         self.ema["updates"] = int(ckpt["ema"]["updates"])
         self.global_step = ckpt["global_step"]
         self.best_fitness = ckpt["best_fitness"]
         self.start_epoch = ckpt["epoch"] + 1
+
+    def _load_opt(self, tree, stats) -> None:
+        """Restore the update rule's state from a checkpoint's opt/."""
+        if isinstance(tree, list) and not isinstance(self.opt_bufs,
+                                                     (list, tuple)):
+            raise ValueError(
+                "the checkpoint's optimizer state is an optax state (the "
+                "JAX Trainer's injected optimizer): it cannot map onto a "
+                "torch optimizer. Resume with the JAX package, or load the "
+                "weights alone (convert.load_weights)")
+        try:
+            if self._torch_opt is not None:
+                self._load_torch_opt(tree, stats)
+            else:
+                self.opt_bufs = self._decode(tree, self.opt_bufs, stats)
+        except (KeyError, TypeError, ValueError) as e:
+            rule = ("the default SGD" if self.optimizer is None else
+                    "the injected optimizer")
+            raise ValueError(f"the checkpoint's optimizer state (opt/) is not "
+                             f"{rule}'s: {e!r}") from e
+
+    def _decode(self, tree, template, stats):
+        """`_encode`'s inverse, shaped by `template` (the rule's current
+        state): per-parameter tensors are filled in place."""
+        if self._per_param(template):
+            sd = state_dict_from_jax(self.model.plan, tree, stats)
+            for k, v in template.items():
+                v.copy_(sd[k])
+            return template
+        if isinstance(template, dict):
+            if not isinstance(tree, dict) or tree.keys() != template.keys():
+                raise KeyError(f"state keys {sorted(template)}")
+            return {k: self._decode(tree[k], v, stats)
+                    for k, v in template.items()}
+        if isinstance(template, (list, tuple)):
+            return type(template)(self._decode(a, b, stats)
+                                  for a, b in zip(tree, template, strict=True))
+        if torch.is_tensor(template):
+            return torch.as_tensor(np.asarray(tree), dtype=template.dtype,
+                                   device=template.device)
+        return type(template)(np.asarray(tree))
+
+    def _load_torch_opt(self, tree, stats) -> None:
+        """`_opt_tree`'s inverse for a torch optimizer, through its
+        `load_state_dict` (which puts each state where its parameter is)."""
+        layers = {step.name for step in self.model.plan.steps}
+        if not isinstance(tree, dict) or layers & tree.keys():
+            raise ValueError("it holds the default SGD's momentum buffers")
+        state: dict[str, dict] = {k: {} for k in self.params}
+        for s, sub in tree.items():
+            if isinstance(sub, dict):
+                sd = state_dict_from_jax(self.model.plan, sub, stats)
+                for k in self.params:
+                    state[k][s] = sd[k]
+            elif np.shape(sub) == (len(self.params),):
+                for k, v in zip(self.params, sub):
+                    state[k][s] = torch.tensor(v)
+            else:
+                raise ValueError(f"state {s!r} has shape {np.shape(sub)}")
+        names = {id(p): k for k, p in self.params.items()}
+        order = [names[id(p)] for g in self._torch_opt.param_groups
+                 for p in g["params"]]
+        sd = self._torch_opt.state_dict()
+        sd["state"] = {i: state[k] for i, k in enumerate(order) if state[k]}
+        self._torch_opt.load_state_dict(sd)
