@@ -189,8 +189,26 @@ non-zero (no phase is caught):
    the plain Trainer within phase 15's bound, its launches held to (a)'s
    "early" ones, and its BN all-reduces to one a BN call of the forward
    and one of each recomputed block's (the recompute reduces over the
-   group, from autograd's device thread). Phase 16's seconds are printed.
-The total seconds are printed before the last three lines.
+   group, from autograd's device thread). Phase 16's seconds are printed;
+17. the last modules: (a) the native host library (utils/native.py)
+   built on this machine's host, the train loader's images/s with cv2
+   and with the native kernels (cli/bench_loader.loader_rates: phase 11's
+   128 on-disk images at 640 px, batch 32, 8 workers, the "full" host
+   augmentation, LOADER_EPOCHS after a warm-up), and phase 9 (a)'s tiny
+   fixture eval from disk under YOLO_TPU_NATIVE 0 and 1 (one pass each:
+   images/s, mAP50 > 0.5); (b) a gelan-c bf16 Detector (phase 5's random weights)
+   on the card exported with `device="cpu"` for XDEV_BATCH frames of 640 x
+   640, loaded on the CPU: every weight and constant on the CPU, no
+   launch, detections matching the live CPU Detector's
+   (`detections_match`); (c) the same Detector on the CPU exported with
+   `device="cuda"`, and (b)'s archive loaded with `device=` the card, each
+   loaded on the card: launches 1/5/2/6/1 a request and every output
+   torch.equal to the live card Detector's; (d) dryrun_torch.
+   dryrun_multichip(1, device="cuda"): gelan-c over NCCL in one process,
+   its seconds by stage and every kernel counter of that process above 0. Phase
+   17's seconds are printed.
+The total seconds are printed before the last three lines. Phase 1 also
+prints `utils.devices.device_summary()`.
 
 `bound_ms` in the kernels line is the least time the card could take for
 the work: the larger of the bytes each function must move (inputs read
@@ -223,6 +241,7 @@ import contextlib
 import copy
 import io
 import json
+import os
 import socket
 import subprocess
 import sys
@@ -236,8 +255,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+import dryrun_torch
 from yolo_re_tpu_torch import upstream
-from yolo_re_tpu_torch.cli import convert_weights, detect
+from yolo_re_tpu_torch.cli import bench_loader, convert_weights, detect
 from yolo_re_tpu_torch.cli import train as train_cli
 from yolo_re_tpu_torch.cli import val as val_cli
 from yolo_re_tpu_torch.cli.profile_launches import random_model
@@ -265,6 +285,7 @@ from yolo_re_tpu_torch.ops.kernels import (
     stem,
 )
 from yolo_re_tpu_torch.ops.nms import (
+    nms_to_list,
     non_max_suppression,
     non_max_suppression_raw,
 )
@@ -272,6 +293,8 @@ from yolo_re_tpu_torch.parallel.mesh import Mesh, init_distributed
 from yolo_re_tpu_torch.serving import Detector
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.trainer import Trainer
+from yolo_re_tpu_torch.utils import native
+from yolo_re_tpu_torch.utils.devices import device_summary
 from yolo_re_tpu_torch.utils.profiling import device_timer
 
 ROOT = Path(__file__).resolve().parent
@@ -348,6 +371,11 @@ REMAT_BIG_BATCH = 64
 REMAT_FLOOR = 1e-6
 OPT_LR = 1e-3
 LAZY_NMS_CONFS = (0.25, 1e-3)
+# phase 17: the loader benchmark's epochs after its warm-up (phase 11's
+# on-disk set, SIZE px, batch BATCH); the cross-device export's batch of
+# SIZE x SIZE frames
+LOADER_EPOCHS = 2
+XDEV_BATCH = 2
 NMS_RAW_ATOL, NMS_RAW_RTOL = 1e-4, 1e-6
 # H100 SXM data sheet: HBM3 bytes/s; dense bf16 tensor-core, f32 (CUDA-
 # core) operations/s, and f32 operations/s in 3xTF32 (three TF32 products
@@ -2365,6 +2393,140 @@ def phase_tooling(dev, tmp: Path, sites: dict, ddp_remat: dict
     return remat, lazy
 
 
+# -- phase 17: the native host runtime, export across devices, dry run ------
+
+def phase_native(dev, tmp: Path) -> None:
+    """Phase 17 (a): the host library built on this machine, the train
+    loader's images/s with cv2 and with the native kernels on phase 11's
+    on-disk set, and phase 9 (a)'s tiny-fixture eval from disk under
+    YOLO_TPU_NATIVE 0 and 1."""
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"  (a) native host library {lib.relative_to(ROOT)} ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    train_dir = write_dataset(str(tmp / "aug"), "train",
+                              AUG_TRAIN_BATCHES * BATCH, seed=0)
+    rates = bench_loader.loader_rates(train_dir, img_size=SIZE, batch=BATCH,
+                                      workers=8, epochs=LOADER_EPOCHS)
+    print(f"  (a) train loader, {AUG_TRAIN_BATCHES * BATCH} images, {SIZE} "
+          f"px, batch {BATCH}, 8 workers, 'full' host augmentation, "
+          f"{LOADER_EPOCHS} epochs after a warm-up: cv2 "
+          f"{rates['cv2']:.1f} images/s, native {rates['native']:.1f} "
+          f"images/s ({rates['native'] / rates['cv2']:.3f}x)")
+    path = tmp / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    val = write_dataset(str(tmp / "tiny"), "val", 16, seed=1)
+    data = DataConfig(val_path=val, num_classes=4, img_size=160,
+                      batch_size=8, workers=4)
+    weights = load_weights(str(ROOT / "assets" / "dryrun_tiny.npz"))
+    before = os.environ.get("YOLO_TPU_NATIVE")
+    res = {}
+    try:
+        for mode in ("0", "1"):
+            os.environ["YOLO_TPU_NATIVE"] = mode
+            res[mode] = Evaluator(
+                YOLO.from_yaml(path), create_dataloader(val, data, "val"),
+                device=dev).evaluate(weights)
+    finally:
+        if before is None:
+            os.environ.pop("YOLO_TPU_NATIVE", None)
+        else:
+            os.environ["YOLO_TPU_NATIVE"] = before
+    print("  (a) tiny fixture eval from disk, 160 px f32, 16 images, one "
+          "pass each (images/s of a 16-image pass is set-up dominated: "
+          "the loader's rates are the line above): " + "; ".join(
+              f"YOLO_TPU_NATIVE={m}: {r['images_per_sec']:.1f} images/s, "
+              f"mAP50 {r['map50']:.4f} mAP {r['map']:.4f}"
+              for m, r in res.items()))
+    if min(r["map50"] for r in res.values()) <= 0.5:
+        raise AssertionError("tiny fixture eval under the native switch: "
+                             "mAP50 <= 0.5")
+
+
+def program_devices(run) -> set[str]:
+    """The devices a loaded archive's weights and tensor constants are on."""
+    prog = run.program
+    return {str(v.device) for v in (*prog.state_dict.values(),
+                                    *prog.constants.values())
+            if isinstance(v, torch.Tensor)}
+
+
+def phase_export_devices(dev, tmp: Path, sites: dict) -> None:
+    """Phase 17 (b), (c): a gelan-c bf16 Detector (random weights, phase
+    5's) on the card exported for the CPU, and one on the CPU exported for
+    the card, each loaded and held against the live Detector on its
+    device."""
+    model = random_model("gelan-c")
+    kw = {"img_size": SIZE, "compute_dtype": "bfloat16"}
+    card = Detector(model, model.state_dict(), device=dev, **kw)
+    host = Detector(model, model.state_dict(), device="cpu", **kw)
+    frames = np.random.default_rng(0).integers(
+        0, 256, (XDEV_BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+
+    to_cpu = str(tmp / "to_cpu.pt2")
+    t0 = time.perf_counter()
+    card.export(to_cpu, XDEV_BATCH, device="cpu")
+    t_export = time.perf_counter() - t0
+    run = Detector.load_exported(to_cpu)
+    reset_counts()
+    got, want = run(frames), host(frames)
+    launched = counts_now()
+    same = [detections_match(a, b)
+            for a, b in zip(nms_to_list(got), nms_to_list(want))]
+    print(f"  (b) exported on the card for the CPU in {t_export:.1f} s: "
+          f"archive on {sorted(program_devices(run))}, loaded device "
+          f"{run.device}; detections per image "
+          f"{got['valid'].sum(1).tolist()} match the live CPU Detector's "
+          f"{same}; launches {launched}")
+    if run.device.type != "cpu" or program_devices(run) != {"cpu"} or \
+            not all(same) or int(got["valid"].sum()) == 0 or \
+            any(launched.values()):
+        raise AssertionError("export card -> CPU: the archive differs")
+
+    to_card = str(tmp / "to_card.pt2")
+    t0 = time.perf_counter()
+    host.export(to_card, XDEV_BATCH, device="cuda")
+    t_export = time.perf_counter() - t0
+    live = card(frames)
+    for name, run in (("exported on the CPU for the card",
+                       Detector.load_exported(to_card)),
+                      ("(b)'s CPU archive moved to the card at load",
+                       Detector.load_exported(to_cpu, device=dev))):
+        run(frames)                                    # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        got = run(frames)
+        torch.cuda.synchronize()
+        launched = counts_now()
+        equal = {k: torch.equal(got[k], live[k]) for k in live}
+        print(f"  (c) {name}"
+              f"{f' in {t_export:.1f} s' if 'CPU for' in name else ''}: "
+              f"archive on {sorted(program_devices(run))}, launches "
+              f"{launched} a request of {XDEV_BATCH}; torch.equal to the "
+              f"live card Detector {equal}")
+        if launched != {**sites, "nms": 1} or not all(equal.values()) or \
+                run.device.type != "cuda":
+            raise AssertionError(f"export to the card ({name}): launches "
+                                 f"{launched} or outputs differ")
+
+
+def phase_last_modules(dev, tmp: Path, sites: dict) -> None:
+    """Phase 17 (module docstring)."""
+    t0 = time.perf_counter()
+    phase_native(dev, tmp)
+    phase_export_devices(dev, tmp, sites)
+    torch.cuda.empty_cache()
+    out = dryrun_torch.dryrun_multichip(1, device="cuda", timeout=600)
+    print(f"  (d) dryrun_torch.dryrun_multichip(1, device='cuda'), gelan-c "
+          f"over NCCL: {out['seconds']:.1f} s (stages, s: "
+          f"{ {k: round(v, 1) for k, v in out['phase_seconds'].items()} }); "
+          f"kernel launches in the process {out['launches']}")
+    if not all(out["launches"].values()):
+        raise AssertionError(f"the dry run on the card skipped a kernel: "
+                             f"{out['launches']}")
+    print(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+
+
 def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
                  v9c: dict, aug: dict, exported: dict, more: dict,
                  clis: dict, dp: dict, remat: dict, lazy: dict
@@ -2527,6 +2689,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}"
           f" x{torch.cuda.device_count()}")
     print(f"  nvidia-smi: {smi}")
+    print(f"  devices: {device_summary()}")
 
     print("phase 2: build")
     t0 = time.perf_counter()
@@ -2595,6 +2758,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         print("phase 16: train tooling and lazy-decode NMS")
         remat, lazy = phase_tooling(dev, Path(td), sites, ddp["remat"])
+
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 17: the native host runtime, export across devices, "
+              "the dry run")
+        phase_last_modules(dev, Path(td), sites)
 
     kernels = kernels_line(res, tres, counts, tcounts, v9c, aug, exported,
                            more, clis, dp, remat, lazy)

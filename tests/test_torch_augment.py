@@ -683,3 +683,20 @@ def test_epoch_through_prefetch_equals_train_steps(tiny_yaml, tmp_path):
         assert torch.equal(v, b.params[k]), k
     for k, v in a.ema["params"].items():
         assert torch.equal(v, b.ema["params"][k]), k
+
+
+def test_train_step_augment_false_skips_the_device_augmentation(tiny_yaml,
+                                                                 tmp_path):
+    """`train_step(..., augment=False)` on a "full"-augmenting Trainer is a
+    step of a Trainer without device augmentation, bit for bit; the next
+    step, augmented as configured, is not."""
+    batches = _uint8_batches(2)
+    tr = _trainer(tiny_yaml, tmp_path, batches)
+    plain = _trainer(tiny_yaml, tmp_path, batches, mode=False)
+    b = batches[0]
+    assert torch.equal(tr.train_step(b["images"], b["targets"],
+                                     augment=False)[0],
+                       plain.train_step(b["images"], b["targets"])[0])
+    b = batches[1]
+    assert not torch.equal(tr.train_step(b["images"], b["targets"])[0],
+                           plain.train_step(b["images"], b["targets"])[0])

@@ -185,3 +185,23 @@ def test_a_jax_orbax_directory_is_refused(tmp_path):
         load_checkpoint(tmp_path / "jax")
     with pytest.raises(ValueError, match="orbax"):
         load_weights(tmp_path / "jax")
+
+
+def test_save_format_overrides_the_config(tiny):
+    """`Trainer.save(path, format=)` writes either form whatever the
+    config says, the two load alike, and an unknown format raises."""
+    path, batches, d = tiny
+    t = _trainer(tiny, "npz", str(d / "fmt"))
+    t.train_step(batches[0]["images"], batches[0]["targets"])
+    t.save(d / "fmt" / "ckpt.npz", format="orbax")
+    assert is_checkpoint_dir(d / "fmt" / "ckpt")
+    assert not (d / "fmt" / "ckpt.npz").exists()
+    t.save(d / "fmt" / "ckpt.npz")
+    assert (d / "fmt" / "ckpt.npz").is_file()
+    assert t.config.checkpoint_format == "npz"
+    a, b = (load_checkpoint(d / "fmt" / n) for n in ("ckpt", "ckpt.npz"))
+    assert a["global_step"] == b["global_step"] == 1
+    np.testing.assert_array_equal(a["params"]["stem1"]["w"],
+                                  b["params"]["stem1"]["w"])
+    with pytest.raises(ValueError, match="'npz' or 'orbax'"):
+        t.save(d / "fmt" / "x.npz", format="pt")

@@ -1,31 +1,36 @@
-"""The port's detect, train and convert_weights CLIs (yolo_re_tpu_torch/cli/)
-run in subprocesses with jax and the JAX package blocked, on TINY_YAML
-and the CPU (`--device cpu`: the kernels' plain versions); their outputs
-held against the JAX package's own pipeline on the same weights and
-images. What cannot run without a card, or is not ported, is refused.
+"""The port's detect, train, convert_weights, export_weights and
+bench_loader CLIs (yolo_re_tpu_torch/cli/) run in subprocesses with jax
+and the JAX package blocked, on TINY_YAML and the CPU (`--device cpu`: the
+kernels' plain versions); their outputs held against the JAX package's
+own pipeline on the same weights and images. What cannot run without a
+card, or is not ported, is refused.
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
 
 import cv2
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from yolo_re_tpu.convert import torch_export as jexport
 from yolo_re_tpu.data.augment import letterbox as jletterbox
 from yolo_re_tpu.models.yolo import YOLO as JYOLO
 from yolo_re_tpu.ops.nms import nms_to_list as jnms_to_list
 from yolo_re_tpu.ops.nms import non_max_suppression as jnms
 from yolo_re_tpu.train import checkpoint as jckpt
 from yolo_re_tpu_torch import convert, upstream
-from yolo_re_tpu_torch.cli import detect, train
+from yolo_re_tpu_torch.cli import bench_loader, detect, train
 from yolo_re_tpu_torch.cli.detect import scale_boxes
 from yolo_re_tpu_torch.data import synth
 from yolo_re_tpu_torch.models.yolo import YOLO
+from yolo_re_tpu_torch.train import checkpoint
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "assets" / "dryrun_tiny.npz"
@@ -204,3 +209,55 @@ def test_clis_default_to_cuda_and_refuse_what_is_not_ported(
     with pytest.raises(SystemExit, match="Unsupported weights"):
         detect.main(["--weights", "w.onnx", "--config", tiny["config"],
                      "--source", tiny["val"], "--device", "cpu"])
+
+
+def test_export_weights_cli_matches_jax_export(tiny):
+    """cli.export_weights, jax blocked, from bare weights, from a training
+    checkpoint .npz and from a checkpoint directory (both holding the
+    fixture as their EMA weights and other raw weights): each .pt equals
+    yolo_re_tpu/convert/torch_export.py: export_state_dict of the fixture
+    key for key and tensor for tensor, and loads into the port's model
+    with strict=True."""
+    root, cfg = tiny["root"], tiny["config"]
+    params, stats = jckpt.load_weights(FIXTURE)
+    raw = jax.tree_util.tree_map(lambda v: np.asarray(v) + 1.0, params)
+    state = dict(params=raw, stats=stats, opt_bufs={},
+                 ema={"params": params, "stats": stats, "updates": 7},
+                 epoch=2, global_step=9, best_fitness=0.5)
+    checkpoint.save_checkpoint(root / "ckpt.npz", **state)
+    checkpoint.save_checkpoint_dir(root / "ckpt_dir", **state)
+    sources = (str(FIXTURE), str(root / "ckpt.npz"), str(root / "ckpt_dir"))
+    outs = [str(root / f"export{i}.pt") for i in range(len(sources))]
+    lines = _run_blocked([("export_weights", ["--weights", src, "--config",
+                                              cfg, "--output", out])
+                          for src, out in zip(sources, outs)])
+    assert [ln.split(" from ")[0] for ln in lines[:-1]] == \
+        [f"wrote {out}" for out in outs]
+    assert "EMA weights" in lines[1] and "EMA weights" in lines[2]
+    ref = jexport.export_state_dict(JYOLO.from_yaml(cfg).plan, params, stats)
+    for out in outs:
+        sd = torch.load(out)
+        assert sd.keys() == ref.keys()
+        for k, v in ref.items():
+            assert sd[k].dtype == torch.from_numpy(np.asarray(v)).dtype, k
+            np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+        model = YOLO.from_yaml(cfg)
+        model.load_state_dict(upstream.port_state_dict(sd, model),
+                              strict=True)
+
+
+def test_bench_loader_cli_and_rates(tiny, monkeypatch):
+    """cli.bench_loader, jax blocked, on its own synthetic set; and
+    loader_rates on the train split, which restores YOLO_TPU_NATIVE."""
+    lines = _run_blocked([("bench_loader", ["--n", "8", "--img-size", "64",
+                                            "--batch", "4", "--workers", "2",
+                                            "--epochs", "1"])])
+    assert lines[0].startswith("cv2 pipeline:")
+    assert lines[1].startswith("native pipeline:") and lines[1].endswith(
+        "x)")
+    monkeypatch.setenv("YOLO_TPU_NATIVE", "auto")
+    rates = bench_loader.loader_rates(tiny["train"], img_size=64, batch=4,
+                                      workers=2, epochs=1)
+    assert rates.keys() == {"cv2", "native"}
+    assert min(rates.values()) > 0
+    assert os.environ["YOLO_TPU_NATIVE"] == "auto"

@@ -1301,6 +1301,45 @@ def test_exported_detector_cuda_equals_live(cuda, tmp_path, dtype):
         assert int(loaded["valid"].sum()) > 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exported_detector_moves_between_cpu_and_card(cuda, tmp_path, dtype):
+    """The trained tiny fixture exported on the CPU for the card launches
+    the model's sites and one NMS a call and equals the live cuda
+    Detector; exported on the card for the CPU it launches nothing and
+    equals the live CPU Detector; an archive moved at load likewise."""
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    model = YOLO.from_yaml(path)
+    kw = {"img_size": 160, "conf_thres": 1e-3, "compute_dtype": dtype}
+    live = {d: Detector.from_checkpoint(model, str(FIXTURE), device=d, **kw)
+            for d in ("cpu", "cuda")}
+    modules = {"stem": stem, "adown": adown, "csp_chain": csp_chain,
+               "conv3": conv3, "nms": nms}
+    sites = _serving_sites(live["cuda"].model)
+    frames = np.ascontiguousarray(
+        make_eval_batch(2, 200, 3)["images"][:, 40:160])
+    archives = {}
+    for src, dst in (("cpu", "cuda"), ("cuda", "cpu")):
+        archives[dst] = str(tmp_path / f"for_{dst}.pt2")
+        live[src].export(archives[dst], 2, height=120, width=200, device=dst)
+    runs = [(d, Detector.load_exported(archives[d])) for d in archives] + \
+        [(d, Detector.load_exported(archives[o], device=d))
+         for d, o in (("cuda", "cpu"), ("cpu", "cuda"))]
+    for dst, run in runs:
+        assert run.device.type == dst
+        before = {k: m.launches for k, m in modules.items()}
+        got = run(frames)
+        torch.cuda.synchronize()
+        launched = {k: m.launches - before[k] for k, m in modules.items()}
+        assert launched == (sites if dst == "cuda"
+                            else dict.fromkeys(sites, 0))
+        want = live[dst](frames)
+        for k in ("boxes", "scores", "classes", "valid"):
+            assert got[k].device.type == dst
+            assert torch.equal(want[k], got[k]), (dst, k)
+        assert int(got["valid"].sum()) > 0
+
+
 # ---------------------------------------------------------------------------
 # data parallelism on the card: the mesh Detector, global moments over NCCL
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ Detector, and (f32) against the JAX Detector with tests/
 test_torch_serving.py's bounds. The five serving kernels are custom ops
 (`yolo_torch::*`): torch.library.opcheck holds each one's schema, fake
 (shape, dtype, strides) and dispatch, and each equals its plain version.
-The trained fixture assets/dryrun_tiny.npz with TINY_YAML at 160 px, so
-the detections are real.
+An archive moved to another device (`device=` at export or load, the
+CLI's `--target-device`) names no other device anywhere; on the CPU,
+"meta" stands for the card. The trained fixture assets/dryrun_tiny.npz
+with TINY_YAML at 160 px, so the detections are real.
 """
 
 import subprocess
@@ -207,6 +209,62 @@ def test_loaded_program_runs_with_tf32_off(exported_f32):
 
 
 # ---------------------------------------------------------------------------
+# the archive on another device
+# ---------------------------------------------------------------------------
+
+def _devices(program: torch.export.ExportedProgram) -> set[str]:
+    """Every device the program names: its weights and buffers, its tensor
+    constants, the graph's `device=` arguments and `.to(device)` calls,
+    and the tensors' metadata."""
+    found = {str(v.device) for v in program.state_dict.values()}
+    found |= {str(v.device) for v in program.constants.values()
+              if isinstance(v, torch.Tensor)}
+    for n in program.graph.nodes:
+        if "device" in n.kwargs:
+            found.add(str(n.kwargs["device"]))
+        if n.target is torch.ops.aten.to.device:
+            found.add(str(n.args[1]))
+        vals = n.meta.get("val")
+        for v in vals if isinstance(vals, (list, tuple)) else [vals]:
+            if isinstance(v, torch.Tensor):
+                found.add(str(v.device))
+    return found
+
+
+def test_cpu_archive_retargeted_to_meta_keeps_nothing_on_the_cpu(
+        exported_f32):
+    """`load_exported(device=)` moves every constant, buffer, packed
+    weight image and `device=` of the graph; the archive on disk and the
+    program loaded before are left as they were."""
+    _, path, run = exported_f32
+    assert _devices(run.program) == {"cpu"}
+    moved = Detector.load_exported(path, device="meta")
+    assert moved.device == torch.device("meta")
+    assert _devices(moved.program) == {"meta"}
+    consts = moved.program.constants
+    assert any(k.endswith(".adown_w1") for k in consts)
+    assert all(v.device.type == "meta" for v in consts.values()
+               if isinstance(v, torch.Tensor))
+    assert _devices(run.program) == {"cpu"}
+    assert _devices(Detector.load_exported(path).program) == {"cpu"}
+
+
+def test_cpu_archive_with_device_cpu_equals_live(exported_f32, tmp_path):
+    """device="cpu" on a CPU archive, at load and at export, changes
+    nothing: the output is torch.equal to the live Detector's."""
+    det, path, _ = exported_f32
+    frames = _frames(5)
+    live = det(frames)
+    run = Detector.load_exported(path, device="cpu")
+    assert run.device == torch.device("cpu")
+    _assert_equal(live, run(frames))
+    archive = str(tmp_path / "cpu.pt2")
+    det.export(archive, BATCH, height=HEIGHT, width=WIDTH, device="cpu")
+    _assert_equal(live, Detector.load_exported(archive)(frames))
+    assert int(live["valid"].sum()) > 0
+
+
+# ---------------------------------------------------------------------------
 # the five custom ops
 # ---------------------------------------------------------------------------
 
@@ -329,3 +387,24 @@ def test_cli_exports_and_a_fresh_process_loads(tiny_yaml, tmp_path):
     for k in KEYS:
         np.testing.assert_array_equal(a[k], b[k])
     assert a["valid"].sum() > 0
+
+
+def test_cli_target_device_writes_the_moved_archive(tiny_yaml, tmp_path):
+    """`--target-device meta`, with jax blocked: the archive written holds
+    every tensor and every `device=` on that device."""
+    archive = str(tmp_path / "tiny_meta.pt2")
+    lines = _run(
+        BLOCK_JAX + "import runpy\n"
+        f"sys.argv = ['export_serving', '--weights', {str(FIXTURE)!r}, "
+        f"'--config', {tiny_yaml!r}, '--out', {archive!r}, '--batch', "
+        f"'{BATCH}', '--img-size', '160', '--height', '{HEIGHT}', "
+        f"'--width', '{WIDTH}', '--num-classes', '4', '--dtype', "
+        "'float32', '--device', 'cpu', '--target-device', 'meta']\n"
+        "runpy.run_module('yolo_re_tpu_torch.cli.export_serving', "
+        "run_name='__main__')\n" + JAX_LOADED)
+    assert lines[-2].startswith(f"wrote {archive}") and " on meta " in \
+        lines[-2]
+    assert lines[-1] == "[]"
+    run = Detector.load_exported(archive)
+    assert run.device == torch.device("meta")
+    assert _devices(run.program) == {"meta"}

@@ -86,6 +86,22 @@ def test_rewriters_equal_jax(upstream_case):
     assert not any(".dfl" in k for k in back)
 
 
+def test_reference_state_dict_equals_jax_export(upstream_case):
+    """upstream.reference_state_dict (cli.export_weights' output) of the
+    bridged weights equals the JAX package's export_state_dict key for
+    key, value for value and dtype for dtype: gelan-c's one DFL
+    projection conv, yolov9-c's two."""
+    name, params, stats, ref_sd, _ = upstream_case
+    model = YOLO.from_yaml(ROOT / "configs" / "models" / f"{name}.yaml")
+    sd = convert.state_dict_from_jax(model.plan, params, stats)
+    out = upstream.reference_state_dict(model, sd)
+    _assert_sd_equal(out, ref_sd)
+    for k, v in ref_sd.items():
+        assert out[k].dtype == torch.from_numpy(np.asarray(v)).dtype, k
+    assert sum(k.endswith("conv.weight") and ".dfl" in k for k in out) == \
+        (2 if name == "yolov9-c" else 1)
+
+
 def test_upstream_loads_into_the_port(upstream_case):
     """port_state_dict on the upstream dict loads with strict=True and
     equals the bridge of the same weights (BN counters apart)."""

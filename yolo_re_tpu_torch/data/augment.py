@@ -1,7 +1,8 @@
 """Host-side image augmentation primitives (numpy + OpenCV): a copy of
-yolo_re_tpu/data/augment.py on its cv2/numpy branches (the JAX package's
-optional native host kernels, `YOLO_TPU_NATIVE`, are not ported; its
-default is these branches). tests/test_torch_eval.py pins the two equal.
+yolo_re_tpu/data/augment.py, its native host kernels' dispatch included
+(`YOLO_TPU_NATIVE`, utils/native.py; the default is the cv2/numpy
+branches). tests/test_torch_eval.py pins the two equal on cv2 and
+tests/test_torch_native.py under the native switch.
 
 These run in the data-loader workers on CPU, feeding the TPU; semantics
 follow the reference (src/yolo/data/augment.py) — same matrices, same
@@ -18,6 +19,8 @@ import math
 import cv2
 import numpy as np
 
+from yolo_re_tpu_torch.utils import native
+
 
 def augment_hsv(img: np.ndarray, h_gain: float = 0.5, s_gain: float = 0.5,
                 v_gain: float = 0.5, rng: np.random.Generator | None = None
@@ -27,6 +30,10 @@ def augment_hsv(img: np.ndarray, h_gain: float = 0.5, s_gain: float = 0.5,
         return img
     rng = rng or np.random.default_rng()
     r = rng.uniform(-1, 1, 3) * [h_gain, s_gain, v_gain] + 1
+    # Callers rely on in-place mutation, so only dispatch when the native
+    # kernel can work on the buffer directly (no contiguity copy).
+    if native.enabled() and img.flags["C_CONTIGUOUS"] and img.ndim == 3:
+        return native.hsv_augment(img, float(r[0]), float(r[1]), float(r[2]))
     hue, sat, val = cv2.split(cv2.cvtColor(img, cv2.COLOR_BGR2HSV))
     dtype = img.dtype
 
@@ -75,6 +82,15 @@ def letterbox(
 
     dw /= 2
     dh /= 2
+
+    # Native host runtime: the C++ kernel covers the common square-pad case
+    # (resize + 114-pad, same +-0.1 rounding; within 1-2 LSB of cv2).
+    if (native.enabled() and not auto and not scale_fill
+            and img.dtype == np.uint8 and img.ndim == 3
+            and color == (114, 114, 114)):
+        out, ratio_n, pad_n = native.letterbox(
+            img, new_shape[0], new_shape[1], pad_value=114, scaleup=scaleup)
+        return out, ratio_n, pad_n
 
     if shape[::-1] != new_unpad:
         img = cv2.resize(img, new_unpad, interpolation=cv2.INTER_LINEAR)

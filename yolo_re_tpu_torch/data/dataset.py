@@ -1,8 +1,9 @@
 """YOLO dataset + prefetching host loader: a copy of
-yolo_re_tpu/data/dataset.py on its cv2/numpy branches (the optional native
-host kernels are not ported), the multi-process `shard=` split included.
-tests/test_torch_eval.py and tests/test_torch_parallel.py pin the batches
-equal to the JAX package's.
+yolo_re_tpu/data/dataset.py, the multi-process `shard=` split and the
+native host kernels' dispatch (`YOLO_TPU_NATIVE`, utils/native.py)
+included. tests/test_torch_eval.py and tests/test_torch_parallel.py pin
+the batches equal to the JAX package's on cv2, tests/test_torch_native.py
+under the native switch.
 
 Dataset semantics follow the reference (src/yolo/data/dataset.py): file
 discovery by extension rglob or .txt list, the images/ -> labels/ path
@@ -40,6 +41,7 @@ from yolo_re_tpu_torch.data.transforms import (
     default_val_transforms,
 )
 from yolo_re_tpu_torch.parallel.mesh import local_rows
+from yolo_re_tpu_torch.utils import native
 
 IMG_EXTENSIONS = (".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp")
 
@@ -231,8 +233,11 @@ class YOLODataset:
         r = self.img_size / max(h0, w0)
         if r != 1:
             interp = cv2.INTER_LINEAR if (self.augment or r > 1) else cv2.INTER_AREA
-            img = cv2.resize(img, (int(w0 * r), int(h0 * r)),
-                             interpolation=interp)
+            if interp == cv2.INTER_LINEAR and native.enabled():
+                img = native.resize_bilinear(img, int(h0 * r), int(w0 * r))
+            else:
+                img = cv2.resize(img, (int(w0 * r), int(h0 * r)),
+                                 interpolation=interp)
 
         if self.cache == CacheMode.RAM:
             self._ram_cache[idx] = (img, (h0, w0))

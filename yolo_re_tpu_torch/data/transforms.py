@@ -1,7 +1,8 @@
 """Composable augmentation pipeline (host-side, numpy/cv2): a copy of
-yolo_re_tpu/data/transforms.py on its cv2/numpy branches (the optional
-native host kernels are not ported). tests/test_torch_eval.py pins the two
-equal.
+yolo_re_tpu/data/transforms.py, Mosaic's native resize and tile blit
+(`YOLO_TPU_NATIVE`, utils/native.py) included. tests/test_torch_eval.py
+pins the two equal on cv2 and tests/test_torch_native.py under the native
+switch.
 
 Mirrors the reference pipeline (src/yolo/data/transforms.py) with three
 deliberate changes:
@@ -32,6 +33,7 @@ from yolo_re_tpu_torch.data.augment import (
     xywhn2xyxy,
     xyxy2xywhn,
 )
+from yolo_re_tpu_torch.utils import native
 
 @dataclass
 class Sample:
@@ -113,12 +115,16 @@ class Mosaic(Transform):
         order = rng.permutation(4)
         loads = [loads[i] for i in order]
 
+        use_native = native.enabled()
         for i, (img, labels, _) in enumerate(loads):
             h, w = img.shape[:2]
             r = s / max(h, w)
             if r != 1:
-                img = cv2.resize(img, (int(w * r), int(h * r)),
-                                 interpolation=cv2.INTER_LINEAR)
+                if use_native:
+                    img = native.resize_bilinear(img, int(h * r), int(w * r))
+                else:
+                    img = cv2.resize(img, (int(w * r), int(h * r)),
+                                     interpolation=cv2.INTER_LINEAR)
                 h, w = img.shape[:2]
 
             if i == 0:  # top left
@@ -136,7 +142,10 @@ class Mosaic(Transform):
                 x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
                 x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
 
-            canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+            if use_native:
+                native.blit(canvas, img, y1a, x1a, y2a, x2a, y1b, x1b)
+            else:
+                canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
             padw, padh = x1a - x1b, y1a - y1b
 
             if len(labels):

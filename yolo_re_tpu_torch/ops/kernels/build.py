@@ -78,33 +78,65 @@ def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def build_key(nvcc: str) -> str:
+def source_key(sources, flags, compiler: str) -> str:
+    """The build directory's name: a hash of the sources (names and bytes),
+    the flags and the compiler, so that a change to any of them builds
+    anew and an unchanged build is reused. utils/native.py keys the host
+    library the same way."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    h.update(nvcc.encode())
+    h.update(" ".join(flags).encode())
+    h.update(compiler.encode())
     return h.hexdigest()[:16]
+
+
+def build_key(nvcc: str) -> str:
+    return source_key(_sources(), NVCC_FLAGS, nvcc)
+
+
+def build_into(out_dir: Path, lib_name: str, compile_fn) -> Path:
+    """out_dir/<lib_name> (out_dir: BUILD_DIR/<key>), made by
+    `compile_fn(tmp_dir)` if it does not exist yet. `compile_fn` builds the
+    library inside `tmp_dir`, a temporary directory beside the final
+    place, and returns its path; the library is then renamed into place, so a concurrent or cut-off build
+    never leaves a half-written library under the final name.
+    utils/native.py builds the host library through this too."""
+    lib = out_dir / lib_name
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        os.replace(compile_fn(Path(tmp_dir)), lib)
+    return lib
+
+
+def run_compiler(cmd: list[str]) -> None:
+    """Run one compiler command; RuntimeError with its output if the
+    compiler is missing or fails."""
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
 
 
 def build() -> Path:
     """Compile the library if no build for the current sources exists;
     return its path."""
-    global last_build_seconds
     nvcc = _nvcc()
-    out_dir = BUILD_DIR / build_key(nvcc)
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+
+    def compile_fn(tmp_dir: Path) -> Path:
+        global last_build_seconds
+        t0 = time.perf_counter()
         # one nvcc per source, all at once, then one link
         procs = []
         objects = []
         for src in sorted(CSRC_DIR.glob("*.cu")):
-            obj = str(Path(tmp_dir) / (src.stem + ".o"))
+            obj = str(tmp_dir / (src.stem + ".o"))
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", obj,
                    str(src)]
             procs.append((cmd, subprocess.Popen(
@@ -118,18 +150,12 @@ def build() -> Path:
                 failed.append(f"{' '.join(cmd)}\n{out}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        # link under a temporary name, then rename: a concurrent or cut-off
-        # build never leaves a half-written library under the final name
-        tmp = str(Path(tmp_dir) / LIB_NAME)
-        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    last_build_seconds = time.perf_counter() - t0
-    return lib
+        tmp = tmp_dir / LIB_NAME
+        run_compiler([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objects])
+        last_build_seconds = time.perf_counter() - t0
+        return tmp
+
+    return build_into(BUILD_DIR / build_key(nvcc), LIB_NAME, compile_fn)
 
 
 def library() -> ctypes.CDLL:

@@ -14,7 +14,10 @@ Outputs are padded (B, max_det, ...) plus a validity mask. The JAX
 package's adaptive K buckets for the all-anchor path (a `lax.switch` on the
 count of conf-passing anchors) are exact by construction, identical to the
 all-anchor program; here that program runs as it is, one kernel call over
-every anchor with no device-to-host sync.
+every anchor with no device-to-host sync, up to the kernel's MAX_K
+candidates. Above it (gelan-c beyond ~740 px) K is the most conf-passing
+anchors of an image, read back from the device: the same exactness, one
+sync a call.
 
 `non_max_suppression_raw` starts from the head's raw streams
 (`YOLO.predict_split`) and decodes lazily: it ranks by the class logits
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from yolo_re_tpu_torch.ops.boxes import dfl_decode, dist2bbox, xywh2xyxy
-from yolo_re_tpu_torch.ops.kernels.nms import nms_select
+from yolo_re_tpu_torch.ops.kernels.nms import MAX_K, nms_select
 
 # Class-offset constant for class-aware NMS. Must exceed any box coordinate.
 MAX_WH = 7680.0
@@ -66,6 +69,7 @@ def non_max_suppression(
     cls_scores = predictions[..., 4:].float()
     conf = cls_scores.amax(dim=-1)
     cls_idx = cls_scores.argmax(dim=-1).to(torch.int32)  # first max on ties
+    k = _passing(conf, k, conf_thres, pre_topk)
     conf_k, sel, cls_k = _preselect(conf, cls_idx, k, conf_thres, classes)
     boxes = xywh2xyxy(torch.gather(boxes_xywh, 1,
                                    sel[..., None].expand(-1, -1, 4)))
@@ -105,6 +109,7 @@ def non_max_suppression_raw(
     dev = box_logits.device
     conf = torch.sigmoid(cls_logits.amax(dim=-1).float())
     cls_idx = cls_logits.argmax(dim=-1).to(torch.int32)
+    k = _passing(conf, k, conf_thres, pre_topk)
     conf_k, sel, cls_k = _preselect(conf, cls_idx, k, conf_thres, classes)
     bl = torch.gather(box_logits, 1,
                       sel[..., None].expand(-1, -1, box_logits.shape[-1]))
@@ -123,6 +128,25 @@ def _num_candidates(num_anchors: int, conf_thres: float,
     if pre_topk is None:
         pre_topk = num_anchors if conf_thres < 0.1 else 512
     return min(pre_topk, num_anchors)
+
+
+def _passing(conf: torch.Tensor, k: int, conf_thres: float,
+             pre_topk: int | None) -> int:
+    """K for the all-anchor default when it exceeds the kernel's MAX_K: the
+    most anchors above conf_thres in one image (at least 1). The top K
+    then hold every candidate the greedy pass can keep, in the same
+    order, so the detections are those of all anchors (the JAX package's
+    adaptive buckets rest on the same fact). More than MAX_K passing
+    anchors in one image raises."""
+    if k <= MAX_K or pre_topk is not None:
+        return k
+    n = max(int((conf > conf_thres).sum(dim=1).max()), 1)
+    if n > MAX_K:
+        raise ValueError(
+            f"non_max_suppression: {n} anchors above conf_thres "
+            f"{conf_thres} in one image; the NMS kernel holds at most "
+            f"{MAX_K} candidates (raise conf_thres or pass pre_topk)")
+    return n
 
 
 def _preselect(conf: torch.Tensor, cls_idx: torch.Tensor, k: int,

@@ -10,9 +10,11 @@ The fused forward runs the stem, every ADown, the RepNCSP chains and the
 through the NMS kernel. The pipeline is one module, `ServingProgram`:
 `Detector.__call__` runs it eagerly (no torch.compile and no CUDA graphs),
 and `Detector.export` writes it, weights included, to one `torch.export`
-archive that `Detector.load_exported` runs again. The kernels are custom
+archive that `Detector.load_exported` runs again, on the device it was
+traced on or, moved by `move_program`, on another. The kernels are custom
 ops (`yolo_torch::*`, registered when their modules are imported), so the
-archive calls the same kernels. `Detector(mesh=)` serves over a
+archive calls the same kernels on a card and their plain versions on the
+CPU. `Detector(mesh=)` serves over a
 `parallel.mesh.Mesh` of local devices: one program per device, a batch
 padded to a multiple of the mesh's size, split, run, and the outputs
 gathered on the first device with the padding sliced off
@@ -95,6 +97,7 @@ class Detector:
         dets = det.to_list(out, original_shapes)  # per-image (n, 6) numpy
         det.export("det.pt2", batch=8, height=720, width=1280)
         run = Detector.load_exported("det.pt2")   # same contract as det
+        cpu = Detector.load_exported("det.pt2", device="cpu")
 
     state_dict_or_params: a state dict of `model` (for example
     `model.state_dict()`), or the JAX package's (params, stats) pytrees.
@@ -166,18 +169,26 @@ class Detector:
                             self.programs, self.mesh, frames)
 
     def export(self, path: str, batch: int, *, height: int | None = None,
-               width: int | None = None) -> None:
+               width: int | None = None,
+               device: str | torch.device | None = None) -> None:
         """Write the whole pixels-to-detections program (`ServingProgram`),
         the fused weights and the kernels' packed weight images included,
         to one `torch.export` archive (.pt2) at `path`. Its input is
-        (batch, height, width, 3) uint8 on this detector's device
-        (height and width default to img_size), its output the padded NMS
-        dict; the shapes are static, as in the JAX export. The kernels
-        stay in the graph as `yolo_torch::*` custom ops. The letterbox
-        matrices, anchors and DFL projection become host constants of the
-        archive, which the graph copies to this device on every call (the
-        device is part of the graph): load the archive on the same kind of
-        device."""
+        (batch, height, width, 3) uint8 (height and width default to
+        img_size), its output the padded NMS dict; the shapes are static,
+        as in the JAX export. The kernels stay in the graph as
+        `yolo_torch::*` custom ops, which run the kernels on a card and
+        their plain versions on the CPU.
+
+        The program is traced on this detector's device, and the device is
+        part of it: its weights, its constants (the letterbox matrices,
+        anchors and DFL projection, which the graph copies to the device on
+        every call) and every `device=` in the graph. `device=None` keeps
+        that device; another device (JAX's `platforms=`) retargets all of
+        them before the archive is written (`move_program`), so that a
+        detector on a card can write an archive for CPU hosts and the
+        other way round. `load_exported(..., device=)` moves an archive at
+        load time instead."""
         h = height or self.img_size
         w = width or self.img_size
         example = torch.zeros((batch, h, w, 3), dtype=torch.uint8,
@@ -189,13 +200,17 @@ class Detector:
         # the archive would keep the example frames (88 MB at gelan-c's
         # 32 x 720 x 1280); the loaded program does not read them
         program.example_inputs = None
+        if device is not None:
+            program = move_program(program, device)
         torch.export.save(program, path)
 
     @staticmethod
-    def load_exported(path: str) -> "ExportedDetector":
+    def load_exported(path: str, device: str | torch.device | None = None
+                      ) -> "ExportedDetector":
         """Load an archive `export` wrote: a callable with the Detector's
         contract at the exported shape ((batch, height, width, 3) uint8 in,
-        the padded NMS dict out, on the archive's device)."""
+        the padded NMS dict out) on the archive's device, or on `device`
+        when one is given (`move_program`)."""
         # registers the kernels' custom ops, which the graph calls
         from yolo_re_tpu_torch.ops.kernels import (  # noqa: F401
             adown,
@@ -204,7 +219,10 @@ class Detector:
             nms,
             stem,
         )
-        return ExportedDetector(torch.export.load(path))
+        program = torch.export.load(path)
+        if device is not None:
+            program = move_program(program, device)
+        return ExportedDetector(program)
 
     def to_list(self, out: dict[str, torch.Tensor],
                 original_shapes: list[tuple[int, int]] | None = None):
@@ -223,6 +241,18 @@ class Detector:
             det[:, [1, 3]] = ((det[:, [1, 3]] - pad_y) / gain).clip(0, h0)
             mapped.append(det)
         return mapped
+
+
+def move_program(program: torch.export.ExportedProgram,
+                 device: str | torch.device) -> torch.export.ExportedProgram:
+    """`program` retargeted to `device` in place (torch.export.passes.
+    move_to_device_pass): every weight and buffer (the kernels' packed
+    weight images among them), every tensor constant, every `device=` and
+    `.to(device)` in the graph, and the tensors' metadata, so that its
+    input's device (`ExportedDetector.device`) is `device` too."""
+    from torch.export.passes import move_to_device_pass
+
+    return move_to_device_pass(program, str(torch.device(device)))
 
 
 class ExportedDetector:

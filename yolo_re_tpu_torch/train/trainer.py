@@ -378,14 +378,16 @@ class Trainer:
         t.record_stream(compute)
         return x, t, ready
 
-    def train_step(self, images, targets):
+    def train_step(self, images, targets, *, augment: bool = True):
         """One optimizer step on a host batch. Returns (loss, items (3,),
-        grad norm) as device tensors (no host sync)."""
-        return self._step(*self._put_batch(images, targets))
+        grad norm) as device tensors (no host sync). `augment=False` skips
+        the configured device augmentation for this step (the JAX dry
+        run's `train_step(..., augment=False)`)."""
+        return self._step(*self._put_batch(images, targets), augment=augment)
 
     @full_f32()
     def _step(self, x: torch.Tensor, t: torch.Tensor,
-              ready: torch.cuda.Event | None = None):
+              ready: torch.cuda.Event | None = None, augment: bool = True):
         """One optimizer step on a batch `_put_batch` put on the device:
         normalize (uint8: cast to the compute dtype, then / 255, as the JAX
         step does), augment (NHWC), then the forward on NCHW in
@@ -397,7 +399,7 @@ class Trainer:
         cfg = self.config
         if ready is not None:
             torch.cuda.current_stream(self.device).wait_event(ready)
-        x, t = self._inputs(x, t)
+        x, t = self._inputs(x, t) if augment else (self._normalized(x), t)
         x = x.contiguous().permute(0, 3, 1, 2)
         with global_batch(self._group):
             total, items = self.loss_fn(self.model(x, remat=self._remat), t)
@@ -434,6 +436,12 @@ class Trainer:
                      bias_lr=bias_lr, momentum=momentum,
                      weight_decay=self.config.weight_decay)
 
+    def _normalized(self, x: torch.Tensor) -> torch.Tensor:
+        """Images in the compute dtype: uint8 is cast, then / 255, as the
+        JAX step does."""
+        return x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \
+            else x.to(self.dtype)
+
     def _inputs(self, x: torch.Tensor,
                 t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """A batch on the device -> NHWC images in the compute dtype,
@@ -446,8 +454,7 @@ class Trainer:
                 and self._device_aug_full:
             x = all_gather_rows(x, self._group)
             t = all_gather_rows(t, self._group)
-        x = x.to(self.dtype) / 255.0 if x.dtype == torch.uint8 \
-            else x.to(self.dtype)
+        x = self._normalized(x)
         if self._device_aug is not None:
             x, t = self._augment(x, t)
         return x, t
@@ -609,14 +616,20 @@ class Trainer:
                                     for k in self.params])
         return tree
 
-    def _save(self, path: Path, epoch: int) -> None:
-        """The full training state to `path` (.npz), or, with
-        checkpoint_format "orbax", to the directory named `path` without
-        its suffix (train/checkpoint.py: save_checkpoint_dir)."""
+    def save(self, path: str | Path, epoch: int = 0, *,
+             format: str | None = None) -> None:
+        """The full training state to `path` (.npz), or, with format
+        (default: config.checkpoint_format) "orbax", to the directory named
+        `path` without its suffix (train/checkpoint.py:
+        save_checkpoint_dir). Process 0 alone writes; `load_checkpoint`
+        reads either."""
+        fmt = format or self.config.checkpoint_format
+        if fmt not in ("npz", "orbax"):
+            raise ValueError(f"format must be 'npz' or 'orbax', got {fmt!r}")
         if self.rank:                   # one writer per group
             return
         save = save_checkpoint
-        if self.config.checkpoint_format == "orbax":
+        if fmt == "orbax":
             save, path = save_checkpoint_dir, Path(path).with_suffix("")
         params, stats = self._pytrees({})
         ema_params, ema_stats = self._pytrees(
@@ -627,6 +640,8 @@ class Trainer:
              opt_bufs=self._opt_tree(), epoch=epoch,
              global_step=self.global_step, best_fitness=self.best_fitness,
              config=vars(self.config))
+
+    _save = save                        # the JAX Trainer's name
 
     @torch.no_grad()
     def load_checkpoint(self, path: str | Path) -> None:

@@ -204,6 +204,24 @@ def reference_to_upstream_sd(sd: SD, model_name: str) -> SD:
     return out
 
 
+def reference_state_dict(model, sd: SD) -> dict[str, torch.Tensor]:
+    """A state dict of `model` (a YOLO) -> the reference schema that the
+    reference model loads with strict=True (yolo_re_tpu/convert/
+    torch_export.py: export_state_dict): the same keys and values as
+    float32 tensors (BN counters as they are), plus the fixed DFL
+    projection conv(s) of the detect head, which the port derives."""
+    out = {k: (torch.as_tensor(v) if "num_batches_tracked" in k
+               else torch.as_tensor(v, dtype=torch.float32))
+           for k, v in sd.items()}
+    for step in model.plan.steps:
+        if step.type in ("DetectDFL", "DualDetectDFL"):
+            w = torch.from_numpy(dfl_weight(model.layers[step.name].reg_max))
+            out[f"layers.{step.name}.dfl.conv.weight"] = w
+            if step.type == "DualDetectDFL":
+                out[f"layers.{step.name}.dfl2.conv.weight"] = w.clone()
+    return out
+
+
 def is_upstream_state_dict(sd: SD) -> bool:
     """Upstream yolov9 names layers by integer index: model.<i>.<rest>."""
     for k in sd:
