@@ -206,7 +206,24 @@ non-zero (no phase is caught):
    torch.equal to the live card Detector's; (d) dryrun_torch.
    dryrun_multichip(1, device="cuda"): gelan-c over NCCL in one process,
    its seconds by stage and every kernel counter of that process above 0. Phase
-   17's seconds are printed.
+   17's seconds are printed;
+18. per-layer and per-stage profiles (cli/profile_layers.py,
+   cli/profile_train.py): (a) gelan-c at full width and depth (random
+   weights from seed 0), fused, 640 px, batch 32, bf16 then f32: the
+   main-only forward's device time by layer (forward-hook ranges in
+   torch.profiler traces of PROFILE_ITERS forwards), its rows the main
+   steps in order and summing to the TOTAL kernel time within
+   PROFILE_SUM_RTOL, the kernel counters one forward's sites a forward
+   run (stem 1, ADown 5, chain 2, conv3 6), the table, the ten largest
+   layers and the forward's idle share (CUDA-event wall time against the
+   kernel time) printed; (b) profile_train's stages (fwd, fwd_bwd,
+   fwd_loss, fwd_loss_bwd, full, tal_only) on gelan-c at 640 px, batch 32,
+   bf16 and f32, CUDA events over PROFILE_TRAIN_ITERS calls, every time
+   finite and above 0, a `full` stage (Trainer._step) launching a stem
+   pair and five ADown pairs, printed beside phase 8's ms/step; (c)
+   `--per-layer` on TINY_YAML at 160 px, batch 8, on the card, a finite
+   row for each plan step. (b) runs first, before the process's first
+   torch.profiler trace. Phase 18's seconds are printed.
 The total seconds are printed before the last three lines. Phase 1 also
 prints `utils.devices.device_summary()`.
 
@@ -231,7 +248,8 @@ phase 11 (b)'s launches per dtype; `launches_exported`: phase 12's
 launches from the loaded archive; `launches_gelan_e`,
 `launches_gelan_c_d2`: phase 13's; `launches_cli`: phase 14's;
 `launches_data_parallel`: phase 15's DDP train steps and mesh serving
-requests; `launches_remat`, `launches_lazy_nms`: phase 16's), and
+requests; `launches_remat`, `launches_lazy_nms`: phase 16's; `launches_profile`:
+phase 18's), and
 {"ok": true, "device": {...}}.
 """
 
@@ -257,7 +275,13 @@ import torch.nn.functional as F
 
 import dryrun_torch
 from yolo_re_tpu_torch import upstream
-from yolo_re_tpu_torch.cli import bench_loader, convert_weights, detect
+from yolo_re_tpu_torch.cli import (
+    bench_loader,
+    convert_weights,
+    detect,
+    profile_layers,
+    profile_train,
+)
 from yolo_re_tpu_torch.cli import train as train_cli
 from yolo_re_tpu_torch.cli import val as val_cli
 from yolo_re_tpu_torch.cli.profile_launches import random_model
@@ -290,7 +314,7 @@ from yolo_re_tpu_torch.ops.nms import (
     non_max_suppression_raw,
 )
 from yolo_re_tpu_torch.parallel.mesh import Mesh, init_distributed
-from yolo_re_tpu_torch.serving import Detector
+from yolo_re_tpu_torch.serving import DTYPES, Detector
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.trainer import Trainer
 from yolo_re_tpu_torch.utils import native
@@ -376,6 +400,13 @@ LAZY_NMS_CONFS = (0.25, 1e-3)
 # SIZE x SIZE frames
 LOADER_EPOCHS = 2
 XDEV_BATCH = 2
+# phase 18: profile_layers' traced forwards a trace, profile_train's timed
+# calls a stage (after one warm-up), the per-layer run's TINY_YAML size and
+# calls; the layer rows' sum against the TOTAL kernel time
+PROFILE_ITERS = 3
+PROFILE_TRAIN_ITERS = 3
+PROFILE_TINY = (8, 160, 1)      # batch, px, calls
+PROFILE_SUM_RTOL = 1e-3
 NMS_RAW_ATOL, NMS_RAW_RTOL = 1e-4, 1e-6
 # H100 SXM data sheet: HBM3 bytes/s; dense bf16 tensor-core, f32 (CUDA-
 # core) operations/s, and f32 operations/s in 3xTF32 (three TF32 products
@@ -2527,10 +2558,133 @@ def phase_last_modules(dev, tmp: Path, sites: dict) -> None:
     print(f"  phase 17: {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 18: per-layer and per-stage profiles ------------------------------
+
+def phase_layer_profiles(dev) -> dict:
+    """Phase 18 (a): profile_layers on gelan-c (full width and depth, random
+    weights from seed 0), fused, bf16 then f32, BATCH x SIZE: the rows are
+    the main steps in order, the kernel counters one forward's sites per
+    forward run, the rows sum to the TOTAL kernel time. Returns the
+    launches a forward per dtype."""
+    launches = {}
+    for dtype in ("bfloat16", "float32"):
+        model = profile_layers.build_model("gelan-c", DTYPES[dtype], dev)
+        sites = kernel_sites(model)
+        x = profile_layers.random_batch(BATCH, SIZE, DTYPES[dtype], dev)
+        reset_counts()
+        res = profile_layers.profile_forward(model, x, PROFILE_ITERS)
+        counts = counts_now()
+        print(f"  (a) gelan-c fused {dtype}, batch {BATCH}, {SIZE} px, "
+              f"main-only forward, {PROFILE_ITERS} traced forwards:")
+        profile_layers.print_table(res, BATCH)
+        rows = res["rows"]
+        names = [s.name for s in model.main_steps]
+        top = sorted(rows[:len(names)], key=lambda r: -r[2])[:10]
+        print("  the ten largest layers: " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, _, ms in top) + f"; idle share "
+            f"{res['idle_share']:.4f} (kernel {res['kernel_ms']:.4f} ms, "
+            f"wall {res['wall_ms']:.4f} ms, without hooks "
+            f"{res['hookless_kernel_ms']:.4f} ms)")
+        want = {**{k: v * res["forwards"] for k, v in sites.items()},
+                "nms": 0}
+        # the layers and the rest of the forward: every kernel launched by
+        # an op of the forward (the UNLINKED row, if any, is not)
+        total = sum(r[2] for r in rows if r[0] != profile_layers.UNLINKED)
+        print(f"  launches {counts} over {res['forwards']} forwards; rows "
+              f"sum {total:.4f} ms against the TOTAL {res['kernel_ms']:.4f}")
+        if [r[0] for r in rows[:len(names)]] != names:
+            raise AssertionError(f"profile_layers {dtype}: rows "
+                                 f"{[r[0] for r in rows]}")
+        if counts != want:
+            raise AssertionError(f"profile_layers {dtype}: launches "
+                                 f"{counts}, expected {want}")
+        if not (res["kernel_ms"] > 0 and abs(total - res["kernel_ms"])
+                <= PROFILE_SUM_RTOL * res["kernel_ms"]):
+            raise AssertionError(f"profile_layers {dtype}: rows sum "
+                                 f"{total} against {res['kernel_ms']}")
+        launches[f"layers {dtype}"] = {k: v // res["forwards"]
+                                       for k, v in counts.items()}
+        del model, x
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_profiles(dev, tmp: Path, phase8: dict) -> dict:
+    """Phase 18 (b): profile_train's six stages on gelan-c at BATCH x
+    SIZE, bf16 and f32, printed beside phase 8's ms/step; every stage
+    time finite and above 0; one `full` stage (Trainer._step) launching
+    the train sites: a stem pair and five ADown pairs. Returns the
+    launches of the `full` stage per dtype."""
+    launches = {}
+    want = {"stem_raw": 1, "stem_wgrad": 1, "adown_raw": 5, "adown_bwd": 5}
+    for dtype in ("bfloat16", "float32"):
+        trainer = profile_train.make_trainer(
+            "gelan-c", dtype, False, dev, str(tmp / f"profile_{dtype}"))
+        stages = profile_train.Stages(
+            trainer, *profile_train.device_batch(BATCH, SIZE, 8, dev))
+        print(f"  (b) gelan-c train step {dtype}, batch {BATCH}, {SIZE} px, "
+              f"ms over {PROFILE_TRAIN_ITERS} calls a stage:")
+        times = profile_train.stage_times(stages, PROFILE_TRAIN_ITERS)
+        profile_train.print_deltas(times, BATCH)
+        reset_train_counts()
+        stages.full()
+        torch.cuda.synchronize()
+        counts = train_counts()
+        print(f"  full: {times['full']:.2f} ms/step (CUDA events) beside "
+              f"phase 8's bf16 {phase8['ms_per_step']:.1f} ms/step (host "
+              f"clock); one full stage launches {counts}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if counts != want:
+            raise AssertionError(f"profile_train {dtype}: launches {counts}, "
+                                 f"expected {want}")
+        if not all(np.isfinite(v) and v > 0 for v in times.values()):
+            raise AssertionError(f"profile_train {dtype}: stages {times}")
+        launches[f"train {dtype}"] = counts
+        del trainer, stages
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_per_layer_train(dev, tmp: Path) -> None:
+    """Phase 18 (c): profile_train --per-layer on TINY_YAML at
+    PROFILE_TINY's batch and size on the card: a finite row for each plan
+    step."""
+    batch, size, iters = PROFILE_TINY
+    path = tmp / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    trainer = profile_train.make_trainer(str(path), "bfloat16", False, dev,
+                                         str(tmp / "profile_tiny"))
+    stages = profile_train.Stages(
+        trainer, *profile_train.device_batch(batch, size, 8, dev))
+    print(f"  (c) TINY_YAML per layer, bf16, batch {batch}, {size} px:")
+    res = profile_train.per_layer(stages, iters)
+    profile_train.print_per_layer(res, batch)
+    names = [s.name for s in trainer.model.plan.steps]
+    if [r[0] for r in res["rows"]] != names or not all(
+            np.isfinite(v) for r in res["rows"] for v in r[2:]):
+        raise AssertionError(f"profile_train --per-layer: {res['rows']}")
+
+
+def phase_profiles(dev, tmp: Path, phase8: dict) -> dict:
+    """Phase 18 (module docstring): (b) first, before the process's first
+    torch.profiler trace, then (a) and (c). Returns the launches of (a)'s
+    forwards and (b)'s full stages."""
+    t = [time.perf_counter()]
+    launches = phase_train_profiles(dev, tmp, phase8)
+    t.append(time.perf_counter())
+    launches.update(phase_layer_profiles(dev))
+    t.append(time.perf_counter())
+    phase_per_layer_train(dev, tmp)
+    t.append(time.perf_counter())
+    print(f"  phase 18: {t[3] - t[0]:.1f} s ((b) {t[1] - t[0]:.1f}, (a) "
+          f"{t[2] - t[1]:.1f}, (c) {t[3] - t[2]:.1f})")
+    return launches
+
+
 def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
                  v9c: dict, aug: dict, exported: dict, more: dict,
-                 clis: dict, dp: dict, remat: dict, lazy: dict
-                 ) -> list[dict]:
+                 clis: dict, dp: dict, remat: dict, lazy: dict,
+                 profiles: dict) -> list[dict]:
     """The kernels JSON line's entries from phases 3 and 6's numbers and
     the launch counts of phases 5 and 8 (`launches`, gelan-c), of phase
     10 (`launches_yolov9_c`: serving, eval and train), of phase 11 (b)
@@ -2542,7 +2696,9 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
     per dtype, the mesh Detector's requests) and of phase 16
     (`launches_remat`: a step per remat mode, and of the DDP step with
     "early"; `launches_lazy_nms`: predict_split + non_max_suppression_raw
-    per confidence); prints each dtype's fractions of the bound."""
+    per confidence) and of phase 18 (`launches_profile`: a profiled
+    forward per dtype, a profiled `full` train stage per dtype); prints
+    each dtype's fractions of the bound."""
     # (name, source, TPU kernel, launches, {dtype: numbers}); NMS runs in
     # f32 only
     rows = (
@@ -2604,6 +2760,7 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
         "launches_data_parallel": by_path(dp, name),
         "launches_remat": by_path(remat, name),
         "launches_lazy_nms": by_path(lazy, name),
+        "launches_profile": by_path(profiles, name),
         **numbers(r["bf16"]), "f32": numbers(r["f32"])}
         for name, src, tpu, launches, r in rows]
     # the ADown kernels' sums over gelan-e's five sites
@@ -2764,8 +2921,12 @@ def main() -> int:
               "the dry run")
         phase_last_modules(dev, Path(td), sites)
 
+    with tempfile.TemporaryDirectory() as td:
+        print("phase 18: per-layer and per-stage profiles")
+        profiles = phase_profiles(dev, Path(td), phase8)
+
     kernels = kernels_line(res, tres, counts, tcounts, v9c, aug, exported,
-                           more, clis, dp, remat, lazy)
+                           more, clis, dp, remat, lazy, profiles)
     print(f"(kernel ms/plain_ms/library_ms: bf16, and f32 under 'f32', at "
           f"the serving, eval and train shapes, library calls with TF32 "
           f"off; adown kernels are the sum of gelan-c's five ADown shapes "
@@ -2802,7 +2963,9 @@ def main() -> int:
           f"(two replicas); launches_remat: phase 16's launches a train "
           f"step per remat mode (and of the DDP step with 'early'); "
           f"launches_lazy_nms: phase 16 (d)'s predict_split + "
-          f"non_max_suppression_raw per confidence; the ADown "
+          f"non_max_suppression_raw per confidence; launches_profile: "
+          f"phase 18's launches a profiled forward (layers) and a profiled "
+          f"full train stage (train) per dtype; the ADown "
           f"kernels' sums over gelan-e's five sites under 'gelan_e', and "
           f"the stem kernels at C=64 (gelan-c) and C=80 (gelan-e) under "
           f"'shapes')")

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 import torch.nn.functional as F
 
 from yolo_re_tpu.ops.adown_train import _adown_conv

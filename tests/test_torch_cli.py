@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.convert import torch_export as jexport
 from yolo_re_tpu.data.augment import letterbox as jletterbox

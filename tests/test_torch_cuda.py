@@ -1536,3 +1536,38 @@ def test_checkpoint_dir_saved_on_cuda_loads_on_cpu(cuda, tmp_path):
         params["stem1"]["w"], np.transpose(
             card.ema["params"]["layers.stem1.conv.weight"].cpu().numpy(),
             (2, 3, 1, 0)))
+
+
+def test_profile_layers_puts_the_stem_kernel_in_stem1(cuda, tmp_path):
+    """cli/profile_layers on the card, fused TINY_YAML bf16 at 160 px: the
+    layer rows are the main steps in order and sum to the kernel time, the
+    stem kernel (launched once a forward) runs inside stem1's range alone,
+    and stem1's row holds its device time."""
+    from yolo_re_tpu_torch.cli import profile_layers as pl
+    from yolo_re_tpu_torch.utils import profiling
+
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    model = pl.build_model(str(path), torch.bfloat16, cuda)
+    x = pl.random_batch(2, 160, torch.bfloat16, cuda)
+    before = stem.launches
+    res = pl.profile_forward(model, x, iters=3)
+    assert stem.launches - before == res["forwards"]
+    names = [s.name for s in model.main_steps]
+    assert [r[0] for r in res["rows"][:len(names)]] == names
+    rows = {r[0]: r[2] for r in res["rows"]}
+    assert abs(sum(rows.values()) - res["kernel_ms"]) <= \
+        1e-3 * res["kernel_ms"]
+    assert 0 < res["kernel_ms"] <= res["wall_ms"]
+    # F4: late in a long process a trace can still lose a launch; trace
+    # again (three times at most) until it holds the stem kernel's
+    for _ in range(3):
+        with torch.no_grad(), profiling.layer_ranges(model, names):
+            prof = profiling.traced(lambda: model(x, main_only=True), cuda)
+        by, total = profiling.time_by_layer(prof, cuda,
+                                            kernel="stem_kernel")
+        if total > 0:
+            break
+    assert total > 0 and set(by) == {"stem1"}
+    assert abs(by["stem1"] - total) <= 1e-6 * total
+    assert rows["stem1"] * 1e3 >= 0.5 * total

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu_torch.data.synth import TINY_YAML
 from yolo_re_tpu_torch.models.yolo import YOLO

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.eval.evaluator import Evaluator as JEvaluator
 from yolo_re_tpu.loss.tal import TALoss as JTALoss

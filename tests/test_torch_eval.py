@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.data import augment as jaugment
 from yolo_re_tpu.data.config import AugmentConfig as JAugmentConfig

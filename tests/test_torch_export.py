@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.models.yolo import YOLO as JYOLO
 from yolo_re_tpu.serving import Detector as JDetector

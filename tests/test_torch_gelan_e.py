@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.models import blocks as JB
 from yolo_re_tpu.models.fuse import _fuse as jfuse

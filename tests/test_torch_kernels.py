@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.data.device_pipeline import batched_letterbox as jletterbox
 from yolo_re_tpu.models import blocks as JB

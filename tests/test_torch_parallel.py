@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.data.config import DataConfig as JDataConfig
 from yolo_re_tpu.data.dataset import create_dataloader as jcreate_dataloader

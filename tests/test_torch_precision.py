@@ -14,6 +14,7 @@ with the flags at PyTorch's defaults.
 
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu_torch.data.synth import TINY_YAML, make_eval_batch
 from yolo_re_tpu_torch.eval.evaluator import Evaluator

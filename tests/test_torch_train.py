@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.loss.assigner import TaskAlignedAssigner as JAssigner
 from yolo_re_tpu.loss.tal import TALoss as JTALoss

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import few_torch_threads  # noqa: F401
 
 from yolo_re_tpu.convert import torch_import as J
 from yolo_re_tpu.convert.torch_export import export_state_dict

@@ -469,3 +469,13 @@ def get_block_class(name: str) -> type[nn.Module]:
         raise ValueError(
             f"Unknown block type: {name}. Available: {sorted(BLOCKS)}"
         ) from None
+
+
+def register_block(name: str, cls: type[nn.Module]) -> None:
+    """Register a custom block type for the YAML parser. The plan
+    (models/builder.py) hands `cls` its layer's YAML parameters as keyword
+    arguments, with `in_channels` set and `out_channels` (and the other
+    widths and `num_repeats`) scaled by the model's multipliers, as for
+    the blocks above; the layer's output channels are its
+    `out_channels`."""
+    BLOCKS[name] = cls

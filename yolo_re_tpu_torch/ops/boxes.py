@@ -17,6 +17,13 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h), last-dim layout."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1],
+                       dim=-1)
+
+
 def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor,
               xywh: bool = True) -> torch.Tensor:
     """ltrb distances -> boxes (reference: src/yolo/heads/anchor.py:43-64)."""
@@ -35,6 +42,19 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor,
     x1y1, x2y2 = bbox.chunk(2, dim=-1)
     d = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1)
     return d.clamp(0.0, reg_max - 0.01)
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU matrix (N, M) of xyxy boxes (reference:
+    src/yolo/eval/metrics.py:10-29)."""
+    area1 = (boxes1[:, 2] - boxes1[:, 0]) * (boxes1[:, 3] - boxes1[:, 1])
+    area2 = (boxes2[:, 2] - boxes2[:, 0]) * (boxes2[:, 3] - boxes2[:, 1])
+    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
+    rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[:, None] + area2[None, :] - inter
+    return inter / union
 
 
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, *, xywh: bool = False,

@@ -59,8 +59,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def hardswish(x: torch.Tensor) -> torch.Tensor:
+    """x * clamp(x + 3, 0, 6) / 6, written out as the JAX package writes
+    it (F.hardswish multiplies by 1/6 instead of dividing)."""
+    return x * (x + 3.0).clamp(0.0, 6.0) / 6.0
+
+
+# Only "silu" has kernels: the kernel gates (models/blocks.py) admit no
+# other activation, so the others run the library conv and these eager ops.
 _ACTIVATIONS = {
     "silu": silu,
+    "relu": F.relu,
+    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.1),
+    "hardswish": hardswish,
     "none": lambda x: x,
 }
 

@@ -45,3 +45,8 @@ class WarmupCosineSchedule:
                     + (self.base_momentum - self.warmup_momentum) * xi)
         cos_lr = self.base_lr * self._cosine(step)
         return cos_lr, cos_lr, self.base_momentum
+
+
+def one_cycle_lr(epoch: float, total_epochs: int, lrf: float = 0.01) -> float:
+    """Epoch-based cosine multiplier (reference: scheduler.py:124-138)."""
+    return lrf + (1 - lrf) * 0.5 * (1 + math.cos(math.pi * epoch / total_epochs))

@@ -10,17 +10,24 @@ yolo_re_tpu/utils/profiling.py).
   between CUDA events on its tensors' device, or on the host clock for
   CPU tensors. Eager PyTorch runs each call as written, so the JAX
   timer's data-dependency chain (against XLA's loop hoisting) has no
-  counterpart.
+  counterpart;
+- `layer_ranges`, `traced`, `time_by_layer`: device time by plan
+  layer (cli/profile_layers.py, cli/profile_train.py). Forward hooks open
+  a `torch.profiler` range around each layer's call; a trace's device
+  work goes to the range around the op that launched it (on the CPU, each
+  op's own CPU time to the range around the op).
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import time
 from collections.abc import Iterator
 from pathlib import Path
 
 import torch
+from torch.autograd import DeviceType
 
 
 @contextlib.contextmanager
@@ -90,3 +97,156 @@ def device_timer(fn, *args, iters: int = 10) -> float:
         end.record()
         end.synchronize()
     return start.elapsed_time(end) / 1e3 / iters
+
+
+LAYER_RANGE = "layer "
+
+
+@contextlib.contextmanager
+def layer_ranges(model: torch.nn.Module, names) -> Iterator[None]:
+    """While the block runs, each call of `model.layers[name]` for `name`
+    in `names` runs inside a `torch.profiler` range named
+    `LAYER_RANGE + name`, opened by a forward pre-hook and closed by a
+    forward hook; the hooks are removed on exit. The model's forward is
+    not changed."""
+    stacks: dict[str, list] = {}
+
+    def opener(name: str):
+        def hook(module, args):
+            rf = torch.profiler.record_function(LAYER_RANGE + name)
+            rf.__enter__()
+            stacks.setdefault(name, []).append(rf)
+        return hook
+
+    def closer(name: str):
+        def hook(module, args, output):
+            stacks[name].pop().__exit__(None, None, None)
+        return hook
+
+    handles = []
+    try:
+        for name in names:
+            layer = model.layers[name]
+            handles.append(layer.register_forward_pre_hook(opener(name)))
+            handles.append(layer.register_forward_hook(closer(name)))
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _is_annotation(e) -> bool:
+    """A kineto device event that is a profiler range's span on the card's
+    timeline (gpu_user_annotation), not work."""
+    flag = getattr(e, "is_user_annotation", None)
+    return bool(flag and flag()) or e.name().startswith(LAYER_RANGE)
+
+
+def _device_events(prof) -> list:
+    """The kineto events of the card's work in a trace: kernels, copies,
+    sets (not the ranges' spans)."""
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not _is_annotation(e)]
+
+
+def _cpu_ops(prof) -> list:
+    """The CPU ops of a CPU trace, outside the layer ranges themselves."""
+    return [e for e in prof.events() if e.device_type == DeviceType.CPU
+            and not e.is_async and not e.name.startswith(LAYER_RANGE)]
+
+
+def traced(fn, device: torch.device, tries: int = 3):
+    """A `torch.profiler` trace of fn() (CPU activity, and CUDA activity on
+    a card), as the finished profiler. fn runs twice: in a warm-up cycle
+    that is dropped, then in the recorded one, 50 ms inside it (the
+    profiler drops device activity it dates outside its window, and a
+    trace that starts with the calls can miss their first launches, F4).
+    A trace that holds no device work is taken again, `tries` times in
+    all, then this raises: an empty trace is never returned as a
+    measurement."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    for _ in range(tries):
+        with profile(activities=activities, schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _cycle in range(2):
+                time.sleep(0.05)
+                fn()
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                time.sleep(0.05)
+                prof.step()
+        if (_device_events(prof) if device.type == "cuda"
+                else _cpu_ops(prof)):
+            return prof
+    raise RuntimeError(f"torch.profiler: {tries} traces held no "
+                       f"{device.type} activity")
+
+
+def _layer_at(prof):
+    """A function (time in ns) -> the layer whose range (`layer_ranges`)
+    was open on the host at that time, or None, from a trace's CPU
+    ranges (sibling layers: their ranges do not overlap)."""
+    spans = sorted((e.start_ns(), e.end_ns(), e.name()[len(LAYER_RANGE):])
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CPU
+                   and e.name().startswith(LAYER_RANGE))
+    starts = [s[0] for s in spans]
+
+    def layer_at(t: int) -> str | None:
+        i = bisect.bisect_right(starts, t) - 1
+        return spans[i][2] if i >= 0 and t <= spans[i][1] else None
+    return layer_at
+
+
+def time_by_layer(prof, device: torch.device, kernel: str | None = None
+                  ) -> tuple[dict[str | None, float], float]:
+    """(microseconds by layer, total microseconds) of the device work in a
+    trace (`traced`). On a card each device event (a kernel, a copy, a
+    set) counts once: it goes to the layer whose range (`layer_ranges`)
+    was open when the op that launched it started (the op its linked
+    correlation id names: where a profiler event of its own shares the
+    id, the one inside a range), or to None outside every range; the
+    total is the sum of every device event, and an event no op launched
+    stays out of the layers (the caller sees it as total - sum). A range's
+    own span on the card's timeline is not work and counts nowhere.
+    `kernel` (a card only) counts only the device events whose name holds
+    it. On the CPU each op's self CPU time goes to the layer whose range
+    encloses it, and the total is their sum."""
+    by: dict[str | None, float] = {}
+    if device.type == "cuda":
+        layer_at = _layer_at(prof)
+        # the ops' start times by their own correlation ids (the CUDA
+        # runtime's CPU events link to an op, and number apart)
+        starts: dict[int, list[int]] = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CPU \
+                    and not e.linked_correlation_id():
+                starts.setdefault(e.correlation_id(), []).append(
+                    e.start_ns())
+        total = 0.0
+        for e in _device_events(prof):
+            if kernel is not None and kernel not in e.name():
+                continue
+            us = (e.end_ns() - e.start_ns()) / 1e3
+            total += us
+            ops = starts.get(e.linked_correlation_id())
+            if ops:
+                key = next((k for k in map(layer_at, ops) if k), None)
+                by[key] = by.get(key, 0.0) + us
+        return by, total
+
+    def owner(e) -> str | None:
+        while e is not None:
+            if e.name.startswith(LAYER_RANGE):
+                return e.name[len(LAYER_RANGE):]
+            e = e.cpu_parent
+        return None
+
+    for e in _cpu_ops(prof):
+        key = owner(e)
+        by[key] = by.get(key, 0.0) + e.self_cpu_time_total
+    return by, sum(by.values())
