@@ -37,8 +37,10 @@ def test_dryrun_two_gloo_processes(tiny_yaml, monkeypatch, capsys):
     """Three DDP steps (the third augmented), npz and directory resume,
     mesh serving and eval, and the trained fixture's detections and
     mAP50 through the mesh, within TIMEOUT_S."""
-    # two threads a process, as tests/test_torch_parallel.py runs its ranks
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    # one thread a process, as tests/test_torch_parallel.py runs its ranks
+    # (on a loaded machine a second thread's waits between the small
+    # collectives doubled the run's time)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     out = dryrun_torch.dryrun_multichip(2, device="cpu",
                                         model_yaml=tiny_yaml,
                                         timeout=TIMEOUT_S)

@@ -8,7 +8,9 @@ multi-process checks: global BN moments and their gradient, the loss's
 scale (`TALoss.forward` and `forward_dual`), a data-parallel Trainer epoch
 (custom sharded loader), sharded device augmentation ("full") and its
 epoch (`data=`, the loader's `shard=`), a data-parallel epoch with
-remat="early", and the refusals. Each rank writes
+remat="early", and the refusals; a second launch runs part 1 again, as a
+test process that takes the file over from a lost one would launch it
+all again. The ranks run on one torch thread each. Each rank writes
 what it computed to an .npz; the tests below hold it against the
 single-process port and against the JAX package on the whole batch
 (`conv_bn_act`, `TALoss`, the JAX Trainer's step from the same init on
@@ -23,6 +25,7 @@ DataLoader's; the CLIs run in subprocesses with jax blocked.
 import json
 import os
 import pickle
+import shutil
 import socket
 import subprocess
 import sys
@@ -96,8 +99,10 @@ LOSS_B, LOSS_NC, LOSS_REG, LOSS_STRIDES = 4, 4, 16, (8, 16, 32)
 
 WORKER = r'''
 import sys
+import time
 for m in ("jax", "jaxlib", "yolo_re_tpu"):
     sys.modules[m] = None
+START = time.monotonic()
 import datetime
 import json
 import pickle
@@ -119,15 +124,28 @@ from yolo_re_tpu_torch.train.trainer import Trainer
 
 rank, world, port = (int(a) for a in sys.argv[1:4])
 root = Path(sys.argv[4])
+# "moments": part 1 only
+only_moments = sys.argv[5:] == ["moments"]
+
+
+def done(part):
+    """A progress line on stderr: a launch that runs out of time shows
+    each rank's last part and when it ended."""
+    print(f"rank {rank}: {part} done at {time.monotonic() - START:.1f} s",
+          file=sys.stderr, flush=True)
+
+
+done("imports")
 got = mesh.init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu",
                             timeout=datetime.timedelta(seconds=60))
 assert got == (rank, world) == (mesh.process_index(), mesh.process_count())
+done("init_distributed")
 group = dist.group.WORLD
 inp = dict(np.load(root / "inputs.npz"))
 spec = json.loads((root / "spec.json").read_text())
 # the JAX package's init of TINY_YAML (numpy trees)
 init = pickle.loads((root / "init.pkl").read_bytes())
-out = {}
+out = {"threads": np.array(torch.get_num_threads())}
 
 
 def mine(a):
@@ -151,6 +169,11 @@ for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
     out[f"{tag}_dx"] = y.grad.float().numpy()
     out[f"{tag}_running"] = np.stack([bn.running_mean.numpy(),
                                       bn.running_var.numpy()])
+done("1. moments")
+if only_moments:
+    np.savez(root / f"rank{rank}.npz", **out)
+    dist.destroy_process_group()
+    sys.exit()
 
 # 2. the loss's scale: the gradient of shared parameters averaged over the
 # processes, and of this process's predictions
@@ -181,6 +204,7 @@ for kind in ("single", "dual"):
     out[f"{kind}_items"] = items.numpy()
     for i, leaf in enumerate(leaves):
         out[f"{kind}_feat_grad{i}"] = leaf.grad.numpy()
+done("2. loss")
 
 
 class Sharded(list):
@@ -211,6 +235,7 @@ trainer = Trainer(YOLO.from_yaml(tiny), config=cfg, device="cpu",
                   train_loader=sharded(batches, spec["batch"]), **init)
 trainer.train()
 state("ddp", trainer)
+done("3. ddp epoch")
 
 # refusals: a global batch the processes cannot split, an unsharded loader
 refused = []
@@ -261,6 +286,7 @@ def recorded(x, t):
 trainer._inputs = recorded
 trainer.train()
 state("aug", trainer)
+done("4. aug epoch")
 
 # 5. remat="early": the blocks recomputed in the backward take the global
 # batch's BN moments too (the group is captured at the forward)
@@ -270,6 +296,7 @@ trainer = Trainer(YOLO.from_yaml(tiny), config=cfg, device="cpu",
                   train_loader=sharded(batches, spec["batch"]), **init)
 trainer.train()
 state("remat", trainer)
+done("5. remat epoch")
 
 np.savez(root / f"rank{rank}.npz", **out)
 dist.destroy_process_group()
@@ -286,10 +313,14 @@ def _run_ranks(argvs: list[list[str]]) -> list[str]:
     """Start one process per argv (cwd the repo), wait for all within
     TIMEOUT_S, and return their stdouts. A timeout or a failure fails the
     test with every process's stderr tail; nothing is retried."""
-    # two threads a process, as torchrun limits them: the processes spin
-    # between their many small collectives otherwise
+    # one torch thread a process: a rank's tensors are small, and a
+    # second thread only adds a wait at every parallel op, between the
+    # step's ~300 small collectives. Alone that costs nothing, but on a
+    # loaded machine each wait stretches: beside busy processes the ddp
+    # launch took twice as long with two threads, and ran out of
+    # TIMEOUT_S where one thread passed
     path = [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]
-    env = {**os.environ, "OMP_NUM_THREADS": "2",
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join(path)}
     procs = [subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env)
@@ -373,17 +404,39 @@ def ddp(tmp_path_factory, tiny_yaml, init):
             "train": write_dataset(str(root / "data"), "train",
                                    BATCH * STEPS, seed=5)}
     (root / "spec.json").write_text(json.dumps(spec))
-    worker = root / "worker.py"
-    worker.write_text(WORKER)
+    (root / "worker.py").write_text(WORKER)
+    return root, inp, _launch(root), spec
+
+
+def _launch(root: Path, *mode: str) -> list[dict[str, np.ndarray]]:
+    """WORLD processes of root's worker.py on a fresh port; each rank's
+    results."""
     port = _free_port()
-    _run_ranks([[sys.executable, str(worker), str(r), str(WORLD), str(port),
-                 str(root)] for r in range(WORLD)])
-    ranks = [dict(np.load(root / f"rank{r}.npz")) for r in range(WORLD)]
-    return root, inp, ranks, spec
+    _run_ranks([[sys.executable, str(root / "worker.py"), str(r), str(WORLD),
+                 str(port), str(root), *mode] for r in range(WORLD)])
+    return [dict(np.load(root / f"rank{r}.npz")) for r in range(WORLD)]
 
 
 def _rows(a, r):
     return a[mesh.local_rows(len(a), r, WORLD)]
+
+
+def test_second_launch_equals_the_first(ddp, tmp_path):
+    """The launch again, as a test process that takes the module over
+    from a lost one makes it: in a fresh directory, on a fresh port, part
+    1 (the global BN moments) gives every rank the first launch's arrays
+    bit for bit, and both launches ran their ranks on one torch thread."""
+    root, _, ranks, _ = ddp
+    for name in ("worker.py", "inputs.npz", "spec.json", "init.pkl"):
+        shutil.copy(root / name, tmp_path / name)
+    again = _launch(tmp_path, "moments")
+    for first, second in zip(ranks, again):
+        assert int(first["threads"]) == int(second["threads"]) == 1
+        keys = sorted(set(second) - {"threads"})
+        # f32 and bf16: z, mean, var, dx, running stats
+        assert len(keys) == 10
+        for k in keys:
+            np.testing.assert_array_equal(second[k], first[k], err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -649,14 +702,7 @@ def test_data_parallel_remat_matches_one_process(ddp, tiny_yaml, init,
                       output_dir=str(tmp_path))
     one = Trainer(YOLO.from_yaml(tiny_yaml), config=cfg, device="cpu",
                   train_loader=_global_batches(inp), **init)
-    # two torch threads: the tier-1 run's six test processes would
-    # oversubscribe the cores with a thread per core each
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        one.train()
-    finally:
-        torch.set_num_threads(threads)
+    one.train()
     _assert_state_close(ranks, "remat", one)
     np.testing.assert_allclose(
         _metrics(root / "remat0" / "metrics.jsonl"),
