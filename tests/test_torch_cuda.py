@@ -353,6 +353,71 @@ def test_detector_cuda_matches_cpu(cuda, tmp_path):
     assert a["valid"].sum(1).min() >= 1
 
 
+def _device_us_by_span(prof, prefix: str) -> dict[str, float]:
+    """Device us of a trace by the innermost range named `prefix...`
+    open on the host when the op that launched the work started (its
+    linked correlation id); work launched outside every such range goes
+    to None."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.profiler.kineto_results.events())
+    cpu = [e for e in events if e.device_type() == DeviceType.CPU]
+    spans = sorted((e.start_ns(), e.end_ns(), e.name()) for e in cpu
+                   if e.name().startswith(prefix))
+    starts: dict[int, list[int]] = {}
+    for e in cpu:
+        if not e.linked_correlation_id():
+            starts.setdefault(e.correlation_id(), []).append(e.start_ns())
+    by: dict = {}
+    for e in events:
+        flag = getattr(e, "is_user_annotation", None)
+        if e.device_type() != DeviceType.CUDA or (flag and flag()):
+            continue
+        owners = [s for t in starts.get(e.linked_correlation_id(), ())
+                  for s in spans if s[0] <= t <= s[1]]
+        key = max(owners)[2] if owners else None
+        by[key] = by.get(key, 0.0) + (e.end_ns() - e.start_ns()) / 1e3
+    return by
+
+
+def test_spans_on_the_card(cuda, tmp_path):
+    """Under a profiler on the card, a Detector call's and a train
+    epoch's spans (utils/profiling.span) own the device work their ops
+    launch: each layer span of the request and of the step has device
+    time in the trace, and no serving work falls outside the request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = tmp_path / "tiny.yaml"
+    path.write_text(TINY_YAML)
+    det = Detector.from_checkpoint(YOLO.from_yaml(path), str(FIXTURE),
+                                   device=cuda, img_size=160,
+                                   compute_dtype="float32")
+    images = make_eval_batch(4, 160, 0)["images"]
+    batch = make_eval_batch(4, 96, 5)
+    tr = Trainer(YOLO.from_yaml(path), config=TrainConfig(
+        data_parallel=False, output_dir=str(tmp_path)),
+        train_loader=[batch, batch], device=cuda)
+    det(images)
+    tr.train_one_epoch(0)
+    torch.cuda.synchronize()
+    for work, prefix, owners in (
+            (lambda: det(images), "serve.",
+             ["serve.copy", "serve.letterbox", "serve.forward",
+              "serve.nms"]),
+            (lambda: tr.train_one_epoch(1), "train.",
+             ["train.next_batch", "train.input", "train.forward",
+              "train.loss", "train.backward", "train.clip", "train.update",
+              "train.ema"])):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            work()
+            torch.cuda.synchronize()
+        by = _device_us_by_span(prof, prefix)
+        assert all(by.get(k, 0.0) > 0 for k in owners), by
+        if prefix == "serve.":
+            assert set(by) == set(owners), by
+
+
 # ---------------------------------------------------------------------------
 # stage1 kernels (conv3, the bottleneck chain) and the Evaluator
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 kernels' plain versions) in one subprocess with jax and the JAX package
 blocked and no card visible: the per-layer rows are the JAX plan's steps
 in order and sum to the TOTAL, profile_train prints its six stages and
-the deltas (and, `--per-layer`, a row for each plan step), and
+the deltas (and, `--per-layer`, a forward row for each plan step), and
 visualize_augment writes the files scripts/visualize_augment.py writes,
 byte for byte. Without `--device cpu` and without a card the profilers
 exit with 2 and say why, and run nothing on the CPU.
@@ -135,11 +135,14 @@ def test_profile_train_per_layer_has_a_row_per_plan_step(runs):
     rows = _table(r["out"], 12)
     names = [s.name for s in JYOLO.from_yaml(runs["config"]).plan.steps]
     assert [n for n, _ in rows] == names + [TOTAL]
-    for _, fields in rows[:-1]:
-        f, b, fb = (float(v) for v in fields[1:4])
-        assert f >= 0 and abs(f + b - fb) <= 2e-3
-    assert "fwd stage" in rows[-1][1] or "fwd stage" in r["out"]
-    assert "fwd_bwd stage" in r["out"]
+    fwd = [float(fields[1]) for _, fields in rows[:-1]]
+    total = float(rows[-1][1][0])
+    # the rows hold the ops inside the layers' ranges, the TOTAL every op
+    # of the trace; printed to 3 decimals
+    assert total > 0 and all(f >= 0 for f in fwd)
+    assert sum(fwd) <= total + 1e-3 * len(fwd)
+    assert "fwd stage" in r["out"]
+    assert "f+b" not in r["out"] and "bwd ms" not in r["out"]
 
 
 def test_visualize_augment_matches_the_jax_script(runs, monkeypatch):

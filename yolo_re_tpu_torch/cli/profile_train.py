@@ -24,18 +24,11 @@ Stage costs are the deltas between consecutive rows (printed as the JAX
 script prints them); in eager PyTorch nothing fuses across a stage's
 boundary, so the deltas are each piece's own time.
 
-`--per-layer`: forward and backward by plan step, in train mode. A
-layer's forward ("fwd") is the device time of the kernels launched inside
-its range (forward hooks, as cli/profile_layers.py), from one trace of
-`--iters` train forwards. Its forward + backward ("f+b") is the
-difference of the times (CUDA events, as the stages) of two prefixes of
-the plan, steps[:k] and steps[:k - 1], each summing every step output
-into a surrogate and taking the gradients of the prefix's parameters (the
-JAX script's truncation; one trace per prefix would take seconds of the
-profiler's parsing each). Its backward ("bwd") is f+b less fwd, so it
-also holds the device's idle time in the layer's forward. The TOTAL row
-gives the forward's kernel time beside the `fwd` stage and the whole
-prefix's f+b beside the `fwd_bwd` stage.
+`--per-layer`: the forward by plan step, in train mode. A layer's
+forward ("fwd") is the device time of the kernels launched inside its
+range (forward hooks, as cli/profile_layers.py), from one trace of
+`--iters` train forwards; the TOTAL row gives the forward's kernel time
+beside the `fwd` stage.
 
 It runs on the card (`--device cuda`, the default; without a card it
 exits with 2 and says so) or, when asked, on the CPU (`--device cpu`:
@@ -47,18 +40,14 @@ the Trainer's step does.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import sys
 import tempfile
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from yolo_re_tpu_torch.cli.profile_layers import config_path
 from yolo_re_tpu_torch.data.synth import make_eval_batch
-from yolo_re_tpu_torch.models.builder import INPUT
-from yolo_re_tpu_torch.models.yolo import YOLO, remat_step
-from yolo_re_tpu_torch.ops.conv import recomputing
+from yolo_re_tpu_torch.models.yolo import YOLO
 from yolo_re_tpu_torch.serving import DTYPES
 from yolo_re_tpu_torch.train.config import TrainConfig
 from yolo_re_tpu_torch.train.trainer import Trainer
@@ -185,83 +174,34 @@ def print_deltas(times: dict[str, float], batch: int) -> None:
           f"= {batch / times['full'] * 1e3:.1f} img/s")
 
 
-def run_prefix(model: YOLO, x: torch.Tensor, k: int, remat) -> torch.Tensor:
-    """The train forward of the plan's first k steps, as YOLO.forward runs
-    them (remat included), summing every step's output into the returned
-    f32 surrogate, so that every step's work is read."""
-    outputs = {INPUT: x}
-    acc = torch.zeros((), dtype=torch.float32, device=x.device)
-    for step in model.plan.steps[:k]:
-        if len(step.inputs) == 1 and step.type != "CBFuse":
-            inp = outputs[step.inputs[0]]
-        else:
-            inp = [outputs[n] for n in step.inputs]
-        if step.name == model.plan.detect_name and not isinstance(inp, list):
-            inp = [inp]
-        layer = model.layers[step.name]
-        if remat and remat_step(step, remat):
-            out = checkpoint(layer, inp, use_reentrant=False,
-                             preserve_rng_state=False,
-                             context_fn=lambda: (contextlib.nullcontext(),
-                                                 recomputing()))
-        else:
-            out = layer(inp)
-        outputs[step.name] = out
-        acc = acc + surrogate(out)
-    return acc
-
-
 @full_f32()
 def per_layer(stages: Stages, iters: int) -> dict:
-    """Per-layer forward (hook ranges, kernel time) and forward +
-    backward (prefix truncation, CUDA events) of the train step (module
-    docstring).
-    Returns {"rows": [(layer, type, fwd ms, bwd ms, f+b ms)] in plan
-    order, "fwd_ms", "fwd_bwd_ms": the tables' totals, and the `fwd` and
-    `fwd_bwd` stage times}."""
-    tr = stages.tr
-    model, device = tr.model, stages.x.device
+    """Per-layer forward (hook ranges, kernel time) of the train step
+    (module docstring). Returns {"rows": [(layer, type, fwd ms)] in plan
+    order, "fwd_ms": the sum of the trace's forward time, and the `fwd`
+    stage's time}."""
+    model, device = stages.tr.model, stages.x.device
     steps = model.plan.steps
-    times = stage_times(stages, iters, ("fwd", "fwd_bwd"))
+    times = stage_times(stages, iters, ("fwd",))
     stages.fwd()
     with layer_ranges(model, [s.name for s in steps]):
         prof = traced(lambda: [stages.fwd() for _ in range(iters)], device)
     by, fwd_total = time_by_layer(prof, device)
-    x = stages.inputs()
-    rows, prev = [], 0.0
-    for k, step in enumerate(steps, 1):
-        names = {s.name for s in steps[:k]}
-        params = [p for n, p in tr.params.items()
-                  if n.split(".")[1] in names]
-
-        def fb(x, k=k, params=params):
-            torch.autograd.grad(run_prefix(model, x, k, tr._remat), params,
-                                allow_unused=True)
-
-        fb_ms = device_timer(fb, x, iters=iters) * 1e3
-        f = by.get(step.name, 0.0) / iters / 1e3
-        rows.append((step.name, step.type, f, fb_ms - prev - f,
-                     fb_ms - prev))
-        prev = fb_ms
+    rows = [(s.name, s.type, by.get(s.name, 0.0) / iters / 1e3)
+            for s in steps]
     return {"rows": rows, "fwd_ms": fwd_total / iters / 1e3,
-            "fwd_bwd_ms": prev, "stage_fwd_ms": times["fwd"],
-            "stage_fwd_bwd_ms": times["fwd_bwd"], "device": device}
+            "stage_fwd_ms": times["fwd"], "device": device}
 
 
 def print_per_layer(res: dict, batch: int) -> None:
-    total = res["fwd_bwd_ms"]
+    total = res["fwd_ms"]
     what = "kernel" if res["device"].type == "cuda" else "CPU op"
-    print(f"\n{'layer':<12} {'type':<16} {'fwd ms':>8} {'bwd ms':>8} "
-          f"{'f+b ms':>8}   % of total")
-    for name, type_, f, b, fb in res["rows"]:
-        print(f"{name:<12} {type_:<16} {f:8.3f} {b:8.3f} {fb:8.3f}   "
-              f"{100 * fb / total:5.1f}%")
-    print(f"{'TOTAL':<12} {'':<16} {res['fwd_ms']:8.3f} "
-          f"{total - res['fwd_ms']:8.3f} {total:8.3f}   (fwd: {what} time "
-          f"beside the fwd stage's {res['stage_fwd_ms']:.3f} ms; f+b: the "
-          f"whole plan beside the fwd_bwd stage's "
-          f"{res['stage_fwd_bwd_ms']:.3f} ms; surrogate loss, batch "
-          f"{batch})")
+    print(f"\n{'layer':<12} {'type':<16} {'fwd ms':>8}   % of total")
+    for name, type_, f in res["rows"]:
+        print(f"{name:<12} {type_:<16} {f:8.3f}   {100 * f / total:5.1f}%")
+    print(f"{'TOTAL':<12} {'':<16} {total:8.3f}   (fwd: {what} time beside "
+          f"the fwd stage's {res['stage_fwd_ms']:.3f} ms; surrogate loss, "
+          f"batch {batch})")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -275,7 +215,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--gt", type=int, default=8,
                     help="padded GT boxes per image")
     ap.add_argument("--per-layer", action="store_true",
-                    help="per-layer forward and backward attribution")
+                    help="per-layer forward attribution")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu; no fallback")
     args = ap.parse_args(argv)

@@ -19,6 +19,12 @@ CPU. `Detector(mesh=)` serves over a
 padded to a multiple of the mesh's size, split, run, and the outputs
 gathered on the first device with the padding sliced off
 (yolo_re_tpu/serving.py:128-149).
+
+While a `torch.profiler` collects, a call opens its spans
+(`utils/profiling.span`): `serve.request` holds `serve.copy` (the frames'
+`.to(device)`) and `ServingProgram.forward`'s `serve.letterbox`,
+`serve.forward` and `serve.nms` (a loaded archive's call:
+`serve.program`). On a mesh the replicas' threads open none.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from yolo_re_tpu_torch.parallel.mesh import (
     run_replicas,
 )
 from yolo_re_tpu_torch.utils.precision import full_f32
+from yolo_re_tpu_torch.utils.profiling import span
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -79,13 +86,16 @@ class ServingProgram(nn.Module):
         self.max_det = max_det
 
     def forward(self, frames: torch.Tensor) -> dict[str, torch.Tensor]:
-        x = batched_letterbox(frames, self.img_size, dtype=self.dtype)
+        with span("serve.letterbox"):
+            x = batched_letterbox(frames, self.img_size, dtype=self.dtype)
         # a dual head: its main branch alone, as the JAX Detector keeps
         # only decoded["main"] (yolo_re_tpu/serving.py:116-117)
-        decoded, _ = self.model(x.permute(0, 3, 1, 2), main_only=True)
-        return non_max_suppression(
-            decoded, conf_thres=self.conf_thres, iou_thres=self.iou_thres,
-            max_det=self.max_det)
+        with span("serve.forward"):
+            decoded, _ = self.model(x.permute(0, 3, 1, 2), main_only=True)
+        with span("serve.nms"):
+            return non_max_suppression(
+                decoded, conf_thres=self.conf_thres,
+                iou_thres=self.iou_thres, max_det=self.max_det)
 
 
 class Detector:
@@ -163,10 +173,17 @@ class Detector:
         the current device's stream); the outputs come back on the first
         device, padding sliced off."""
         frames = torch.as_tensor(images_u8)
-        if self.mesh is None:
-            return self.program(frames.to(self.device))
-        return run_replicas(lambda program, part, dev: program(part.to(dev)),
-                            self.programs, self.mesh, frames)
+        with span("serve.request"):
+            if self.mesh is None:
+                with span("serve.copy"):
+                    frames = frames.to(self.device)
+                return self.program(frames)
+
+            def run(program, part, dev):
+                with span("serve.copy"):
+                    part = part.to(dev)
+                return program(part)
+            return run_replicas(run, self.programs, self.mesh, frames)
 
     def export(self, path: str, batch: int, *, height: int | None = None,
                width: int | None = None,
@@ -281,5 +298,8 @@ class ExportedDetector:
                 f"the archive takes {self.dtype} frames of shape "
                 f"{self.shape}, got {frames.dtype} {tuple(frames.shape)}")
         # contiguous, as the example the program was traced on
-        with torch.no_grad(), full_f32():
-            return self.module(frames.to(self.device).contiguous())
+        with torch.no_grad(), full_f32(), span("serve.request"):
+            with span("serve.copy"):
+                frames = frames.to(self.device).contiguous()
+            with span("serve.program"):
+                return self.module(frames)

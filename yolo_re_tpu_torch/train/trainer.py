@@ -43,6 +43,14 @@ batch on every process; "full" all-gathers the global batch's images and
 targets for mosaic and mixup partners and computes the process's own
 rows. Process 0 alone validates (its own EMA weights, no mesh) and
 writes checkpoints, metrics and debug images.
+
+While a `torch.profiler` collects, steps and epochs open spans
+(`utils/profiling.span`): `train.step` holds `train.input` (the wait on
+the batch's copy, the cast, augmentation), `train.forward`, `train.loss`,
+`train.backward`, `train.allreduce` (data parallel), `train.clip`,
+`train.update` and `train.ema`; an epoch adds `train.next_batch` (the
+loader's next batch and the put of the batch ahead), `train.log` (the
+values a log line reads) and `train.epoch_end` (the epoch's mean items).
 """
 
 from __future__ import annotations
@@ -94,6 +102,7 @@ from yolo_re_tpu_torch.train.optimizer import (
 )
 from yolo_re_tpu_torch.train.schedule import WarmupCosineSchedule
 from yolo_re_tpu_torch.utils.precision import full_f32
+from yolo_re_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -397,22 +406,35 @@ class Trainer:
         `global_batch` and the gradients are averaged over the processes
         before the clip."""
         cfg = self.config
-        if ready is not None:
-            torch.cuda.current_stream(self.device).wait_event(ready)
-        x, t = self._inputs(x, t) if augment else (self._normalized(x), t)
-        x = x.contiguous().permute(0, 3, 1, 2)
-        with global_batch(self._group):
-            total, items = self.loss_fn(self.model(x, remat=self._remat), t)
-        names = list(self.params)
-        grads = torch.autograd.grad(total, [self.params[k] for k in names])
-        if self._group is not None:
-            grads = self._mean_over_processes(grads)
-        grads, gnorm = clip_by_global_norm(dict(zip(names, grads)),
-                                           cfg.grad_clip_norm)
-        self._update(grads)
-        ema_update(self.ema, self.params, self.stats, decay=cfg.ema_decay,
-                   tau=cfg.ema_tau)
-        self.global_step += 1
+        with span("train.step"):
+            with span("train.input"):
+                if ready is not None:
+                    torch.cuda.current_stream(self.device).wait_event(ready)
+                x, t = self._inputs(x, t) if augment \
+                    else (self._normalized(x), t)
+                x = x.contiguous().permute(0, 3, 1, 2)
+            with global_batch(self._group):
+                with span("train.forward"):
+                    preds = self.model(x, remat=self._remat)
+                with span("train.loss"):
+                    total, items = self.loss_fn(preds, t)
+            del preds
+            names = list(self.params)
+            with span("train.backward"):
+                grads = torch.autograd.grad(
+                    total, [self.params[k] for k in names])
+            if self._group is not None:
+                with span("train.allreduce"):
+                    grads = self._mean_over_processes(grads)
+            with span("train.clip"):
+                grads, gnorm = clip_by_global_norm(dict(zip(names, grads)),
+                                                   cfg.grad_clip_norm)
+            with span("train.update"):
+                self._update(grads)
+            with span("train.ema"):
+                ema_update(self.ema, self.params, self.stats,
+                           decay=cfg.ema_decay, tau=cfg.ema_tau)
+            self.global_step += 1
         return total.detach(), items, gnorm
 
     @torch.no_grad()
@@ -474,9 +496,15 @@ class Trainer:
         """The train loader's batches as (images, targets, ready event,
         host batch) on the device, one batch ahead: batch n + 1 is put
         before batch n is yielded (yolo_re_tpu/train/trainer.py:353-362)."""
-        pending = None
-        for batch in self.train_loader:
-            cur = (*self._put_batch(batch["images"], batch["targets"]), batch)
+        pending, batches = None, iter(self.train_loader)
+        while True:
+            with span("train.next_batch"):
+                batch = next(batches, None)
+                cur = None if batch is None else (
+                    *self._put_batch(batch["images"], batch["targets"]),
+                    batch)
+            if cur is None:
+                break
             if pending is not None:
                 yield pending
             pending = cur
@@ -496,12 +524,14 @@ class Trainer:
             n_batches += 1
             n_images += len(batch["images"]) * self.world
             if n_batches % cfg.log_interval == 0 or n_batches == 1:
-                box, cls_, dfl = items.tolist()
+                with span("train.log"):
+                    box, cls_, dfl = items.tolist()
                 log.info("epoch %d step %d | box %.4f cls %.4f dfl %.4f | "
                          "%.1f img/s", epoch, self.global_step, box, cls_,
                          dfl, n_images / (time.perf_counter() - t0))
-        mean_items = (np.zeros(3) if sum_items is None
-                      else sum_items.cpu().numpy() / n_batches)
+        with span("train.epoch_end"):
+            mean_items = (np.zeros(3) if sum_items is None
+                          else sum_items.cpu().numpy() / n_batches)
         dt = time.perf_counter() - t0
         log.info("epoch %d done in %.1fs (%.1f img/s) | box %.4f cls %.4f "
                  "dfl %.4f", epoch, dt, n_images / max(dt, 1e-9), *mean_items)

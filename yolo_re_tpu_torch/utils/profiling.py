@@ -15,7 +15,14 @@ yolo_re_tpu/utils/profiling.py).
   layer (cli/profile_layers.py, cli/profile_train.py). Forward hooks open
   a `torch.profiler` range around each layer's call; a trace's device
   work goes to the range around the op that launched it (on the CPU, each
-  op's own CPU time to the range around the op).
+  op's own CPU time to the range around the op);
+- `span`: the program's own ranges, at the layer boundaries of a
+  serving call (`serving.py`: `serve.*`) and of a train step and epoch
+  (`train/trainer.py`: `train.*`). They open only while a
+  `torch.profiler` is collecting, and cost one flag check otherwise. To
+  turn them on, run the work inside `trace(logdir)` (or any
+  `torch.profiler.profile`): each span is then a named range of the
+  Chrome trace, and the device work launched inside it is linked to it.
 """
 
 from __future__ import annotations
@@ -250,3 +257,22 @@ def time_by_layer(prof, device: torch.device, kernel: str | None = None
         key = owner(e)
         by[key] = by.get(key, 0.0) + e.self_cpu_time_total
     return by, sum(by.values())
+
+
+# -- the program's spans ---------------------------------------------------
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that opens the `torch.profiler` range `name`
+    around the block while a profiler collects on this thread (the thread
+    that started it, and the threads PyTorch starts from it) and no
+    `torch.export` or `torch.compile` traces (a graph holds no profiler
+    op); otherwise the shared null context, after one flag check. The
+    range is a host event of the trace: the device work its ops launch is
+    linked to them by correlation id, as with `layer_ranges`."""
+    if not _profiler_enabled() or torch.compiler.is_compiling():
+        return _OFF
+    return torch.profiler.record_function(name)
