@@ -51,7 +51,16 @@ non-zero (no phase is caught):
    beside its bound): outputs and dx within `tolerance`, weight gradients
    within a relative L2 of 1e-5 (f32) / 2e-2 (bf16), the raw stem, the
    stem weight gradient and the ADown backward equal across two calls,
-   and times;
+   and times; (b) the train BN + activation kernels (bn_silu.cu: the
+   reduction and the pointwise pass, forward and backward) against their
+   plain versions at every site shape of gelan-c's and yolov9-c's train
+   forward, f32 and bf16, within tests/test_torch_cuda.py's tolerances
+   and equal across two calls, then timed at yolov9-c's sites, summed
+   over a step's, beside the plain versions, the eager chain, the
+   library's F.batch_norm + F.silu and the bytes bound. Every counted
+   train run below (phases 7, 8, 10, 11, 13, 16) holds the train BN +
+   activation counters: no eager site, each BN site through the kernels
+   (2 forward launches a site in bf16, 3 in f32, 2 backward);
 7. TINY_YAML, f32: 12 Trainer steps on cuda (kernels) and on the CPU
    (plain versions) from the same init; the loss curves must track within
    the bounds of scripts/validate_loss_curve.py (2% relative for the first
@@ -140,7 +149,9 @@ non-zero (no phase is caught):
    warm-up and DDP_STEPS counted Trainer steps on synthetic batches in a
    subprocess (`chip_smoke.py ddp-worker`) that joined a one-process NCCL
    group on a free localhost port (init_distributed): twice with the plain
-   Trainer (the first run saves its state before each step), then with
+   Trainer (the first run saves its state before each step; both through
+   the train BN's eager chain, which the DDP step runs inside
+   `global_batch`), then with
    Trainer(data_parallel=True), whose step runs the collectives (global
    BN moments, the loss's global scale, the flat gradient all-reduce). The second plain run and the DDP run then take
    each step again from the first run's state before it (the f32 free
@@ -150,7 +161,8 @@ non-zero (no phase is caught):
    within the second plain run's spread (or DDP_FLOOR, tests/
    test_parallel.py's tolerances, where that spread is smaller); the
    train kernels' launches to one stem pair and five ADown pairs a step;
-   ms/step of both printed; (b) phase 5's bf16
+   ms/step of both printed, and the gap of a plain run through the train
+   BN kernels to the first run; (b) phase 5's bf16
    gelan-c request (32 frames 720x1280) through Detector(mesh=Mesh((cuda:0,
    cuda:0))) (two replicas, each packed buffer on the card) beside the
    single Detector: f32 detections on 32 and 29 frames (padded to 30)
@@ -284,7 +296,11 @@ from yolo_re_tpu_torch.cli import (
 )
 from yolo_re_tpu_torch.cli import train as train_cli
 from yolo_re_tpu_torch.cli import val as val_cli
-from yolo_re_tpu_torch.cli.profile_launches import random_model
+from yolo_re_tpu_torch.cli.profile_launches import (
+    bn_shape_ms,
+    bn_sites,
+    random_model,
+)
 from yolo_re_tpu_torch.convert import load_weights, state_dict_from_jax
 from yolo_re_tpu_torch.data import device_pipeline
 from yolo_re_tpu_torch.data.config import AugmentConfig, DataConfig
@@ -302,6 +318,7 @@ from yolo_re_tpu_torch.ops import conv as conv_ops
 from yolo_re_tpu_torch.ops.boxes import dfl_decode, dist2bbox, make_anchors_np
 from yolo_re_tpu_torch.ops.kernels import (
     adown,
+    bn_silu,
     build,
     conv3,
     csp_chain,
@@ -873,9 +890,144 @@ def phase_train_kernels(dev) -> dict:
     return res
 
 
+def bn_case(dev, key: tuple, dtype: torch.dtype, gen) -> tuple:
+    """One train BN site of shape `key` (C, H, W, modules, act) at BATCH:
+    y ~ 1.5 N(0, 1) + 0.3 and g ~ N(0, 1) in dtype, channels_last; weight
+    ~ U(0.5, 1.5), bias ~ 0.3 N(0, 1); a maker of the running statistics
+    of the site's modules (0 and 1, as a fresh BN module's)."""
+    c, h, w, modules, _ = key
+
+    def rand(scale=1.0):
+        return (torch.randn(BATCH, c, h, w, generator=gen, device=dev)
+                * scale).to(dtype).contiguous(memory_format=torch.channels_last)
+
+    y, g = rand(1.5).add_(0.3), rand()
+    wt = torch.rand(c, generator=gen, device=dev) + 0.5
+    bs = torch.randn(c, generator=gen, device=dev) * 0.3
+
+    def running():
+        k = c // modules
+        return [(torch.zeros(k, device=dev), torch.ones(k, device=dev),
+                 torch.zeros((), dtype=torch.int64, device=dev))
+                for _ in range(modules)]
+    return y, g, wt, bs, running
+
+
+def bn_site_check(dev, key: tuple, dtype: torch.dtype, gen) -> dict:
+    """bn_silu.forward and .backward at one site against their plain
+    versions, with tests/test_torch_cuda.py's tolerances
+    (test_bn_act_kernels_match_plain): the statistics and the running
+    statistics within 1e-5 relative (f32 sums in another order), the
+    clamp mask and num_batches_tracked equal; z equal to the plain pass
+    on the kernel's statistics (the same ops at the same rounding
+    points); dweight and dbias each channel within 1e-5 of its sum of
+    |terms| (sum order); dx within 1e-5 relative in f32 and one bf16 ulp
+    in bf16 (each side rounds once an f32 value computed in another op
+    order), and 2^-10 of the largest |dx| near 0 (f32 cancellation); two
+    calls equal (no float atomics). Returns the largest relative error
+    of the statistics and the largest |dx - plain dx|."""
+    y, g, wt, bs, running = bn_case(dev, key, dtype, gen)
+    act = key[-1]
+    eps, mom = conv_ops.BN_EPS, conv_ops.BN_MOMENTUM
+    run, ref_run = running(), running()
+    z, stats = bn_silu.forward(y, wt, bs, act, run, True, eps, mom)
+    ref = bn_silu.moments_plain(y, wt, bs, ref_run, True, eps, mom)
+    torch.testing.assert_close(stats[:4], ref[:4], rtol=1e-5, atol=1e-5)
+    for (rm, rv, nbt), (pm, pv, pn) in zip(run, ref_run):
+        torch.testing.assert_close(rm, pm, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(rv, pv, rtol=1e-5, atol=1e-6)
+        if not int(nbt) == int(pn) == 1:
+            raise AssertionError(f"bn {key}: num_batches_tracked {nbt}")
+    if not torch.equal(stats[4], ref[4]) or not torch.equal(
+            z, bn_silu.affine_act_plain(y, stats, act)):
+        raise AssertionError(f"bn {key} {dtype}: z or the clamp mask "
+                             f"differs from the plain pass")
+    dx, dw, db = bn_silu.backward(g, y, ref, act)
+    sums = bn_silu.grad_sums_plain(g, y, ref, act)
+    ga, xhat = bn_silu._grad_terms(g, y, ref, act)
+    for name, got, want, terms in (("dbias", db, sums[bn_silu.DBIAS], ga),
+                                   ("dweight", dw, sums[bn_silu.DWEIGHT],
+                                    ga * xhat)):
+        if not bool(((got - want).abs()
+                     <= 1e-5 * terms.abs().sum(dim=(0, 2, 3))).all()):
+            raise AssertionError(f"bn {key} {dtype}: {name} off its sum")
+    del ga, xhat
+    ref_dx = bn_silu.grad_input_plain(g, y, ref, sums, act).float()
+    torch.testing.assert_close(
+        dx.float(), ref_dx, atol=2.0 ** -10 * float(ref_dx.abs().max()),
+        rtol=1e-5 if dtype == torch.float32 else 2.0 ** -7)
+    again = (*bn_silu.forward(y, wt, bs, act, run, False, eps, mom),
+             *bn_silu.backward(g, y, ref, act))
+    if not all(torch.equal(a, b) for a, b in zip(
+            (z, stats, dx, dw, db), again)) or int(run[0][2]) != 1:
+        raise AssertionError(f"bn {key} {dtype}: two calls differ, or "
+                             f"update=False moved the running statistics")
+    rel = float(((stats[:4] - ref[:4]).abs()
+                 / ref[:4].abs().clamp(min=1e-5)).max())
+    return {"stats_rel": rel,
+            "dx_err": float((dx.float() - ref_dx).abs().max())}
+
+
+def phase_bn_kernels(dev) -> dict:
+    """Phase 6 (b): the train BN + activation kernels (bn_silu.cu's
+    reduction and pointwise pass, each run for the forward's job and the
+    backward's) against their plain versions (`bn_site_check`) at every
+    site shape of gelan-c's and yolov9-c's train forward (640 px, batch
+    32), in f32 and bf16; then each kernel's device time at yolov9-c's
+    sites, summed over a step's sites (`profile_launches.bn_shape_ms`:
+    forward + backward, beside the plain versions', the eager chain's,
+    the library's F.batch_norm + F.silu and the bytes bound). Returns
+    {"bn_reduce", "bn_pointwise": {tag: numbers}, "sites": per model};
+    these launches are outside the counted runs."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    shapes: dict = {}
+    for model in ("gelan-c", "yolov9-c"):
+        for key, n in bn_sites(torch.bfloat16, model).items():
+            shapes.setdefault(key, {})[model] = n
+    sites = {m: sum(v.get(m, 0) for v in shapes.values())
+             for m in ("gelan-c", "yolov9-c")}
+    print(f"  train BN + activation sites a forward: {sites}, "
+          f"{len(shapes)} shapes (C, H, W, modules, act)")
+    res: dict = {"bn_reduce": {}, "bn_pointwise": {}, "sites": sites}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        err = {"stats_rel": 0.0, "dx_err": 0.0}
+        for key in sorted(shapes):
+            e = bn_site_check(dev, key, dtype, gen)
+            err = {k: max(v, e[k]) for k, v in err.items()}
+        print(f"  bn {tag}: {len(shapes)} shapes within tolerance, two "
+              f"calls equal; largest statistics error {err['stats_rel']:.3e}"
+              f" relative, |dx - plain| {err['dx_err']:.3e}")
+        torch.cuda.empty_cache()
+        total: dict = {}
+        for key, models in sorted(shapes.items()):
+            if "yolov9-c" not in models:
+                continue
+            for k, v in bn_shape_ms(*key, dtype).items():
+                acc = total.setdefault(k, [0.0] * 4)
+                for i, x in enumerate(v):
+                    acc[i] += models["yolov9-c"] * x
+        for k, (f, b, nf, nb) in total.items():
+            print(f"  bn {tag} yolov9-c step, {k:16s} {f:.4f} + {b:.4f} = "
+                  f"{f + b:.4f} ms ({nf:.0f} + {nb:.0f} launches)")
+        step = {k: v[0] + v[1] for k, v in total.items()}
+        for name, part, e in (("bn_reduce", "reduction", err["stats_rel"]),
+                              ("bn_pointwise", "pointwise", err["dx_err"])):
+            res[name][tag] = {
+                "err": e, "ms": step[part], "plain_ms": step[f"plain {part}"],
+                "library_ms": None, "bound_ms": step[f"bound {part}"],
+                "bound_by": "bytes", "ops_rate": rate(tag),
+                "both": {k: step[k] for k in ("kernels", "eager", "library",
+                                               "bound")}}
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_tiny_train(dev, tmp: Path) -> None:
     """12 f32 TINY_YAML Trainer steps on cuda and on the CPU, same init
-    (seed 0) and batches; bounds of scripts/validate_loss_curve.py."""
+    (seed 0) and batches; bounds of scripts/validate_loss_curve.py. The
+    cuda trainer's train BN + activation sites all take the kernels
+    (`check_bn_counts`); the CPU's run the eager chain."""
     path = tmp / "tiny.yaml"
     path.write_text(TINY_YAML)
     batches = [make_eval_batch(2, 96, 11 + i) for i in range(3)]
@@ -886,8 +1038,15 @@ def phase_tiny_train(dev, tmp: Path) -> None:
                           output_dir=str(tmp / d.type))
         tr = Trainer(YOLO.from_yaml(path), config=cfg, train_loader=loader,
                      device=d)
+        reset_bn_counts()
         curves.append([float(tr.train_step(b["images"], b["targets"])[0])
                        for b in loader])
+        if d.type == "cuda":
+            bn = bn_counts()
+            print(f"  cuda: train BN + activation {bn} over {len(loader)} "
+                  f"steps")
+            check_bn_counts("tiny train", bn, bn_calls(tr.model, tr.model.plan.steps),
+                            len(loader), cfg.compute_dtype)
     ok = True
     for s, (a, b) in enumerate(zip(*curves)):
         rel = abs(a - b) / max(abs(b), 1e-9)
@@ -1043,23 +1202,31 @@ def counted_epoch(trainer: Trainer, name: str, steps: int, batch: int,
                   pairs: dict) -> tuple[np.ndarray, dict, dict]:
     """One Trainer.train_one_epoch of `steps` steps, the train kernels'
     launch counters set to 0 just before and read just after, held to
-    `pairs` (stem and ADown kernel pairs) a step, with finite mean loss
+    `pairs` (stem and ADown kernel pairs) a step, and the train BN +
+    activation counters to `check_bn_counts` (its launches by kernel
+    added to the counts), with finite mean loss
     items. Returns (items, counts, {ms_per_step, images_per_s, peak_gib})
     and prints them (the host clock over the epoch; the peak since the
     caller's reset)."""
     reset_train_counts()
+    reset_bn_counts()
     t0 = time.perf_counter()
     items = trainer.train_one_epoch(0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = train_counts()
-    print(f"  launches {counts} over {steps} steps")
+    bn = bn_counts()
+    print(f"  launches {counts} over {steps} steps; train BN + activation "
+          f"{bn} ({bn_calls(trainer.model, trainer.model.plan.steps)} sites a forward)")
     want = {"stem_raw": pairs["stem"] * steps,
             "stem_wgrad": pairs["stem"] * steps,
             "adown_raw": pairs["adown"] * steps,
             "adown_bwd": pairs["adown"] * steps}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+    counts |= check_bn_counts(name, bn, bn_calls(trainer.model, trainer.model.plan.steps), steps,
+                              trainer.config.compute_dtype,
+                              trainer.config.remat)
     if not np.isfinite(items).all():
         raise AssertionError(f"{name} train: loss items {items}")
     perf = {"ms_per_step": dt / steps * 1e3,
@@ -1114,6 +1281,56 @@ def reset_train_counts() -> None:
 def reset_counts() -> None:
     stem.launches = adown.launches = nms.launches = 0
     csp_chain.launches = conv3.launches = 0
+
+
+def bn_counts() -> dict:
+    """The train BN + activation counters: the sites that took the kernels
+    (ops/conv.py: BatchNormAct) and those that ran the eager chain, and the
+    kernels' launches forward and backward (ops/kernels/bn_silu.py)."""
+    return {"fused_sites": conv_ops.fused_sites,
+            "eager_sites": conv_ops.eager_sites,
+            "forward": bn_silu.launches, "backward": bn_silu.bwd_launches}
+
+
+def reset_bn_counts() -> None:
+    conv_ops.fused_sites = conv_ops.eager_sites = 0
+    bn_silu.launches = bn_silu.bwd_launches = 0
+
+
+@contextlib.contextmanager
+def eager_bn():
+    """Train BN + activation through the eager chain on the card too
+    (ops/conv.py's `takes_kernels` answering no), as the data-parallel
+    step runs it inside `global_batch`."""
+    real = conv_ops.takes_kernels
+    conv_ops.takes_kernels = lambda *args: False
+    try:
+        yield
+    finally:
+        conv_ops.takes_kernels = real
+
+
+def check_bn_counts(name: str, bn: dict, sites: int, steps: int,
+                    dtype: str, remat=False) -> dict:
+    """Every train BN + activation site of `steps` steps took the kernels:
+    no eager site; each of the model's `sites` one forward a step (more
+    under remat, whose recomputed blocks run theirs again) and one
+    backward; 2 forward launches a forward site in bf16 (one-pass
+    moments, the pointwise pass), 3 in f32 (two-pass moments), 2 a
+    backward site. Returns the launches by kernel: the reduction's and
+    the pointwise pass's."""
+    per = 2 if dtype == "bfloat16" else 3
+    fused = bn["fused_sites"]
+    ok = (bn["eager_sites"] == 0 and bn["forward"] == per * fused
+          and bn["backward"] == 2 * sites * steps
+          and (fused >= sites * steps if remat else fused == sites * steps))
+    if not ok:
+        raise AssertionError(
+            f"{name}: train BN + activation counters {bn}, expected no "
+            f"eager site, {sites} sites x {steps} steps through the kernels "
+            f"({per} forward launches a site, 2 backward)")
+    return {"bn_reduce": bn["forward"] - fused + bn["backward"] // 2,
+            "bn_pointwise": fused + bn["backward"] // 2}
 
 
 def kernel_sites(fused: YOLO, steps=None, expect: dict | None = None
@@ -1819,9 +2036,15 @@ def ddp_worker(tmp: Path, port: int) -> int:
     joined a one-process NCCL group. Per dtype a recording plain run (A),
     a second plain run (B) and the data-parallel run (DDP), one after the
     other in this process; B and DDP each step again from A's state
-    before it. DDP's loss items and final state are held against A
+    before it. A and B run the train BN's eager chain (`eager_bn`), the
+    one the data-parallel step runs inside `global_batch` until the
+    kernels' global form: the check holds the data-parallel step's
+    machinery to the single process at the same BN arithmetic. DDP's loss
+    items and final state are held against A
     within B's spread (or DDP_FLOOR), every run's launches to a stem pair
-    and five ADown pairs a step. Then phase 16 (e): the data-parallel run
+    and five ADown pairs a step; a fourth run, the plain Trainer through
+    the train BN kernels from A's states, prints its gap to A (the
+    kernels' rounding against the eager chain's). Then phase 16 (e): the data-parallel run
     in bf16 with remat "early", held so against bf16's A, its launches
     to (a)'s "early" ones, and its BN all-reduces to one a BN call of the
     forward and one of each recomputed block's (the recompute's moments
@@ -1843,9 +2066,17 @@ def ddp_worker(tmp: Path, port: int) -> int:
     try:
         launches, ref = {}, {}
         for dtype in DDP_DTYPES:
-            a = ddp_run(tmp, dtype, False, record=True)
-            b = ddp_run(tmp, dtype, False)
+            with eager_bn():
+                a = ddp_run(tmp, dtype, False, record=True)
+                b = ddp_run(tmp, dtype, False)
             d = ddp_run(tmp, dtype, True)
+            k = ddp_run(tmp, dtype, False)
+            print(f"  (a) gelan-c {dtype}: the plain Trainer through the "
+                  f"train BN kernels against its eager chain, each step "
+                  f"from one state: items "
+                  f"{rel_items(k['one_state_items'], a['items']):.3e}, "
+                  f"excess of the final state "
+                  f"{excess(k['state'], a['state']):.3e}", flush=True)
             spread = {"items": rel_items(b["one_state_items"], a["items"]),
                       "state": excess(b["state"], a["state"])}
             gap = {"items": rel_items(d["one_state_items"], a["items"]),
@@ -2088,15 +2319,17 @@ def remat_run(trainer: Trainer, batches: list, snap: dict, steps: int
               ) -> dict:
     """A warm-up step, then `steps` counted steps, every one from `snap`
     (the launch counters set to 0 just before the counted steps and read
-    just after; the peak memory over the counted steps). Returns the
-    items, ms/step (host clock around each step), the peak GiB, the
-    launches a step and the BN running statistics after the first
-    counted step."""
+    just after, the train BN + activation counters held to
+    `check_bn_counts`; the peak memory over the counted steps). Returns
+    the items, ms/step (host clock around each step), the peak GiB, the
+    launches a step (the train BN kernels' under "bn") and the BN running
+    statistics after the first counted step."""
     restore(trainer, snap)
     items_of(trainer, batches[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
+    reset_bn_counts()
     items, seconds, stats = [], 0.0, None
     for b in batches[1:steps + 1]:
         restore(trainer, snap)
@@ -2110,9 +2343,13 @@ def remat_run(trainer: Trainer, batches: list, snap: dict, steps: int
     total = train_counts()
     if any(v % steps for v in total.values()):
         raise AssertionError(f"remat launches {total} over {steps} steps")
+    bn = check_bn_counts(f"remat {trainer.config.remat}", bn_counts(),
+                         bn_calls(trainer.model, trainer.model.plan.steps), steps,
+                         trainer.config.compute_dtype, trainer.config.remat)
     return {"items": items, "ms": seconds / steps * 1e3,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "counts": {k: v // steps for k, v in total.items()},
+            "bn": {k: v // steps for k, v in bn.items()},
             "stats": stats}
 
 
@@ -2173,7 +2410,7 @@ def phase_remat(dev, tmp: Path) -> tuple[dict, Trainer, dict, dict]:
     for name in ("off", "off, again", *[k for k in REMAT_MODES if k != "off"]):
         key = "off" if name.startswith("off") else name
         check_remat(name, runs[name], off, bound, REMAT_PAIRS[key])
-        counts[key] = runs[name]["counts"]
+        counts[key] = runs[name]["counts"] | runs[name]["bn"]
 
     big = [make_eval_batch(REMAT_BIG_BATCH, SIZE, 60 + i) for i in range(2)]
     trainer = gelan_c_trainer(dev, tmp, big, remat="early")
@@ -2181,7 +2418,7 @@ def phase_remat(dev, tmp: Path) -> tuple[dict, Trainer, dict, dict]:
     print(f"  (a) batch {REMAT_BIG_BATCH}, remat 'early': {run['ms']:.1f} "
           f"ms/step, peak {run['peak_gib']:.2f} GiB, launches "
           f"{run['counts']}, items {[round(v, 5) for v in run['items'][0]]}")
-    if run["counts"] != counts["early"] or not np.isfinite(
+    if run["counts"] | run["bn"] != counts["early"] or not np.isfinite(
             run["items"]).all():
         raise AssertionError(f"remat batch {REMAT_BIG_BATCH}: {run}")
     del trainer
@@ -2722,6 +2959,11 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
                                for t in ("bf16", "f32")}),
         ("conv3_silu", "conv3.cu", "conv3_kernel.py:170", counts["conv3"],
          {t: res["conv3"][(STAGE1_HW, t)] for t in ("bf16", "f32")}),
+        # train BN + activation: replaces no TPU kernel (XLA's fusions)
+        ("bn_reduce", "bn_silu.cu", None, tcounts["bn_reduce"],
+         tres["bn_reduce"]),
+        ("bn_pointwise", "bn_silu.cu", None, tcounts["bn_pointwise"],
+         tres["bn_pointwise"]),
     )
 
     def numbers(r: dict) -> dict:
@@ -2729,13 +2971,15 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "ops_rate": r["ops_rate"],
                 "library_ms": r["library_ms"],
-                "bound_fraction": r["bound_ms"] / r["ms"]}
+                "bound_fraction": r["bound_ms"] / r["ms"],
+                **({"both": r["both"]} if "both" in r else {})}
 
     # phase 10's counters by kernel name (the train counters: train only)
     v9c_key = {"stem_conv": "stem", "adown": "adown", "nms_select": "nms",
                "bottleneck_chain": "csp_chain", "conv3_silu": "conv3",
                "stem_conv_raw": "stem_raw", "stem_wgrad": "stem_wgrad",
-               "adown_raw": "adown_raw", "adown_bwd": "adown_bwd"}
+               "adown_raw": "adown_raw", "adown_bwd": "adown_bwd",
+               "bn_reduce": "bn_reduce", "bn_pointwise": "bn_pointwise"}
 
     def v9c_launches(name: str) -> dict:
         key = v9c_key[name]
@@ -2748,7 +2992,8 @@ def kernels_line(res: dict, tres: dict, counts: dict, tcounts: dict,
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"yolo_re_tpu_torch/csrc/{src}",
-        "replaces": f"yolo_re_tpu/ops/pallas/{tpu}", "launches": launches,
+        "replaces": tpu and f"yolo_re_tpu/ops/pallas/{tpu}",
+        "launches": launches,
         "launches_yolov9_c": v9c_launches(name),
         "launches_device_augment": {
             tag: aug[tag].get(v9c_key[name], 0) for tag in aug},
@@ -2868,6 +3113,9 @@ def main() -> int:
 
     print("phase 6: train kernels against their plain versions")
     tres = phase_train_kernels(dev)
+    print("phase 6 (b): train BN + activation kernels against their plain "
+          "versions")
+    tres |= phase_bn_kernels(dev)
 
     with tempfile.TemporaryDirectory() as td:
         print("phase 7: TINY_YAML training, cuda against cpu")
@@ -2946,6 +3194,13 @@ def main() -> int:
           f"stem_conv's likewise, stem_wgrad's torch.nn.grad.conv2d_weight; "
           f"no PyTorch call computes ADown, its backward or greedy NMS: "
           f"null; adown_bwd's max_abs_err is dx's, stem_wgrad's dW's; "
+          f"bn_reduce and bn_pointwise (train BN + activation, each "
+          f"kernel's forward and backward job) summed over yolov9-c's "
+          f"{tres['sites']['yolov9-c']} sites a step, their max_abs_err "
+          f"the statistics' largest relative error and dx's, library_ms "
+          f"null (F.batch_norm + F.silu do both kernels' work: under "
+          f"'both' with the eager chain, both kernels and their bound), "
+          f"their launches phase 8's; "
           f"serving launches from phase 5's {REQUESTS} requests, train "
           f"launches from phase 8's counted steps; phase 9 eval launches "
           f"{ecounts}; launches_yolov9_c: phase 10's {REQUESTS} requests, "

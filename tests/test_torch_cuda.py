@@ -1636,3 +1636,234 @@ def test_profile_layers_puts_the_stem_kernel_in_stem1(cuda, tmp_path):
     assert total > 0 and set(by) == {"stem1"}
     assert abs(by["stem1"] - total) <= 1e-6 * total
     assert rows["stem1"] * 1e3 >= 0.5 * total
+
+
+# ---------------------------------------------------------------------------
+# train BN + activation (ops/kernels/bn_silu.py, ops/conv.py: BatchNormAct)
+# ---------------------------------------------------------------------------
+
+# (y shape, modules): yolov9-c's train sites at 640 px, batch 32 (the stem's
+# 64 x 320 x 320, the widest 32- and 128-channel maps, 512 at 20 x 20, an
+# ADown's two modules at 256 x 80 x 80); C = 40 (a tile of 8 threads holding
+# 5 vectors), 80 and 12 (no multiple of the 16-byte vector: the one-element
+# walk) at odd H and W
+BN_SHAPES = [((32, 64, 320, 320), 1), ((32, 128, 160, 160), 1),
+             ((32, 32, 160, 160), 1), ((32, 512, 20, 20), 1),
+             ((32, 256, 80, 80), 2), ((2, 40, 17, 19), 1),
+             ((3, 80, 11, 13), 2), ((3, 12, 9, 7), 1)]
+
+
+def _bn_case(dev, shape, modules, dtype, seed=0):
+    """y ~ 1.5 N(0, 1) + 0.3, g ~ N(0, 1) in dtype, channels_last; BN
+    weight ~ U(0.5, 1.5), bias ~ 0.3 N(0, 1); the running statistics of
+    `modules` modules."""
+    from yolo_re_tpu_torch.ops.kernels import bn_silu  # noqa: F401
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    y = _rand(gen, *shape, scale=1.5, cl=True).add_(0.3).to(dtype).to(dev)
+    g = _rand(gen, *shape, dtype=dtype, cl=True).to(dev)
+    w = (torch.rand(c, generator=gen) + 0.5).to(dev)
+    b = _rand(gen, c, scale=0.3).to(dev)
+    k = c // modules
+    running = [(torch.zeros(k, device=dev), torch.ones(k, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev))
+               for _ in range(modules)]
+    return y, g, w, b, running
+
+
+def _per_channel_sum_tol(t: torch.Tensor) -> torch.Tensor:
+    """1e-5 of each channel's sum of |terms| (f32 sums of up to 3.3M
+    terms in two orders)."""
+    return 1e-5 * t.abs().sum(dim=(0, 2, 3))
+
+
+@pytest.mark.parametrize("act", ["silu", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,modules", BN_SHAPES)
+def test_bn_act_kernels_match_plain(cuda, shape, modules, dtype, act):
+    """Each kernel's two jobs against their plain versions on the card:
+    - the forward's reduction: mean, rstd, inv, shift within 1e-5
+      relative (f32 sums in another order), keep equal; the running
+      statistics likewise, and num_batches_tracked counted once a module;
+    - the forward's pointwise pass: z equal to the plain pass on the
+      kernel's statistics (the same ops at the same rounding points, SiLU
+      by the same expf);
+    - the backward, on the plain statistics: dweight and dbias each
+      channel within 1e-5 of its sum of |terms| (sum order); dx in f32
+      within 1e-5 relative, in bf16 within one bf16 ulp of |ref| (each side
+      rounds once an f32 value it computes in another op order), and
+      within 2^-10 of the largest |dx| near 0 (f32 cancellation)."""
+    from yolo_re_tpu_torch.ops.kernels import bn_silu
+    y, g, w, b, running = _bn_case(cuda, shape, modules, dtype)
+    plain_running = [tuple(t.clone() for t in r) for r in running]
+    before = (bn_silu.launches, bn_silu.bwd_launches)
+    z, stats = bn_silu.forward(y, w, b, act, running, True, 1e-3, 0.03)
+    ref = bn_silu.moments_plain(y, w, b, plain_running, True, 1e-3, 0.03)
+    torch.testing.assert_close(stats[:4], ref[:4], rtol=1e-5, atol=1e-5)
+    assert torch.equal(stats[4], ref[4])
+    for r, p in zip(running, plain_running):
+        torch.testing.assert_close(r[0], p[0], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(r[1], p[1], rtol=1e-5, atol=1e-6)
+        assert int(r[2]) == int(p[2]) == 1
+    assert z.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(z, bn_silu.affine_act_plain(y, stats, act))
+    dx, dw, db = bn_silu.backward(g, y, ref, act)
+    sums = bn_silu.grad_sums_plain(g, y, ref, act)
+    ga, xhat = bn_silu._grad_terms(g, y, ref, act)
+    assert bool(((db - sums[bn_silu.DBIAS]).abs()
+                 <= _per_channel_sum_tol(ga)).all())
+    assert bool(((dw - sums[bn_silu.DWEIGHT]).abs()
+                 <= _per_channel_sum_tol(ga * xhat)).all())
+    ref_dx = bn_silu.grad_input_plain(g, y, ref, sums, act)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(
+        dx.float(), ref_dx.float(), rtol=rtol,
+        atol=2.0 ** -10 * float(ref_dx.abs().max()))
+    torch.cuda.synchronize()
+    launched = 1 if dtype == torch.bfloat16 else 2
+    assert (bn_silu.launches - before[0], bn_silu.bwd_launches - before[1]) \
+        == (launched + 1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,modules", BN_SHAPES[:1] + BN_SHAPES[-3:])
+def test_bn_act_kernels_bit_equal_across_calls(cuda, shape, modules, dtype):
+    """No float atomics: two identical calls give equal statistics,
+    outputs and gradients."""
+    from yolo_re_tpu_torch.ops.kernels import bn_silu
+    y, g, w, b, running = _bn_case(cuda, shape, modules, dtype, seed=1)
+    outs = []
+    for _ in range(2):
+        z, stats = bn_silu.forward(y, w, b, "silu", running, False, 1e-3,
+                                   0.03)
+        outs.append((z, stats, *bn_silu.backward(g, y, stats, "silu")))
+    for a, b2 in zip(*outs):
+        assert torch.equal(a, b2)
+    # update=False left the running statistics as they were
+    assert all(int(r[2]) == 0 for r in running)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset,wide", [((32, 128, 40, 40), 128, 512),
+                                               ((2, 40, 17, 19), 8, 96),
+                                               ((3, 12, 9, 7), 4, 20)])
+def test_bn_act_backward_reads_a_channel_slice(cuda, shape, offset, wide,
+                                               dtype):
+    """The gradient a concat hands back is a channel slice of a wider
+    channels_last tensor: the backward reads its rows at their pitch (16
+    bytes aligned, or not: offset 4 of 20 channels) and gives what it gives
+    on a dense copy, bit for bit."""
+    from yolo_re_tpu_torch.ops.kernels import bn_silu
+    y, _, w, b, running = _bn_case(cuda, shape, 1, dtype, seed=2)
+    gen = torch.Generator().manual_seed(3)
+    whole = _rand(gen, shape[0], wide, *shape[2:], dtype=dtype,
+                  cl=True).to(cuda)
+    g = whole[:, offset:offset + shape[1]]
+    assert bn_silu.row_pitch(g) == wide
+    _, stats = bn_silu.forward(y, w, b, "silu", running, False, 1e-3, 0.03)
+    dense = g.contiguous(memory_format=torch.channels_last)
+    for a, b2 in zip(bn_silu.backward(g, y, stats, "silu"),
+                     bn_silu.backward(dense, y, stats, "silu")):
+        assert torch.equal(a, b2)
+
+
+def test_bn_act_wrappers_raise_on_cuda(cuda):
+    """A CUDA tensor that reaches a wrapper launches the kernels or raises:
+    an NCHW-contiguous tensor, a float16 one, an activation the kernels
+    lack, an NCHW-contiguous gradient."""
+    from yolo_re_tpu_torch.ops.kernels import bn_silu
+    y, g, w, b, running = _bn_case(cuda, (2, 16, 5, 6), 1, torch.bfloat16)
+    _, stats = bn_silu.forward(y, w, b, "silu", running, False, 1e-3, 0.03)
+    for call in (lambda: bn_silu.forward(y.contiguous(), w, b, "silu",
+                                         running, False, 1e-3, 0.03),
+                 lambda: bn_silu.forward(y.half(), w, b, "silu", running,
+                                         False, 1e-3, 0.03),
+                 lambda: bn_silu.forward(y, w, b, "relu", running, False,
+                                         1e-3, 0.03),
+                 lambda: bn_silu.backward(g.contiguous(), y, stats, "silu")):
+        with pytest.raises((TypeError, ValueError)):
+            call()
+
+
+def _yolov9c_step_grads(cuda, tr, batch, dtype, eager: bool, monkeypatch):
+    """One yolov9-c step's loss and parameter gradients on the card, as
+    Trainer._step computes them (without the update), the activations in
+    dtype; eager: every train BN site through the eager chain."""
+    from yolo_re_tpu_torch.ops import conv
+    from yolo_re_tpu_torch.utils.precision import full_f32
+    with monkeypatch.context() as m:
+        if eager:
+            m.setattr(conv, "takes_kernels", lambda *args: False)
+        x, t, ready = tr._put_batch(batch["images"], batch["targets"])
+        if ready is not None:
+            torch.cuda.current_stream(cuda).wait_event(ready)
+        x = tr._normalized(x).to(dtype).contiguous().permute(0, 3, 1, 2)
+        names = list(tr.params)
+        before = (conv.fused_sites, conv.eager_sites)
+        with full_f32():
+            total, _ = tr.loss_fn(tr.model(x), t)
+            grads = torch.autograd.grad(total, [tr.params[k] for k in names])
+        torch.cuda.synchronize()
+        sites = (conv.fused_sites - before[0], conv.eager_sites - before[1])
+    return float(total.detach()), dict(zip(names, grads)), sites
+
+
+def test_yolov9c_bf16_step_runs_every_bn_site_through_the_kernels(
+        cuda, tmp_path, monkeypatch):
+    """yolov9-c at full width, one bf16 step at batch 8, 320 px, BN scales
+    U(0.02, 0.06) (as the benchmark's train cell: at the default scales a
+    bf16 step departs from an f32 one by O(1)): every train BN site (the
+    model's BN modules, ADown's two counted as one site) takes
+    BatchNormAct, none the eager chain. The same step in f32 through the
+    eager chain is the reference; d(a, b) is the relative L2 of all
+    gradients together. The kernels' step sits no farther from the
+    reference than the bf16 eager chain's, plus 10% of it (the rest of the
+    step's bf16 rounding, which both share), in the loss (and 1e-5 of it)
+    and in d; and the two bf16 steps lie within twice that distance of
+    each other (each carries its own bf16 rounding). Measured on an H100
+    80GB HBM3: d(kernels, f32) 2.7e-4, d(eager, f32) 6.0e-4, d(kernels,
+    eager) 6.6e-4, the two bf16 losses equal."""
+    from torch import nn
+
+    from yolo_re_tpu_torch.models.blocks import ADown
+    cfg = TrainConfig(data_parallel=False, output_dir=str(tmp_path),
+                      compute_dtype="bfloat16")
+    model = YOLO.from_yaml(Path(__file__).resolve().parent.parent /
+                           "configs" / "models" / "yolov9-c.yaml")
+    batch = make_eval_batch(8, 320, 5)
+    tr = Trainer(model, config=cfg, train_loader=[batch], device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.copy_(0.02 + 0.04 * torch.rand(
+                    m.num_features, generator=gen))
+    want = sum(isinstance(m, nn.BatchNorm2d) for m in model.modules()) - \
+        sum(isinstance(m, ADown) for m in model.modules())
+    steps = {}
+    for name, dtype, eager in (("kernels", torch.bfloat16, False),
+                               ("eager", torch.bfloat16, True),
+                               ("f32", torch.float32, True)):
+        steps[name] = _yolov9c_step_grads(cuda, tr, batch, dtype, eager,
+                                          monkeypatch)
+    assert steps["kernels"][2] == (want, 0)
+    assert steps["eager"][2] == (0, want)
+
+    def flat(name):
+        gs = steps[name][1]
+        return torch.cat([gs[k].float().flatten() for k in sorted(gs)])
+
+    def d(a, b):
+        return float((flat(a) - flat(b)).norm() / flat(b).norm())
+
+    loss = {k: v[0] for k, v in steps.items()}
+    print(f"loss {loss}; d(kernels, f32) {d('kernels', 'f32')}, "
+          f"d(eager, f32) {d('eager', 'f32')}, d(kernels, eager) "
+          f"{d('kernels', 'eager')}")
+    # the two bf16 forwards round at the same points; their moments sum in
+    # other orders, which moves the loss by a few f32 ulps at most
+    assert abs(loss["kernels"] - loss["eager"]) <= 1e-5 * abs(loss["eager"])
+    assert abs(loss["kernels"] - loss["f32"]) <= \
+        1.1 * abs(loss["eager"] - loss["f32"]) + 1e-5 * abs(loss["f32"])
+    assert d("kernels", "f32") <= 1.1 * d("eager", "f32")
+    assert d("kernels", "eager") <= 2.2 * d("eager", "f32")

@@ -379,7 +379,8 @@ def test_profile_launches_needs_a_card(monkeypatch, capsys):
                  ["eval", "bf16", "yolov9-c"], ["train", "f32", "gelan-c"],
                  ["train", "nomodel"], ["eval", "f32"], ["roof", "yolov9-c"],
                  ["train", "aug"], ["train", "f32", "aug", "gelan-c"],
-                 ["augment"], ["augment", "f32"]):
+                 ["augment"], ["augment", "f32"], ["bn"], ["bn", "f32"],
+                 ["bn", "gelan-c"]):
         assert profile_launches.main(argv) == 2
     assert profile_launches.parse(["train", "f32", "yolov9-c"]) == \
         ("train", "f32", False, "yolov9-c")
@@ -388,7 +389,10 @@ def test_profile_launches_needs_a_card(monkeypatch, capsys):
     assert profile_launches.parse(["eval"]) == ("eval", "", False, "gelan-c")
     assert profile_launches.parse(["augment", "f32"]) == \
         ("augment", "f32", False, "")
-    for bad in (["train", "nomodel"], ["eval", "f32"], ["roof", "x"],
+    assert profile_launches.parse(["bn"]) == ("bn", "", False, "yolov9-c")
+    assert profile_launches.parse(["bn", "f32", "gelan-c"]) == \
+        ("bn", "f32", False, "gelan-c")
+    for bad in (["bn", "bf16"], ["bn", "aug"], ["train", "nomodel"], ["eval", "f32"], ["roof", "x"],
                 ["eval", "bf16", "yolov9-c", "x"], ["eval", "aug"],
                 ["train", "aug", "f32"], ["augment", "gelan-c"],
                 ["augment", "bf16"]):

@@ -4,7 +4,7 @@ augmentation.
 
     python -m yolo_re_tpu_torch.cli.profile_launches \
         [kernels|train [f32] [aug] [MODEL]|eval [bf16] [MODEL]|
-         augment [f32]|ddp [f32]|roof]
+         bn [f32] [MODEL]|augment [f32]|ddp [f32]|roof]
 
 MODEL names a file of configs/models/ (`gelan-c`, the default, or
 `yolov9-c`, whose train step runs both branches and the dual loss and
@@ -53,6 +53,21 @@ handed over as the loader hands a batch (on the host), through
 NMS and the copy of the padded detections back. It prints the device
 time per batch of the 15 largest kernels, of the package's own kernels
 and of all, and the NMS kernel's time and share of all.
+
+`bn`: the train BN + activation of a MODEL train step (default
+yolov9-c), bf16 (`bn f32`: f32), batch 32, 640 px: every site's shape
+from one train forward (`ops/conv.batch_norm_act`), then at each distinct
+shape the device time (`launch_times`) and launches of the kernels,
+together and each (`bn_silu.forward`: `moments` + `affine_act`;
+`bn_silu.backward`: `grad_sums` + `grad_input`), of their plain versions,
+of the
+eager chain they replace (`batch_moments`, `update_running_stats`,
+`bn_affine`, the activation, and autograd's backward of them) and of the
+library's `F.batch_norm(training=True)` + `F.silu` (the yardstick; the
+port never calls it), with the bounds (bytes at 3.35 TB/s: y and z once
+forward, g, y and dx once backward; each kernel's own: the reduction
+reads y, then g and y; the pointwise pass reads y and writes z, then
+reads g and y and writes dx), each summed over the step's sites.
 
 `augment`: the device time by kernel of one call of augment_batch_full
 (fast and general path) and of augment_batch at gelan-c's train shape,
@@ -385,7 +400,8 @@ def train_step(dtype: str, name: str, aug: bool = False) -> None:
     rows = launch_times(lambda: step(1))
     report("device time per step, by kernel (largest 15 of "
            f"{len(rows)})", rows[:15])
-    print(f"  all kernels {sum(r[0] for r in rows):.4f} ms per step")
+    print(f"  all kernels {sum(r[0] for r in rows):.4f} ms per step, "
+          f"{sum(r[1] for r in rows)} launches")
     n, ms, copies, kernels = copy_streams(
         lambda: [step(i) for i in range(3)])
     print(f"  batch copies from pinned memory over 3 steps: {n}, {ms:.4f} "
@@ -467,6 +483,148 @@ def eval_batch(dtype: str, name: str) -> None:
           f"{nms_ms / total:.4f} of all")
 
 
+def bn_sites(dtype: torch.dtype, name: str) -> dict:
+    """(C, H, W, modules, act) -> sites of a train forward at batch 32,
+    640 px, recorded at ops/conv.batch_norm_act."""
+    from yolo_re_tpu_torch.models import blocks
+    from yolo_re_tpu_torch.models.yolo import YOLO
+    from yolo_re_tpu_torch.ops import adown_train, conv
+
+    sites: dict = {}
+    real = conv.batch_norm_act
+
+    def record(y, bns, act):
+        key = (*y.shape[1:], len(bns), act)
+        sites[key] = sites.get(key, 0) + 1
+        return real(y, bns, act)
+
+    model = YOLO.from_yaml(CONFIGS / f"{name}.yaml").cuda().train()
+    x = torch.rand(BATCH, 3, 640, 640, device="cuda", dtype=dtype)
+    mods = (conv, blocks, adown_train)
+    try:
+        for m in mods:
+            m.batch_norm_act = record
+        with torch.no_grad():
+            model(x.contiguous(memory_format=torch.channels_last))
+    finally:
+        for m in mods:
+            m.batch_norm_act = real
+    del model, x
+    torch.cuda.empty_cache()
+    return sites
+
+
+def device_ms(fn) -> tuple[float, int]:
+    """(device ms, launches) of one call of fn (`launch_times`)."""
+    return rows_ms(launch_times(fn))
+
+
+def rows_ms(rows, kernel: str = "") -> tuple[float, int]:
+    """(device ms, launches) of the `launch_times` rows whose kernel name
+    holds `kernel`."""
+    rows = [r for r in rows if kernel in r[2]]
+    return sum(r[0] for r in rows), sum(r[1] for r in rows)
+
+
+def bn_shape_ms(c: int, h: int, w: int, modules: int, act: str,
+                dtype: torch.dtype) -> dict[str, tuple]:
+    """name -> (forward ms, backward ms, forward launches, backward
+    launches) of one site of this shape, device time (`launch_times`):
+    the kernels together ("kernels") and each ("reduction": moments, the
+    backward's sums; "pointwise": affine + activation, dx), their plain
+    versions likewise, the eager chain, the library, and the bounds (bytes
+    at 3.35 TB/s: the op's inputs and outputs once, "bound"; each kernel's
+    own, "bound reduction", "bound pointwise")."""
+    import torch.nn.functional as F
+
+    from yolo_re_tpu_torch.ops import conv
+    from yolo_re_tpu_torch.ops.kernels import bn_silu
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (BATCH, c, h, w)
+
+    def rand(scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale) \
+            .to(dtype).contiguous(memory_format=torch.channels_last)
+
+    y, g = rand(1.5), rand()
+    wt = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bs = torch.randn(c, generator=gen, device="cuda") * 0.3
+    bns = [torch.nn.BatchNorm2d(c // modules, eps=conv.BN_EPS,
+                                momentum=conv.BN_MOMENTUM).cuda()
+           for _ in range(modules)]
+    running = [(b.running_mean, b.running_var, b.num_batches_tracked)
+               for b in bns]
+    fn = F.silu if act == "silu" else (lambda t: t)
+    eps, mom = conv.BN_EPS, conv.BN_MOMENTUM
+    _, stats = bn_silu.forward(y, wt, bs, act, running, True, eps, mom)
+    sums = bn_silu.grad_sums_plain(g, y, stats, act)
+    out = {}
+    rows_f = launch_times(lambda: bn_silu.forward(y, wt, bs, act, running,
+                                                  True, eps, mom))
+    rows_b = launch_times(lambda: bn_silu.backward(g, y, stats, act))
+    for name, kernel in (("kernels", ""), ("reduction", "bn_reduce_kernel"),
+                         ("pointwise", "bn_pointwise_kernel")):
+        fwd, bwd = rows_ms(rows_f, kernel), rows_ms(rows_b, kernel)
+        out[name] = (fwd[0], bwd[0], fwd[1], bwd[1])
+    plain = {
+        "plain reduction": (
+            lambda: bn_silu.moments_plain(y, wt, bs, running, True, eps, mom),
+            lambda: bn_silu.grad_sums_plain(g, y, stats, act)),
+        "plain pointwise": (
+            lambda: bn_silu.affine_act_plain(y, stats, act),
+            lambda: bn_silu.grad_input_plain(g, y, stats, sums, act))}
+    for name, (f_call, b_call) in plain.items():
+        fwd, bwd = device_ms(f_call), device_ms(b_call)
+        out[name] = (fwd[0], bwd[0], fwd[1], bwd[1])
+
+    def autograd_ms(forward) -> tuple:
+        yr = y.detach().requires_grad_()
+        params = (wt.detach().requires_grad_(), bs.detach().requires_grad_())
+        fwd = device_ms(lambda: forward(yr, *params))
+        z = forward(yr, *params)
+        bwd = device_ms(lambda: torch.autograd.grad(z, (yr, *params), g,
+                                                    retain_graph=True))
+        return fwd[0], bwd[0], fwd[1], bwd[1]
+
+    def eager(yr, w_, b_):
+        mean, var = conv.batch_moments(yr)
+        conv.update_running_stats(bns[0], mean[:c // modules],
+                                  var[:c // modules], yr.numel() // c)
+        return fn(conv.bn_affine(yr, mean, var, w_, b_))
+
+    out["eager"] = autograd_ms(eager)
+    out["library"] = autograd_ms(lambda yr, w_, b_: fn(F.batch_norm(
+        yr, None, None, w_, b_, training=True, momentum=mom, eps=eps)))
+    ms = y.numel() * y.element_size() / HBM_BYTES_PER_S * 1e3
+    out["bound"] = (2 * ms, 3 * ms, 0, 0)
+    out["bound reduction"] = (ms, 2 * ms, 0, 0)
+    out["bound pointwise"] = (2 * ms, 3 * ms, 0, 0)
+    return out
+
+
+def bn_step(dtype: torch.dtype, name: str) -> None:
+    from yolo_re_tpu_torch.utils.precision import full_f32
+
+    with full_f32():
+        sites = bn_sites(dtype, name)
+        print(f"{name} {dtype} train BN + activation, batch {BATCH}, 640 "
+              f"px: {sum(sites.values())} sites at {len(sites)} shapes")
+        total: dict[str, list[float]] = {}
+        for key, count in sorted(sites.items()):
+            ms = bn_shape_ms(*key, dtype)
+            print(f"  {key} x{count}: " + ", ".join(
+                f"{k} {v[0]:.4f}+{v[1]:.4f}" for k, v in ms.items()))
+            for k, v in ms.items():
+                acc = total.setdefault(k, [0.0] * 4)
+                for i, x in enumerate(v):
+                    acc[i] += count * x
+    print("  summed over the step's sites, device ms forward + backward = "
+          "all (launches forward + backward):")
+    for k, (f, b, nf, nb) in total.items():
+        print(f"    {k:16s} {f:.4f} + {b:.4f} = {f + b:.4f} ({nf} + {nb})")
+
+
 def memory_roof() -> None:
     for dtype in (torch.bfloat16, torch.float32):
         y = torch.empty(BATCH, 64, 320, 320, dtype=dtype, device="cuda")
@@ -495,7 +653,7 @@ def parse(what: list[str]) -> tuple[str, str, bool, str] | None:
     malformed."""
     if what in (["kernels"], ["roof"]):
         return what[0], "", False, ""
-    flag = {"train": "f32", "eval": "bf16", "augment": "f32",
+    flag = {"train": "f32", "eval": "bf16", "bn": "f32", "augment": "f32",
             "ddp": "f32"}.get(what[0])
     if flag is None:
         return None
@@ -508,7 +666,8 @@ def parse(what: list[str]) -> tuple[str, str, bool, str] | None:
     aug = what[0] == "train" and rest[:1] == ["aug"]
     if aug:
         rest.pop(0)
-    name = rest.pop(0) if rest else "gelan-c"
+    name = rest.pop(0) if rest else \
+        "yolov9-c" if what[0] == "bn" else "gelan-c"
     if rest or not (CONFIGS / f"{name}.yaml").is_file():
         return None
     return what[0], dtype, aug, name
@@ -518,7 +677,8 @@ def main(argv: list[str] | None = None) -> int:
     parsed = parse((sys.argv[1:] if argv is None else argv) or ["kernels"])
     if parsed is None:
         print("usage: profile_launches [kernels|train [f32] [aug] [MODEL]|"
-              "eval [bf16] [MODEL]|augment [f32]|ddp [f32]|roof]",
+              "eval [bf16] [MODEL]|bn [f32] [MODEL]|augment [f32]|ddp "
+              "[f32]|roof]",
               file=sys.stderr)
         return 2
     what, dtype, aug, name = parsed
@@ -534,6 +694,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if what == "eval":
         eval_batch("bfloat16" if dtype else "float32", name)
+        return 0
+    if what == "bn":
+        bn_step(torch.float32 if dtype else torch.bfloat16, name)
         return 0
     if what == "augment":
         augment_calls("float32" if dtype else "bfloat16")

@@ -37,7 +37,7 @@ from yolo_re_tpu_torch.ops.conv import (
     BN_MOMENTUM,
     autopad,
     avg_pool2d,
-    batch_norm,
+    batch_norm_act,
     conv_bn_act,
     fold_conv_bn,
     get_activation,
@@ -113,7 +113,7 @@ class Conv(nn.Module):
             # train stem (ops/stem_train.py): kernel forward + weight-grad
             # kernel backward, then train BN and SiLU
             y = stem_conv_raw_train(x, self.conv.weight)
-            return get_activation(self.activation)(batch_norm(y, self.bn))
+            return batch_norm_act(y, (self.bn,), self.activation)
         return conv_bn_act(x, self.conv, self.bn, self.activation)
 
     def fuse(self) -> None:
@@ -283,7 +283,10 @@ class RepNCSPELAN4(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv_in(x)
-        ya, yb = y[:, :self.half], y[:, self.half:]
+        # split, not two slices: its backward is one concat of the two
+        # halves' gradients in their memory format, where two slices'
+        # each fill a zero tensor in NCHW memory and add
+        ya, yb = torch.split(y, [self.half, y.shape[1] - self.half], dim=1)
         y1 = self.block1(yb)
         y2 = self.block2(y1)
         return self.conv_out(torch.cat([ya, yb, y1, y2], dim=1))

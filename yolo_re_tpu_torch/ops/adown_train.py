@@ -6,8 +6,9 @@ two hand-written kernels (counterpart of yolo_re_tpu/ops/adown_train.py,
 - backward: `adown_bwd` (kernel 6): dx through both pooling paths and both
   weight gradients. The Function saves x (not the avgpool output); the
   backward recomputes the avg from it.
-- one train BN over the concatenated branch channels, then SiLU; the
-  running statistics split back to `conv_stride` and `conv_pool`.
+- one train BN over the concatenated branch channels, then SiLU
+  (ops/conv.py: batch_norm_act, on a CUDA tensor the BN + SiLU kernels);
+  the running statistics split back to `conv_stride` and `conv_pool`.
 
 The JAX package folds the avgpool's 1/4 into the weights; the kernels here
 apply it to the window sums, so the weights and their gradients are the
@@ -24,13 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from yolo_re_tpu_torch.ops.conv import (
-    batch_count,
-    batch_moments,
-    bn_affine,
-    silu,
-    update_running_stats,
-)
+from yolo_re_tpu_torch.ops.conv import batch_norm_act
 from yolo_re_tpu_torch.ops.kernels import adown as adown_kernel
 
 
@@ -59,11 +54,4 @@ def adown_train(x: torch.Tensor, conv_stride, conv_pool) -> torch.Tensor:
     cs, cp = conv_stride, conv_pool
     y = ADownRaw.apply(x.contiguous(memory_format=torch.channels_last),
                        cs.conv.weight, cp.conv.weight)
-    half = y.shape[1] // 2
-    mean, var = batch_moments(y)
-    n = batch_count(y)
-    update_running_stats(cs.bn, mean[:half], var[:half], n)
-    update_running_stats(cp.bn, mean[half:], var[half:], n)
-    y = bn_affine(y, mean, var, torch.cat([cs.bn.weight, cp.bn.weight]),
-                  torch.cat([cs.bn.bias, cp.bn.bias]))
-    return silu(y)
+    return batch_norm_act(y, (cs.bn, cp.bn), "silu")

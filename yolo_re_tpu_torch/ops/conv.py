@@ -15,6 +15,14 @@ variance. Inside `parallel.mesh.global_batch(group)` (the Trainer's
 data-parallel step) the moments and the count are the global batch's, as
 XLA's sharded reductions make them in the JAX package.
 
+On a CUDA tensor, train-mode BN + activation ("silu" or "none") outside
+`global_batch` is one autograd Function, `BatchNormAct`, over the
+hand-written kernels of ops/kernels/bn_silu.py, forward and backward, at
+the same rounding points; `batch_norm_act` decides from its input, and
+`fused_sites` / `eager_sites` count the train-mode sites that took the
+kernels and those that ran the eager chain. The CPU, the data-parallel
+step's global moments and the other activations keep the eager chain.
+
 Under per-block remat (`YOLO.forward(remat=...)`, torch.utils.checkpoint)
 a block's forward runs a second time inside the backward. The running
 statistics are updated once, in the first run: `update_running_stats`
@@ -39,10 +47,16 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from yolo_re_tpu_torch.ops.kernels import bn_silu
 from yolo_re_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+
+# train-mode BN sites that took the kernels (`BatchNormAct`) and that ran the
+# eager chain (`batch_norm_act`)
+fused_sites = 0
+eager_sites = 0
 
 
 def autopad(kernel_size: int, padding: int | None = None,
@@ -178,6 +192,76 @@ def batch_norm(y: torch.Tensor, bn: torch.nn.BatchNorm2d) -> torch.Tensor:
     return bn_affine(y, mean, var, bn.weight, bn.bias)
 
 
+class BatchNormAct(torch.autograd.Function):
+    """Train-mode BN (batch statistics, the running statistics updated
+    unless `recomputing()`) + activation over the kernels of
+    ops/kernels/bn_silu.py: two or three launches forward, two backward.
+    Saves y and its [5, C] statistics only. y: (B, C, H, W) channels_last
+    in the compute dtype; weight, bias: (C,) f32, whose gradients come
+    back in f32; running: the statistics of the BN module(s) whose
+    channels y holds, in order."""
+
+    @staticmethod
+    def forward(ctx, y: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, running, act: str) -> torch.Tensor:
+        z, stats = bn_silu.forward(
+            y, weight.detach().float(), bias.detach().float(), act, running,
+            not _RECOMPUTING.get(), BN_EPS, BN_MOMENTUM)
+        ctx.save_for_backward(y, stats)
+        ctx.act = act
+        ctx.dtypes = (weight.dtype, bias.dtype)
+        return z
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        y, stats = ctx.saved_tensors
+        if bn_silu.row_pitch(g) is None:
+            g = g.contiguous(memory_format=torch.channels_last)
+        dx, dw, db = bn_silu.backward(g, y, stats, ctx.act)
+        return dx, dw.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None, None
+
+
+def takes_kernels(y: torch.Tensor, bn: torch.nn.BatchNorm2d,
+                  act: str) -> bool:
+    """Whether train BN + `act` of y runs `BatchNormAct`: a CUDA tensor, BN
+    in train mode, an activation the kernels have, and no data-parallel
+    group (whose global moments stay eager)."""
+    return (y.device.type == "cuda" and bn.training
+            and act in bn_silu.ACTIVATIONS and batch_group() is None)
+
+
+def batch_norm_act(y: torch.Tensor, bns: tuple[torch.nn.BatchNorm2d, ...],
+                   act: str) -> torch.Tensor:
+    """act(BN(y)) of a pre-BN tensor whose channels belong to the BN
+    modules `bns` in order (one module; ADown's two branches share one
+    pass). `BatchNormAct` where `takes_kernels`, else the eager chain;
+    several modules only in train mode."""
+    global fused_sites, eager_sites
+    if takes_kernels(y, bns[0], act):
+        fused_sites += 1
+        weight, bias = (bns[0].weight, bns[0].bias) if len(bns) == 1 else (
+            torch.cat([bn.weight for bn in bns]),
+            torch.cat([bn.bias for bn in bns]))
+        return BatchNormAct.apply(
+            y.contiguous(memory_format=torch.channels_last), weight, bias,
+            [(bn.running_mean, bn.running_var, bn.num_batches_tracked)
+             for bn in bns], act)
+    if bns[0].training:
+        eager_sites += 1
+    if len(bns) == 1:
+        return get_activation(act)(batch_norm(y, bns[0]))
+    mean, var = batch_moments(y)
+    n = batch_count(y)
+    start = 0
+    for bn in bns:
+        stop = start + bn.num_features
+        update_running_stats(bn, mean[start:stop], var[start:stop], n)
+        start = stop
+    y = bn_affine(y, mean, var, torch.cat([bn.weight for bn in bns]),
+                  torch.cat([bn.bias for bn in bns]))
+    return get_activation(act)(y)
+
+
 def conv_bn_act(x: torch.Tensor, conv: torch.nn.Conv2d,
                 bn: torch.nn.BatchNorm2d | None, act: str = "silu"
                 ) -> torch.Tensor:
@@ -192,9 +276,9 @@ def conv_bn_act(x: torch.Tensor, conv: torch.nn.Conv2d,
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     y = F.conv2d(x, conv.weight.to(x.dtype), bias, conv.stride,
                  conv.padding, conv.dilation, conv.groups)
-    if bn is not None:
-        y = batch_norm(y, bn)
-    return get_activation(act)(y)
+    if bn is None:
+        return get_activation(act)(y)
+    return batch_norm_act(y, (bn,), act)
 
 
 def fold_conv_bn(weight: torch.Tensor, bn: torch.nn.BatchNorm2d

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes. Every entry returns cudaGetLastError().
 SIGNATURES = {
     # x, w, b, y, B, H, W, C, dtype, stream
@@ -57,6 +58,15 @@ SIGNATURES = {
     "yolo_csp_chain": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, w, b, y, B, H, W, dtype, stream
     "yolo_conv3_silu": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # y, weight, bias, stats, part, part floats, tickets, tickets' length,
+    # running mean, var, count of module 0 and of module 1, split, rows, C,
+    # eps, momentum, 1 - momentum, n / (n - 1), update, z, act, dtype,
+    # stream
+    "yolo_bn_forward": (_P,) * 5 + (_L, _P, _I) + (_P,) * 6 + (_I,) * 3
+    + (_F,) * 4 + (_I, _P, _I, _I, _P),
+    # g, y, stats, grads, part, part floats, tickets, tickets' length, dx,
+    # rows, C, g's row pitch, act, dtype, stream
+    "yolo_bn_backward": (_P,) * 5 + (_L, _P, _I, _P) + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()
